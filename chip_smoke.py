@@ -2,16 +2,36 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels (K1 bin resolve, K2 SSAO taps, K3
-TAA history fetch) from ``soc_real_time_renderer_tpu_torch/kernels/csrc``,
-builds the ``terrain`` scene at 1920x1088 with every other RenderConfig
-default, holds each kernel against its plain PyTorch version on this
-frame's real inputs, renders 8 frames through ``render_frame`` (and
-checks that they went through the kernels), and times frame and kernels
-with CUDA events.  Any failure exits nonzero before the last line; on
-success the last line is the JSON contract line
-``{"ok": true, "device": {...}}`` and the line before it the per-kernel
-JSON.  Imports nothing of JAX.
+Builds the six hand-written CUDA kernels from
+``soc_real_time_renderer_tpu_torch/kernels/csrc`` (K1 bin resolve, K2
+SSAO taps, K3 TAA history fetch, K4 shadow depth resolve, K5 material
+texture tap, K6 noise-texture sky LUT), then renders three scenes at
+1920x1088 with every other RenderConfig default (4096^2 shadow map):
+
+* ``terrain``: ``scenes.build("terrain")``, BASELINE config 4.  Its
+  path runs K1, K2, K3 and K5 (the sun shadow is proved empty, there is
+  no cloud noise).
+* ``full_nohelmet``: BASELINE config 5 without its helmet: the
+  procedural atrium (five flat materials) at scale 0.01 plus the
+  terrain at y = -8, animated camera, and a (64, 64) cloud-noise field
+  made from a seed (the shape class of assets/Clouds/noise.png).  K1,
+  K2, K3, K5, K6.
+* ``atrium_lifted``: BASELINE config 6 with the atrium in the helmet's
+  place at y = 32, inside the sun's volume, so the 4096^2 shadow view
+  is rastered and sampled through its proved crop; given the same
+  noise field.  All six kernels.
+
+Both atrium scenes are composed from ``Scene`` + ``scenes._finish``, as
+the JAX package composes its presets.  For each scene: the build, each
+kernel of its path against its plain PyTorch version on the frame's own
+inputs, 8 frames through ``render_frame`` (launch counts set to 0 just
+before, read just after: each kernel of the path launches once per
+frame, the others never), the kernel-path frame against the plain-path
+frame, frame and kernel times with CUDA events, and a per-stage
+breakdown.  Any failure exits nonzero before the last line; on success
+the line before the last is the per-kernel JSON and the last line the
+contract line ``{"ok": true, "device": {...}}``.  Imports nothing of
+JAX.
 """
 from __future__ import annotations
 
@@ -25,6 +45,45 @@ import traceback
 WIDTH, HEIGHT = 1920, 1088
 FRAMES = 8
 TIMED = 5
+NOISE_SEED = 11
+
+# the card's peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM bytes/s
+# and f32 operations/s outside the tensor cores
+HBM_BPS = 3.35e12
+F32_OPS = 67e12
+
+# f32 operations per unit of work, counted from each kernel's source
+# (a transcendental function or a division counts as one)
+RESOLVE_OPS_TEST = 15    # (pair, bin pixel): 3 edge functions, 3 sign tests
+RESOLVE_OPS_INSIDE = 15  # (pair, pixel) inside the edges: ez, ew, ew > 0,
+#                          z = ez / ew, 0 <= z <= 1, min
+SSAO_OPS = 80          # tap: sample point, projection, occluder, range check
+TAA_OPS_PIXEL = 10     # uv - velocity, floor, weights
+TAA_OPS_CHANNEL = 9    # bilinear blend of one channel
+TEX_OPS_CHANNEL = 10   # unpack 4 corners, bilinear blend, / 255
+SKY_OPS_ATMOS = 3400   # atmosphere of one texel: 16 x (8 + 1) samples
+SKY_OPS_DENSITY = 250  # one cloud density: 4 octaves x 2 slices x 4 taps
+SKY_OPS_SAMPLE = 40    # one march sample's phase, powder, scatter terms
+
+SRC = "soc_real_time_renderer_tpu_torch/kernels/csrc/"
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "resolve": (SRC + "resolve.cu",
+                "soc_real_time_renderer_tpu/ops/raster2.py:556"),
+    "resolve_depth": (SRC + "resolve.cu",
+                      "soc_real_time_renderer_tpu/ops/raster2.py:447"),
+    "texsample": (SRC + "texsample.cu",
+                  "soc_real_time_renderer_tpu/ops/texsample.py:488"),
+    "ssao_taps": (SRC + "ssao.cu",
+                  "soc_real_time_renderer_tpu/ops/ssao.py:244"),
+    "sky_lut": (SRC + "sky.cu",
+                "soc_real_time_renderer_tpu/ops/sky_pallas.py:149"),
+    "taa_reproject": (SRC + "taa.cu",
+                      "soc_real_time_renderer_tpu/ops/taa_pallas.py:30"),
+}
+# the scene whose inputs give each kernel's line in the JSON
+HOME = {"resolve": "terrain", "ssao_taps": "terrain",
+        "taa_reproject": "terrain", "texsample": "full_nohelmet",
+        "sky_lut": "full_nohelmet", "resolve_depth": "atrium_lifted"}
 
 
 def log(msg):
@@ -51,138 +110,532 @@ def cuda_ms(fn, reps):
     return statistics.median(times)
 
 
-def main():
+def smi(query):
+    """The first card's `nvidia-smi --query-gpu=<query>` line."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip() \
+        .splitlines()[0]
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    f32 operations over the f32 peak."""
+    tb, to = nbytes / HBM_BPS * 1e3, ops / F32_OPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def cloud_noise():
+    """The (64, 64) smooth tiled noise field of tests/test_sky_pallas.py,
+    made from NOISE_SEED."""
+    import numpy as np
+    rng = np.random.default_rng(NOISE_SEED)
+    base = rng.random((16, 16)).astype(np.float32)
+    sm = np.kron(base, np.ones((4, 4), np.float32))
+    k = np.ones((3, 3), np.float32) / 9.0
+    for _ in range(2):
+        padded = np.pad(sm, 1, mode="wrap")
+        sm = sum(padded[dy:dy + 64, dx:dx + 64] * k[dy, dx]
+                 for dy in range(3) for dx in range(3))
+    return sm.astype(np.float32)
+
+
+def build_scene(name, dev):
+    """The BuiltScene of `name` at WIDTH x HEIGHT on `dev`."""
+    import dataclasses
     import torch
-    if not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: this smoke run needs a GPU")
-    # the renderer, before any output: without it nothing is printed
     from soc_real_time_renderer_tpu_torch import scenes
     from soc_real_time_renderer_tpu_torch.config import RenderConfig
+    from soc_real_time_renderer_tpu_torch.models import proc
+    from soc_real_time_renderer_tpu_torch.scene.components import \
+        MeshComponent, TransformComponent
+    from soc_real_time_renderer_tpu_torch.scene.scene import Scene
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT)
+    if name == "terrain":
+        return scenes.build("terrain", cfg, device=dev)
+    scene = Scene(name)
+    models = []
+
+    def entity(ename, model, position=None, scale=None):
+        e = scene.create_entity(ename)
+        tc = e.add_component(TransformComponent())
+        if scale is not None:
+            tc.set_scale(scale)
+        if position is not None:
+            tc.set_position(position)
+        e.add_component(MeshComponent()).model = model
+        models.append(model)
+
+    atrium = proc.build_atrium(texture_dir=None)
+    if name == "full_nohelmet":
+        entity("sponza model", atrium, scale=[0.01] * 3)
+        entity("terrain", scenes.terrain_model(), position=[0.0, -8.0, 0.0])
+        built = scenes._finish(scene, models, cfg, [-7.0, 1.8, 0.0],
+                               [0, 1.5, 0], animate=True, device=dev)
+    else:
+        entity("sponza model", atrium, position=[0.0, 32.0, 0.0],
+               scale=[0.01] * 3)
+        built = scenes._finish(scene, models, cfg, [-7.0, 33.8, 0.0],
+                               [0, 33.5, 0], device=dev)
+    built.batch = dataclasses.replace(
+        built.batch, cloud_noise=torch.from_numpy(cloud_noise()).to(dev))
+    return built
+
+
+def path_of(plan, batch):
+    """The kernels `render_frame` launches for this plan and batch."""
+    cfg = plan.config
+    path = ["resolve", "texsample", "ssao_taps", "taa_reproject"]
+    if cfg.enable_shadows and not plan.shadow_statically_empty:
+        path.append("resolve_depth")
+    if (cfg.enable_clouds and cfg.cloud_noise_mode == "texture"
+            and batch.cloud_noise is not None):
+        path.append("sky_lut")
+    return path
+
+
+def kernel_cases(built, dev):
+    """Per kernel of the scene's path: (call(impl), compare(k, p) ->
+    (max_abs_err, message, ok), (bytes, operations), library call or
+    None), all on the frame's own inputs: a plain-path warm frame (frame
+    0) gives the G-buffer, history and texture-tap inputs, frame 1's
+    globals the rest."""
+    import torch
     from soc_real_time_renderer_tpu_torch.graph import frame as fm
-    from soc_real_time_renderer_tpu_torch.kernels import build as kb
-    from soc_real_time_renderer_tpu_torch.ops import raster2, ssao, taa
-
-    # phase 1: device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
-    card = f"[{smi}]"
-    log(f"phase 1 device: {smi}")
-    log(f"phase 1 torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)} "
-        f"count {torch.cuda.device_count()}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda:0")
-
-    # phase 2: build the kernels from the checkout's sources
-    t0 = time.perf_counter()
-    kb.library()
-    regs = [ln.strip() for ln in kb.build_log.splitlines()
-            if "registers" in ln or "Compiling entry" in ln]
-    log(f"phase 2 build: {time.perf_counter() - t0:.1f} s (nvcc "
-        f"{kb.build_seconds if kb.build_seconds is not None else 0:.1f} s) "
-        f"-> {kb.LIB}")
-    for ln in regs:
-        log(f"  ptxas: {ln}")
-
-    # phase 3: the scene
-    t0 = time.perf_counter()
-    built = scenes.build("terrain", RenderConfig(width=WIDTH, height=HEIGHT),
-                         device=dev)
+    from soc_real_time_renderer_tpu_torch.ops import raster2, sky, ssao, \
+        taa, texsample
     plan, batch = built.plan, built.batch
-    log(f"phase 3 scene terrain {WIDTH}x{HEIGHT}: "
-        f"{batch.num_triangles} triangles, pair_cap "
-        f"{plan.main_grid.pair_cap}, atlas "
-        f"{batch.atlas_packed.numel() * 4} bytes "
-        f"{tuple(batch.atlas_packed.shape)}, shadow_statically_empty="
-        f"{plan.shadow_statically_empty}, build "
-        f"{time.perf_counter() - t0:.1f} s")
-    check(plan.shadow_statically_empty, "the shadow proof elides K4")
+    cfg = plan.config
+    path = path_of(plan, batch)
 
-    # a warm frame on the plain path gives every kernel its real inputs
-    hist = fm.RenderHistory.create(plan.config, device=dev)
-    g, mm, nm = built.frame_globals(0)
-    out0, hist1 = fm.render_frame(plan, batch, g, hist, mm, nm,
-                                  impl="plain")
-    g1, _, _ = built.frame_globals(1, peek=True)
+    taps = {}
+    real_sample_atlas = texsample.sample_atlas
+
+    def spy(*a, **k):        # records the frame's (mid, uv, lod)
+        taps.setdefault("args", (a, {n: v for n, v in k.items()
+                                     if n != "impl"}))
+        return real_sample_atlas(*a, **k)
+
+    texsample.sample_atlas = spy
+    try:
+        hist = fm.RenderHistory.create(cfg, device=dev)
+        g, mm, nm = built.frame_globals(0)
+        out0, hist1 = fm.render_frame(plan, batch, g, hist, mm, nm,
+                                      impl="plain")
+    finally:
+        texsample.sample_atlas = real_sample_atlas
+    g1, mm1, nm1 = built.frame_globals(1, peek=True)
     torch.cuda.synchronize()
+    world, _ = fm.transform_triangles(batch, mm1, nm1)
+    cases = {}
 
-    # phase 4: each kernel against its plain version, same inputs
-    world, _ = fm.transform_triangles(batch, mm, nm)
+    # K1: the main view
     clip = fm._clip_of(world, g1.camera.projection_view)
     setup = raster2.triangle_setup_planar(clip, WIDTH, HEIGHT, "front")
-    starts, recs, _, rgrid = raster2.gather_records(setup, plan.main_grid)
-    dk, ik = raster2.resolve(starts, recs, rgrid, impl="cuda")
-    dp, ip = raster2.resolve(starts, recs, rgrid, impl="plain")
-    torch.cuda.synchronize()
-    agree = (ik == ip)
-    k1_agree = agree.float().mean().item()
-    k1_err = (dk - dp).abs()[agree].max().item()
-    log(f"phase 4 K1 resolve: {int(starts[-1])} pairs, tri_id agreement "
-        f"{k1_agree:.6f} (>= 0.9999), depth max abs {k1_err:.3g} (<= 1e-6)")
-    check(k1_agree >= 0.9999 and k1_err <= 1e-6, "K1 parity")
+    starts, recs, ovf, rgrid = raster2.gather_records(setup, plan.main_grid)
+    n1 = int(starts[-1])
+    check(n1 > 0 and int(ovf) == 0, f"main view: {n1} pairs, overflow "
+          f"{int(ovf)}")
 
+    def cmp_resolve(k, p):
+        agree = k[1] == p[1]
+        a = agree.float().mean().item()
+        e = (k[0] - p[0]).abs()[agree].max().item()
+        return e, (f"{n1} pairs, tri_id agreement {a:.6f} (>= 0.9999), "
+                   f"depth max abs {e:.3g} (<= 1e-6)"), \
+            a >= 0.9999 and e <= 1e-6
+
+    hp, wp = rgrid.by * rgrid.bh, rgrid.bx * rgrid.bw
+    cases["resolve"] = (
+        lambda i: raster2.resolve(starts, recs, rgrid, impl=i), cmp_resolve,
+        (starts.numel() * 4 + 16 * n1 * 4 + hp * wp * 8,
+         resolve_ops(starts, recs, rgrid)), None)
+
+    # K4: the sun shadow view
+    if "resolve_depth" in path:
+        S = cfg.shadow_resolution
+        sclip = fm._clip_of(world, g1.sun.projection_view)
+        ssetup = raster2.triangle_setup_planar(sclip, S, S, "back")
+        sst, srec, sovf, sgrid = raster2.gather_records(ssetup,
+                                                        plan.shadow_grid)
+        n4 = int(sst[-1])
+        check(n4 > 0 and int(sovf) == 0,
+              f"shadow view: {n4} pairs > 0, overflow {int(sovf)} == 0")
+
+        def cmp_depth(k, p):
+            e = (k - p).abs().max().item()
+            crop = plan.shadow_crop
+            win = (k[crop[1]:crop[1] + crop[3], crop[0]:crop[0] + crop[2]]
+                   if crop is not None else k[:S, :S])
+            lit = (win < 1.0).float().mean().item()
+            return e, (f"{n4} pairs, overflow 0, depth max abs {e:.3g} "
+                       f"(<= 1e-6), texels < 1.0: {lit:.4f} of the "
+                       f"{'crop' if crop else 'map'} (>= 0.1)"), \
+                e <= 1e-6 and lit >= 0.1
+
+        sp = sgrid.by * sgrid.bh * sgrid.bx * sgrid.bw
+        cases["resolve_depth"] = (
+            lambda i: raster2.resolve_depth(sst, srec, sgrid, impl=i),
+            cmp_depth, (sst.numel() * 4 + 15 * n4 * 4 + sp * 4,
+                        resolve_ops(sst, srec, sgrid)), None)
+
+    # K5: the material tap at the frame's (mid, uv, lod)
+    if "texsample" in path:
+        check("args" in taps, "the warm frame took the material tap")
+        (atlas, mid, uv, lod), kw = taps["args"]
+        P = mid.numel()
+        rows = tap_rows(mid, uv, lod, kw)
+        levels = 2 if kw["filter_mode"] == "trilinear" else 1
+
+        def cmp_tex(k, p):
+            e = (k - p).abs().max().item()
+            return e, (f"{P} pixels, {kw['filter_mode']}, max abs {e:.3g} "
+                       f"(<= 1e-6)"), e <= 1e-6
+
+        cases["texsample"] = (
+            lambda i: texsample.sample_atlas(atlas, mid, uv, lod, impl=i,
+                                             **kw),
+            cmp_tex, (P * (4 + 8 + 4 + 44) + rows * 48,
+                      P * 11 * TEX_OPS_CHANNEL * levels), None)
+
+    # K2: SSAO taps
     depth = out0.gbuffer.depth
     pre = ssao._preamble(depth, out0.gbuffer.normal, g1)
     planes = torch.cat(pre, dim=0)
-    kern = ssao.kernel_vectors(plan.config.ssao_kernel_size, dev)
+    kern = ssao.kernel_vectors(cfg.ssao_kernel_size, dev)
     k2_args = (planes, depth, g1.camera.projection,
                g1.camera.inv_projection, g1.ssao_radius, g1.ssao_bias, kern)
-    sk = ssao.ssao_taps(*k2_args, impl="cuda")
-    sp = ssao.ssao_taps(*k2_args, impl="plain")
-    torch.cuda.synchronize()
-    k2_diff = (sk - sp).abs()
-    k2_err = k2_diff.max().item()
-    log(f"phase 4 K2 ssao taps {tuple(sk.shape)}: mean abs "
-        f"{k2_diff.mean().item():.3g} (< 1e-5), max abs {k2_err:.3g} "
-        f"(<= 1/26 + 1e-5)")
-    check(k2_diff.mean().item() < 1e-5 and k2_err <= 1 / 26 + 1e-5,
-          "K2 parity")
 
+    def cmp_ssao(k, p):
+        d = (k - p).abs()
+        return d.max().item(), (f"{tuple(k.shape)}: mean abs "
+                                f"{d.mean().item():.3g} (< 1e-5), max abs "
+                                f"{d.max().item():.3g} (<= 1/26 + 1e-5)"), \
+            d.mean().item() < 1e-5 and d.max().item() <= 1 / 26 + 1e-5
+
+    h2, w2 = planes.shape[1:]
+    cases["ssao_taps"] = (
+        lambda i: ssao.ssao_taps(*k2_args, impl=i), cmp_ssao,
+        ((planes.numel() + depth.numel() + h2 * w2) * 4,
+         h2 * w2 * kern.shape[0] * SSAO_OPS), None)
+
+    # K6: the sky LUT over the noise texture
+    if "sky_lut" in path:
+        noise = batch.cloud_noise
+        n_tex, n_up, n_hit = sky_counts(g1, noise)
+
+        def cmp_sky(k, p):
+            d = (k - p).abs()
+            scale = max(p.abs().max().item(), 1e-6)
+            mx, mn = d.max().item() / scale, d.mean().item() / scale
+            return d.max().item(), (
+                f"{tuple(k.shape)}: max abs {d.max().item():.3g} (<= 1e-6), "
+                f"max abs / scale {mx:.3g}, mean abs / scale {mn:.3g}, "
+                f"scale {scale:.4g}, {n_hit} of {n_up * 24} march samples "
+                f"hold cloud"), d.max().item() <= 1e-6
+
+        cases["sky_lut"] = (
+            lambda i: sky.render_sky_lut_noise(g1, noise, impl=i), cmp_sky,
+            ((16 + noise.numel() + 3 * n_tex) * 4,
+             n_tex * SKY_OPS_ATMOS
+             + n_up * 24 * (SKY_OPS_DENSITY + SKY_OPS_SAMPLE)
+             + n_hit * 10 * SKY_OPS_DENSITY), None)
+
+    # K3: TAA history fetch
     *_, vel_s = taa.neighbourhood(out0.hdr, depth, out0.gbuffer.velocity)
     packed = torch.cat([hist1.previous_color, hist1.previous_velocity], 0)
-    hk = taa.reproject_history(packed, vel_s, impl="cuda")
-    hp = taa.reproject_history(packed, vel_s, impl="plain")
-    torch.cuda.synchronize()
-    k3_err = (hk - hp).abs().max().item()
-    log(f"phase 4 K3 taa reproject {tuple(hk.shape)}: max abs "
-        f"{k3_err:.3g} (< 1e-5)")
-    check(k3_err < 1e-5, "K3 parity")
+    C, H, W = packed.shape
 
-    # phase 5: the main path, 8 frames through the kernels
+    def cmp_taa(k, p):
+        e = (k - p).abs().max().item()
+        return e, f"{tuple(k.shape)}: max abs {e:.3g} (< 1e-5)", e < 1e-5
+
+    cases["taa_reproject"] = (
+        lambda i: taa.reproject_history(packed, vel_s, impl=i), cmp_taa,
+        (C * H * W * 2 + 2 * H * W * 4 + C * H * W * 4,
+         H * W * (TAA_OPS_PIXEL + C * TAA_OPS_CHANNEL)),
+        grid_sample_call(packed, vel_s))
+    return path, cases
+
+
+def resolve_ops(starts, recs, grid, pixels_per_chunk=1 << 24):
+    """f32 operations of a bin resolve on these records: the edge test
+    at every (pair, bin pixel), the depth only where the pixel is inside
+    all three edges (counted with the plain version's edge functions,
+    pairs chunked as resolve_depth_plain chunks them)."""
+    import torch
+    dev = recs.device
+    bw, bh, bx = grid.bw, grid.bh, grid.bx
+    n = int(starts[-1])
+    pix = torch.arange(bw * bh, device=dev)
+    lx, ly = pix % bw, torch.div(pix, bw, rounding_mode="floor")
+    step = max(1, pixels_per_chunk // (bw * bh))
+    inside = torch.zeros((), dtype=torch.int64, device=dev)
+    for p0 in range(0, n, step):
+        p = torch.arange(p0, min(p0 + step, n), device=dev)
+        b = torch.searchsorted(starts, p.to(starts.dtype), right=True) - 1
+        px = ((b % bx * bw)[:, None] + lx[None, :]).to(torch.float32) + 0.5
+        py = ((torch.div(b, bx, rounding_mode="floor") * bh)[:, None]
+              + ly[None, :]).to(torch.float32) + 0.5
+        r = recs[:, p][:, :, None]
+        hit = torch.ones(px.shape, dtype=torch.bool, device=dev)
+        for e in (0, 3, 6):
+            hit &= r[e] * px + r[e + 1] * py + r[e + 2] >= 0
+        inside += hit.sum()
+    return n * bw * bh * RESOLVE_OPS_TEST + int(inside) * RESOLVE_OPS_INSIDE
+
+
+def tap_rows(mid, uv, lod, kw):
+    """The number of distinct atlas rows the material tap reads: the
+    row arithmetic of gbuffer.sample_packed_atlas at each level it
+    takes."""
+    import torch
+    size, stride, n_levels = kw["size"], kw["layer_stride"], kw["n_levels"]
+    mode = kw["filter_mode"]
+    lodc = torch.clamp(lod, 0.0, float(n_levels - 1))
+    if mode == "trilinear":
+        l0 = torch.floor(lodc).long()
+        levels = [l0, torch.clamp(l0 + 1, max=n_levels - 1)]
+    else:
+        levels = [torch.round(lodc).long()]
+    uvw = uv - torch.floor(uv)
+    rows = []
+    for lv in levels:
+        s = torch.bitwise_right_shift(torch.full_like(lv, size), lv)
+        off = torch.div(4 * size * size - 4 * s * s, 3, rounding_mode="floor")
+        x = uvw[0] * s.float() - 0.5
+        y = uvw[1] * s.float() - 0.5
+        if mode == "nearest":
+            xi, yi = torch.round(x).long(), torch.round(y).long()
+        else:
+            xi, yi = torch.floor(x).long(), torch.floor(y).long()
+        rows.append(mid.long() * stride + off + torch.remainder(yi, s) * s
+                    + torch.remainder(xi, s))
+    return int(torch.unique(torch.cat(rows)).numel())
+
+
+def sky_counts(g, noise, lut_w=256, lut_h=128, steps=24):
+    """(LUT texels, texels above the horizon, march samples above the
+    horizon that hold cloud): the work of the noise-texture sky LUT for
+    these globals, by the plain version's own march positions."""
+    import math
+    import torch
+    from soc_real_time_renderer_tpu_torch.ops import clouds
+    dev = noise.device
+    az = ((torch.arange(lut_w, dtype=torch.float32, device=dev) + 0.5)
+          / lut_w * 2.0 * math.pi - math.pi)
+    el = ((torch.arange(lut_h, dtype=torch.float32, device=dev) + 0.5)
+          / lut_h * math.pi - math.pi / 2)
+    ce, se = torch.cos(el)[:, None], torch.sin(el)[:, None]
+    shape = (lut_h, lut_w)
+    ray = torch.stack([(ce * torch.cos(az)[None]).expand(shape),
+                       se.expand(shape),
+                       (ce * torch.sin(az)[None]).expand(shape)], -1)
+    up = clouds._vec([0.0, clouds.EARTH_RADIUS, 0.0], dev)
+    _, bottom = clouds._rsi(up, ray, clouds.EARTH_RADIUS + clouds.CLOUD_MIN)
+    _, top = clouds._rsi(up, ray, clouds.EARTH_RADIUS + clouds.CLOUD_MAX)
+    start = ray * bottom[..., None]
+    inc = (ray * top[..., None] - start) / steps
+    ii = torch.arange(steps, dtype=torch.float32, device=dev)
+    cpos = start + inc * 0.5 + inc * ii.reshape(-1, 1, 1, 1)
+    od = clouds._get_clouds(cpos, g.camera.position, g.elapsed_time, noise)
+    upper = ray[..., 1] >= 0.0
+    return (lut_w * lut_h, int(upper.sum()),
+            int(((od > 0.0) & upper[None]).sum()))
+
+
+def grid_sample_call(history, velocity):
+    """One PyTorch call that computes K3's function (bilinear,
+    clamp-to-edge fetch of the history at uv - velocity): grid_sample
+    with border padding, its inputs converted beforehand."""
+    import torch
+    from soc_real_time_renderer_tpu_torch.ops import sampling
+    C, H, W = history.shape
+    uv = sampling.grid_uv(H, W, history.device)
+    grid = torch.stack([uv[0] - velocity[0], uv[1] - velocity[1]], -1)
+    grid = (grid * 2.0 - 1.0)[None].contiguous()
+    hist = history.to(torch.float32)[None].contiguous()
+    return lambda: torch.nn.functional.grid_sample(
+        hist, grid, mode="bilinear", padding_mode="border",
+        align_corners=False)
+
+
+def stage_table(built, g, hist, mm, nm, reps=3):
+    """ms of each stage of one kernel-path frame on these inputs (CUDA
+    events, median of `reps`), in shade_stage's order."""
+    import torch
+    from soc_real_time_renderer_tpu_torch.graph import frame as fm
+    from soc_real_time_renderer_tpu_torch.ops import bloom, clouds, \
+        composition, exposure, gbuffer, hiz, raster2, sampling, sky, ssao, \
+        taa, tonemap
+    plan, batch = built.plan, built.batch
+    cfg = plan.config
+    st = {}
+    st["whole frame"] = cuda_ms(
+        lambda: fm.render_frame(plan, batch, g, hist, mm, nm), reps)
+    st["raster_stage"] = cuda_ms(
+        lambda: fm.raster_stage(plan, batch, g, mm, nm), reps)
+    vis, recs, smap, ovf = fm.raster_stage(plan, batch, g, mm, nm)
+    if smap is not None:
+        world, _ = fm.transform_triangles(batch, mm, nm)
+        sclip = fm._clip_of(world, g.sun.projection_view)
+        st["  of which the shadow view (setup, binning, K4)"] = cuda_ms(
+            lambda: raster2.rasterize(sclip, plan.shadow_grid, cull="back",
+                                      depth_only=True), reps)
+    def gb():
+        return gbuffer.resolve_gbuffer(
+            vis, recs, batch.atlas_packed, g.camera_prev.projection_view,
+            atlas_size=plan.atlas_size, layer_stride=plan.atlas_layer_stride,
+            n_levels=plan.atlas_n_levels, filter_mode=plan.texture_filter)
+
+    st["resolve_gbuffer (K5)"] = cuda_ms(gb, reps)
+    gbuf = gb()
+    st["HiZ (min + max)"] = cuda_ms(lambda: [
+        hiz.build_hiz(vis.depth, op) for op in ("min", "max")], reps)
+    st["bloom"] = cuda_ms(lambda: bloom.bloom(gbuf.emissive,
+                                              cfg.bloom_mip_count), reps)
+    emissive = bloom.bloom(gbuf.emissive, cfg.bloom_mip_count)
+
+    def ao():
+        half = ssao.ssao_generate(vis.depth, gbuf.normal, g,
+                                  cfg.ssao_kernel_size)
+        return sampling.upsample_bilinear(ssao.ssao_blur(half), cfg.height,
+                                          cfg.width)
+
+    st["SSAO (preamble, K2, blur, upsample)"] = cuda_ms(ao, reps)
+    ssao_full = ao()
+    if batch.cloud_noise is not None:
+        def lut_fn():
+            return sky.render_sky_lut_noise(g, batch.cloud_noise)
+        st["sky LUT (K6, noise texture)"] = cuda_ms(lut_fn, reps)
+    else:
+        def lut_fn():
+            return clouds.render_sky_lut(g)
+        st["sky LUT (procedural, plain PyTorch)"] = cuda_ms(lut_fn, reps)
+    lut = lut_fn()
+    hw, hh = cfg.width // 2, cfg.height // 2
+    quadrant = not cfg.cloud_fullscreen_rays
+
+    def lookup():
+        half = clouds.sky_from_lut(
+            g, lut, vis.depth, hw, hh,
+            full_width=cfg.width if quadrant else None,
+            full_height=cfg.height if quadrant else None)
+        return sampling.upsample_bilinear(half, cfg.height, cfg.width)
+
+    st["sky lookup + upsample"] = cuda_ms(lookup, reps)
+    clouds_full = lookup()
+
+    def comp():
+        return composition.compose(
+            g, vis.depth, gbuf.albedo, emissive, gbuf.normal, ssao_full,
+            smap, clouds_full, enable_volumetric=cfg.enable_volumetric_light,
+            enable_shadow=cfg.enable_shadows,
+            max_point_lights=cfg.max_point_lights,
+            max_spot_lights=cfg.max_spot_lights,
+            empty_shadow_map=cfg.enable_shadows
+            and plan.shadow_statically_empty, shadow_crop=plan.shadow_crop)
+
+    st["compose" + (" (shadow map)" if smap is not None else "")] = \
+        cuda_ms(comp, reps)
+    hdr = comp()
+    st["exposure"] = cuda_ms(
+        lambda: exposure.auto_exposure(hdr, hist.exposure, g), reps)
+    expo = exposure.auto_exposure(hdr, hist.exposure, g)
+
+    def aa():
+        return taa.taa(hdr, vis.depth, gbuf.velocity, hist.previous_color,
+                       hist.previous_velocity, g.frame_counter)
+
+    st["TAA (3x3 neighbourhood, K3)"] = cuda_ms(aa, reps)
+    resolved = aa()
+    st["tone_map"] = cuda_ms(lambda: tonemap.tone_map(resolved, expo, g),
+                             reps)
+    torch.cuda.synchronize()
+    return st
+
+
+def scene_phase(name, dev, card, results):
+    """Build, parity, frames, timings and stage breakdown of one scene;
+    fills results[kernel][name]."""
+    import torch
+    from soc_real_time_renderer_tpu_torch.graph import frame as fm
+    from soc_real_time_renderer_tpu_torch.kernels import build as kb
+
+    t0 = time.perf_counter()
+    built = build_scene(name, dev)
+    torch.cuda.synchronize()
+    plan, batch = built.plan, built.batch
+    path = path_of(plan, batch)
+    noise = batch.cloud_noise
+    log(f"[{name}] build: {batch.num_triangles} triangles, pair_cap main "
+        f"{plan.main_grid.pair_cap} shadow {plan.shadow_grid.pair_cap}, "
+        f"atlas {batch.atlas_packed.numel() * 4} bytes "
+        f"{tuple(batch.atlas_packed.shape)}, {plan.atlas_num_materials} "
+        f"materials, cloud_noise "
+        f"{None if noise is None else tuple(noise.shape)}, "
+        f"shadow_statically_empty={plan.shadow_statically_empty}, crop "
+        f"{plan.shadow_crop}, build {time.perf_counter() - t0:.1f} s; path "
+        f"{path}")
+    if name == "terrain":
+        check(path == ["resolve", "texsample", "ssao_taps", "taa_reproject"],
+              "terrain runs K1, K5, K2, K3")
+    elif name == "full_nohelmet":
+        check(plan.atlas_num_materials >= 2 and batch.cloud_noise is not None
+              and plan.shadow_statically_empty,
+              "full_nohelmet: >= 2 materials, cloud noise, shadow elided")
+    else:
+        check(not plan.shadow_statically_empty,
+              "atrium_lifted defeats the shadow emptiness proof")
+
+    # each kernel of the path against its plain version, same inputs
+    path_k, cases = kernel_cases(built, dev)
+    check(sorted(path_k) == sorted(cases), f"a case for each of {path_k}")
+    out_k = {}
+    for k, (call, cmp, _, _) in cases.items():
+        got = call("cuda")
+        want = call("plain")
+        torch.cuda.synchronize()
+        err, msg, ok = cmp(got, want)
+        log(f"[{name}] parity {k}: {msg}")
+        check(ok, f"{name} {k} parity")
+        out_k[k] = err
+
+    # the main path: FRAMES frames through the kernels
     hist = fm.RenderHistory.create(plan.config, device=dev)
     kb.reset_launches()
     for f in range(FRAMES):
         g, mm, nm = built.frame_globals(f)
         if f == FRAMES - 1:
-            last_in = (g, hist)
+            last_in = (g, hist, mm, nm)
         out, hist = fm.render_frame(plan, batch, g, hist, mm, nm)
     torch.cuda.synchronize()
     counts = dict(kb.launches)
-    log(f"phase 5 launches over {FRAMES} frames: {counts}")
-    check(all(counts[k] >= FRAMES for k in counts),
-          f"every kernel launched on every frame: {counts}")
+    log(f"[{name}] launches over {FRAMES} frames: {counts}")
+    check(all(counts[k] == (FRAMES if k in path else 0) for k in counts),
+          f"each kernel of {path} launched once per frame, no other")
     color = out.color
     cov = (out.gbuffer.depth < 1.0).float().mean().item()
     check(torch.isfinite(color).all().item(), "finite colour")
     check(int(out.overflow) == 0, f"overflow {int(out.overflow)} == 0")
-    check(0.05 < cov < 1.0, f"0.05 < coverage {cov} < 1")
+    # inside the closed atrium every pixel is covered
+    check(0.05 < cov <= 1.0, f"0.05 < coverage {cov} <= 1")
     check(color.std().item() > 1e-3, "the image is not constant")
-    g, h7 = last_in
+    g, h7, mm, nm = last_in
     outp, _ = fm.render_frame(plan, batch, g, h7, mm, nm, impl="plain")
     frame_diff = (outp.color - color).abs().mean().item()
-    log(f"phase 5 frame {FRAMES}: colour mean {color.mean().item():.4f} "
-        f"std {color.std().item():.4f}, coverage {cov:.4f}, overflow 0, "
-        f"kernel vs plain colour mean abs {frame_diff:.3g} (< 1e-3)")
+    smap = ""
+    if out.shadow_map is not None:
+        smap = (f", shadow map texels < 1.0: "
+                f"{(out.shadow_map < 1.0).float().mean().item():.4f}")
+    log(f"[{name}] frame {FRAMES}: colour mean {color.mean().item():.4f} "
+        f"std {color.std().item():.4f}, coverage {cov:.4f}, overflow 0"
+        f"{smap}, kernel vs plain colour mean abs {frame_diff:.3g} (< 1e-3)")
     check(frame_diff < 1e-3, "kernel-path frame vs plain-path frame")
 
-    # phase 6: timings (CUDA events, warm-up excluded), on this card
+    # timings: frames alternating, kernels at the frame's shapes
     def frame_fn(impl):
-        def run():
-            fm.render_frame(plan, batch, g, h7, mm, nm, impl=impl)
-        return run
+        return lambda: fm.render_frame(plan, batch, g, h7, mm, nm, impl=impl)
 
     for impl in (None, "plain"):
         frame_fn(impl)()
@@ -193,32 +646,90 @@ def main():
         ms["plain"].append(cuda_ms(frame_fn("plain"), 1))
     frame_k = statistics.median(ms["cuda"])
     frame_p = statistics.median(ms["plain"])
-    log(f"phase 6 frame 1920x1088 terrain: kernel path {frame_k:.2f} ms, "
-        f"plain path {frame_p:.2f} ms (median of {TIMED}) {card}")
+    log(f"[{name}] frame {WIDTH}x{HEIGHT}: kernel path {frame_k:.2f} ms, "
+        f"plain path {frame_p:.2f} ms (median of {TIMED}) {card}; after "
+        f"it: SM clock, power draw, temperature "
+        f"{smi('clocks.sm,power.draw,temperature.gpu')}")
+
+    for k, (call, _, (nbytes, ops), lib) in cases.items():
+        call("cuda")
+        call("plain")
+        k_ms = cuda_ms(lambda: call("cuda"), 20)
+        p_ms = cuda_ms(lambda: call("plain"), TIMED)
+        lib_ms = None
+        if lib is not None:
+            lib()
+            lib_ms = cuda_ms(lib, 20)
+        b_ms, b_by = bound(nbytes, ops)
+        log(f"[{name}] {k}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms by {b_by} ({nbytes} bytes, {ops} ops), "
+            f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'} "
+            f"{card}")
+        results.setdefault(k, {})[name] = {
+            "launches": counts[k], "max_abs_err": out_k[k], "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms}
+
+    st = stage_table(built, g, h7, mm, nm)
+    log(f"[{name}] stages (kernel path, ms, median of 3) {card}:")
+    for s, v in st.items():
+        log(f"[{name}]   {s}: {v:.2f}")
+    del built, out, outp, hist
+    torch.cuda.empty_cache()
+    return frame_k, frame_p
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: this smoke run needs a GPU")
+    # the renderer, before any output: without it nothing is printed
+    import soc_real_time_renderer_tpu_torch  # noqa: F401
+    from soc_real_time_renderer_tpu_torch.kernels import build as kb
+
+    t_start = time.perf_counter()
+    name_limit = smi("name,power.limit")
+    card = f"[{name_limit}]"
+    log(f"phase 1 device: {name_limit}")
+    log(f"phase 1 torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} "
+        f"count {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+
+    # phase 2: build the kernels from the checkout's sources
+    t0 = time.perf_counter()
+    kb.library()
+    log(f"phase 2 build: {time.perf_counter() - t0:.1f} s (nvcc "
+        f"{kb.build_seconds if kb.build_seconds is not None else 0:.1f} s, "
+        f"one process per source) -> {kb.LIB}")
+    for ln in kb.build_log.splitlines():
+        if "registers" in ln or "Compiling entry" in ln:
+            log(f"  ptxas: {ln.strip()}")
+
+    # phases 3-7, scene by scene
+    results = {}
+    frames = {}
+    for name in ("terrain", "full_nohelmet", "atrium_lifted"):
+        frames[name] = scene_phase(name, dev, card, results)
+    check(sorted(results) == sorted(KERNELS),
+          f"every kernel ran on some scene: {sorted(results)}")
+    log(f"summary {card}: " + ", ".join(
+        f"{n} kernel path {k:.2f} ms vs plain {p:.2f} ms"
+        for n, (k, p) in frames.items())
+        + f"; total {time.perf_counter() - t_start:.0f} s")
 
     kernels = []
-    specs = [
-        ("resolve", "soc_real_time_renderer_tpu_torch/kernels/csrc/resolve.cu",
-         "soc_real_time_renderer_tpu/ops/raster2.py:556",
-         lambda i: raster2.resolve(starts, recs, rgrid, impl=i), k1_err),
-        ("ssao_taps", "soc_real_time_renderer_tpu_torch/kernels/csrc/ssao.cu",
-         "soc_real_time_renderer_tpu/ops/ssao.py:244",
-         lambda i: ssao.ssao_taps(*k2_args, impl=i), k2_err),
-        ("taa_reproject", "soc_real_time_renderer_tpu_torch/kernels/csrc/taa.cu",
-         "soc_real_time_renderer_tpu/ops/taa_pallas.py:30",
-         lambda i: taa.reproject_history(packed, vel_s, impl=i), k3_err),
-    ]
-    for name, src, replaces, fn, err in specs:
-        fn("cuda")
-        fn("plain")
-        k_ms = cuda_ms(lambda: fn("cuda"), 20)
-        p_ms = cuda_ms(lambda: fn("plain"), 5)
-        log(f"phase 6 {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-            f"{card}")
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": counts[name],
-                        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms})
-
+    for name, (src, replaces) in KERNELS.items():
+        home = results[name][HOME[name]]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "scene": HOME[name],
+            "launches": sum(r["launches"] for r in results[name].values()),
+            **{k: home[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")},
+            "by_scene": results[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,6 +30,20 @@ def _f32(x):
     return np.asarray(x, dtype=np.float32)
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: `device` when the caller names
+    one, else the first CUDA card.  With no card and no explicit device
+    it raises instead of falling back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the renderer runs on an NVIDIA GPU by "
+            "default; pass device='cpu' to run its plain PyTorch versions "
+            "on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def tree_to(obj, device):
     """Dataclass of arrays -> the same dataclass with every leaf a tensor
     on `device` (numpy leaves keep their dtype; None stays None)."""

@@ -1,7 +1,9 @@
 """Carry the JAX package's objects across to the port.
 
 Each function takes an object of ``soc_real_time_renderer_tpu`` (a
-``SceneBatch``, ``ShaderGlobals``, ``RenderHistory`` or ``FramePlan``)
+``SceneBatch`` of any number of models, its ``cloud_noise`` included; a
+``ShaderGlobals`` with the per-entity matrices of a frame; a
+``RenderHistory`` or a ``FramePlan``)
 whose array leaves are numpy arrays or anything ``np.asarray`` accepts,
 reads it by field name (duck-typed: this module imports no jax), and
 returns the port's object with tensors on ``device``.  The parity tests
@@ -62,6 +64,14 @@ def scene_batch_from_numpy(batch, device="cpu") -> SceneBatch:
 
 def globals_from_numpy(g, device="cpu") -> cfg.ShaderGlobals:
     return _tensor_tree(cfg.ShaderGlobals, g, device)
+
+
+def frame_inputs_from_numpy(g, model_mats, normal_mats, device="cpu"):
+    """What a JAX ``BuiltScene.frame_globals`` returns -> the port's
+    (ShaderGlobals, (E, 4, 4) model matrices, (E, 4, 4) normal
+    matrices), one matrix per mesh entity."""
+    return (globals_from_numpy(g, device), to_tensor(model_mats, device),
+            to_tensor(normal_mats, device))
 
 
 def history_from_numpy(h, device="cpu") -> frame_mod.RenderHistory:

@@ -3,17 +3,18 @@ history')``, counterpart of the JAX package's ``graph/frame.py``.
 
 Pass order matches the reference graph:
 
-  raster (visibility, K1) -> HiZ -> G-buffer -> bloom -> SSAO (K2) +
-  blur -> sky LUT + lookup -> composition -> exposure -> TAA (K3) ->
-  tone mapping
+  raster (visibility, K1; sun shadow, K4) -> HiZ -> G-buffer (K5) ->
+  bloom -> SSAO (K2) + blur -> sky LUT (K6) + lookup -> composition ->
+  exposure -> TAA (K3) -> tone mapping
 
 Cross-frame state rides in :class:`RenderHistory` (bf16 colour and
 velocity, f32 exposure).  PyTorch runs eagerly: no jit, no
-``torch.compile``.  Passes whose kernels are not ported yet raise
-``NotImplementedError`` instead of rendering something else: the sun
-shadow raster when the build-time emptiness proof fails (K4), the
-tile texture sampler for multi-material atlases (K5), the noise-texture
-sky LUT (K6), SSR, depth of field and the per-pixel cloud march.
+``torch.compile``.  The hand-written kernels on the path: K1 (main-view
+resolve), K4 (the sun shadow view's depth resolve, unless the build
+proved the map empty), K5 (the material tap), K2 (SSAO taps), K6 (the
+sky LUT over the cloud-noise texture) and K3 (TAA history fetch).  Passes not ported yet raise
+``NotImplementedError`` instead of rendering something else: SSR, depth
+of field and the per-pixel cloud march.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..config import RenderConfig, ShaderGlobals
+from ..config import RenderConfig, ShaderGlobals, resolve_device
 from ..models.scene_batch import SceneBatch
 from ..ops import bloom as bloom_ops
 from ..ops import clouds as clouds_ops
@@ -33,6 +34,7 @@ from ..ops import gbuffer as gbuf_ops
 from ..ops import hiz as hiz_ops
 from ..ops import raster2
 from ..ops import sampling
+from ..ops import sky as sky_ops
 from ..ops import ssao as ssao_ops
 from ..ops import taa as taa_ops
 from ..ops import tonemap as tonemap_ops
@@ -47,7 +49,10 @@ class RenderHistory:
     exposure: torch.Tensor            # () f32
 
     @staticmethod
-    def create(config: RenderConfig, device="cpu"):
+    def create(config: RenderConfig, device=None):
+        """Zeroed history on `device` (default: the CUDA card; raises
+        without one unless device="cpu")."""
+        device = resolve_device(device)
         h, w = config.height, config.width
         return RenderHistory(
             previous_color=torch.zeros((3, h, w), dtype=torch.bfloat16,
@@ -70,7 +75,6 @@ class FramePlan:
     atlas_layer_stride: int
     atlas_n_levels: int
     texture_filter: str = "bilinear"
-    texture_impl: str = "auto"
     atlas_num_materials: int = 1
     shadow_statically_empty: bool = False
     proved_sun_pv: tuple | None = None
@@ -147,30 +151,25 @@ def _clip_of(world, view_proj):
 
 def raster_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
                  model_mats, normal_mats, impl: str | None = None):
-    """Geometry half: transform, main-view raster (K1), shading records."""
+    """Geometry half: transform, main-view raster (K1), the sun shadow
+    view (back-face culled, depth only: K4) unless the build proved its
+    map empty, shading records."""
     cfg = plan.config
-    if cfg.enable_shadows and not plan.shadow_statically_empty:
-        raise NotImplementedError(
-            "this scene's sun shadow map is not provably empty and needs "
-            "the shadow depth kernel (K4, ROADMAP queue B), which is not "
-            "ported yet")
     world, wnrm = transform_triangles(batch, model_mats, normal_mats)
     clip = _clip_of(world, g.camera.projection_view)
     vis, setup = raster2.rasterize(clip, plan.main_grid, cull="front",
                                    impl=impl)
+    shadow_map = None
+    overflow = vis.overflow
+    if cfg.enable_shadows and not plan.shadow_statically_empty:
+        sclip = _clip_of(world, g.sun.projection_view)
+        svis, _ = raster2.rasterize(sclip, plan.shadow_grid, cull="back",
+                                    impl=impl, depth_only=True)
+        shadow_map = svis.depth
+        overflow = overflow | svis.overflow
     records = gbuf_ops.build_shading_records(
         setup, world, wnrm, batch.tri_uv, batch.static_rows)
-    return vis, records, None, vis.overflow
-
-
-def _texture_path(plan: FramePlan):
-    impl = plan.texture_impl
-    if impl == "auto":
-        impl = "tile" if plan.atlas_num_materials >= 2 else "xla"
-    if impl != "xla":
-        raise NotImplementedError(
-            "the tile texture sampler for multi-material atlases (K5, "
-            "ROADMAP queue B) is not ported yet")
+    return vis, records, shadow_map, overflow
 
 
 def shade_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
@@ -193,11 +192,11 @@ def shade_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
         hiz_min = hiz_ops.build_hiz(vis.depth, "min")
         hiz_max = hiz_ops.build_hiz(vis.depth, "max")
 
-    _texture_path(plan)
     gbuf = gbuf_ops.resolve_gbuffer(
         vis, records, batch.atlas_packed, g.camera_prev.projection_view,
         atlas_size=plan.atlas_size, layer_stride=plan.atlas_layer_stride,
-        n_levels=plan.atlas_n_levels, filter_mode=plan.texture_filter)
+        n_levels=plan.atlas_n_levels, filter_mode=plan.texture_filter,
+        impl=impl)
 
     emissive = gbuf.emissive
     bloom = None
@@ -218,17 +217,17 @@ def shade_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
     clouds_half = None
     if cfg.enable_clouds:
         hw, hh = cfg.width // 2, cfg.height // 2
-        if batch.cloud_noise is not None:
-            raise NotImplementedError(
-                "the noise-texture sky LUT (K6, ROADMAP queue B) is not "
-                "ported yet")
-        if cfg.cloud_noise_mode == "texture":
-            warnings.warn(
-                "cloud_noise_mode='texture' falling back to the "
-                "procedural sky LUT: batch.cloud_noise is missing; "
-                "cloud shapes will differ from the reference noise "
-                "texture.", stacklevel=2)
-        lut = clouds_ops.render_sky_lut(g)
+        if cfg.cloud_noise_mode == "texture" and batch.cloud_noise is not None:
+            lut = sky_ops.render_sky_lut_noise(g, batch.cloud_noise,
+                                               impl=impl)
+        else:
+            if cfg.cloud_noise_mode == "texture":
+                warnings.warn(
+                    "cloud_noise_mode='texture' falling back to the "
+                    "procedural sky LUT: batch.cloud_noise is missing; "
+                    "cloud shapes will differ from the reference noise "
+                    "texture.", stacklevel=2)
+            lut = clouds_ops.render_sky_lut(g)
         # QUADRANT quirk: pass the FULL resolution so the half-res rays
         # and sky mask span only the top-left frustum quadrant
         clouds_half = clouds_ops.sky_from_lut(

@@ -1,18 +1,20 @@
 """Build the CUDA sources in ``csrc/`` with nvcc and bind them by ctypes.
 
-All ``csrc/*.cu`` compile into one shared library with a plain C
-interface (``nvcc -shared``, no PyTorch headers: seconds, not minutes),
-for ``sm_90a``, into ``build/torch_ext/`` of the checkout, at first use.
-It is rebuilt when a source is newer than the library.  Every launch
-function takes raw device pointers and PyTorch's current stream, launches
-without synchronising and returns the ``cudaGetLastError`` code, which
-:func:`check` turns into an exception.
+Each ``csrc/*.cu`` compiles to an object file in its own nvcc process,
+all started together, and the objects link into one shared library with
+a plain C interface (``nvcc -shared``, no PyTorch headers: seconds, not
+minutes), for ``sm_90a``, into ``build/torch_ext/`` of the checkout, at
+first use.  It is rebuilt when a source is newer than the library.
+Every launch function takes raw device pointers and PyTorch's current
+stream, launches without synchronising and returns the
+``cudaGetLastError`` code, which :func:`check` turns into an exception.
 
 ``--fmad=false``: nvcc contracts ``a*b + c`` into FMA by default, which
 can move an edge-function value by an ulp and flip coverage on edge
 pixels against the plain PyTorch version; every kernel here is written
 in its plain version's operation order and built without contraction,
-so kernel and plain version agree bit for bit.
+so kernel and plain version agree bit for bit where they use the same
+functions.
 
 Dispatch (:func:`choose`): CUDA tensors go to the kernel, CPU tensors to
 the plain version; ``impl="plain"`` forces the plain version on a card
@@ -33,12 +35,13 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "torch_ext")
 LIB = os.path.join(BUILD_DIR, "libsoc_kernels.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "--fmad=false", "-Xptxas", "-v",
-              "-shared", "-Xcompiler", "-fPIC"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-O3", "-std=c++17", "--fmad=false", "-Xptxas", "-v",
+              "-Xcompiler", "-fPIC"]
 
 # launch counts per kernel: each wrapper adds one where it launches
-launches = {"resolve": 0, "ssao_taps": 0, "taa_reproject": 0}
+launches = {"resolve": 0, "resolve_depth": 0, "texsample": 0,
+            "ssao_taps": 0, "sky_lut": 0, "taa_reproject": 0}
 
 _lib = None
 build_log = ""        # nvcc's output (ptxas register / smem report)
@@ -49,8 +52,15 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # starts, recs, depth, tri_id, cap, num_bins, bx, bw, bh, out_w, stream
     "resolve_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # starts, recs, depth, cap, num_bins, bx, bw, bh, out_w, stream
+    "resolve_depth_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # atlas, mid, uv, lod, out, P, rows, size, layer_stride, n_levels,
+    # filter mode, stream
+    "texsample_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # planes, depth, params, kern, out, h, w, H, W, k, stream
     "ssao_taps_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # params, noise, out, lut_w, lut_h, stream
+    "sky_lut_launch": [_P, _P, _P, _I, _I, _P],
     # history, velocity, out, C, H, W, stream
     "taa_reproject_launch": [_P, _P, _P, _I, _I, _I, _P],
 }
@@ -69,6 +79,41 @@ def _nvcc() -> str:
     return path
 
 
+def _build(sources) -> str:
+    """Compile every source in parallel, then link; returns nvcc's
+    output.  Raises on the first failure."""
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}"
+    objs = [os.path.join(BUILD_DIR, os.path.basename(s) + f".{tag}.o")
+            for s in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", s, "-o", o],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(sources, objs)]
+    log, failed = [], []
+    for s, p in zip(sources, procs):
+        out, _ = p.communicate()
+        log.append(f"== {os.path.basename(s)}\n{out}")
+        if p.returncode != 0:
+            failed.append(os.path.basename(s))
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "".join(log))
+        tmp = f"{LIB}.{tag}.tmp"
+        res = subprocess.run([nvcc, *ARCH, "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True)
+        log.append(res.stdout + res.stderr)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               + "".join(log))
+        os.replace(tmp, LIB)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    return "".join(log)
+
+
 def library() -> ctypes.CDLL:
     """Build (if stale) and load the kernel library."""
     global _lib, build_log, build_seconds
@@ -81,16 +126,9 @@ def library() -> ctypes.CDLL:
                                             for s in deps))
     if stale:
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{LIB}.{os.getpid()}.tmp"
         t0 = time.perf_counter()
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                             capture_output=True, text=True)
+        build_log = _build(sources)
         build_seconds = time.perf_counter() - t0
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{build_log}")
-        os.replace(tmp, LIB)
     lib = ctypes.CDLL(LIB)
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

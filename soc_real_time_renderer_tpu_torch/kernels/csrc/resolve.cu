@@ -1,4 +1,5 @@
-// K1: bin resolve of the sort-binned rasterizer (visibility buffer).
+// K1: bin resolve of the sort-binned rasterizer (visibility buffer), and
+// below it K4, the depth-only resolve of the shadow view.
 //
 // Replaces soc_real_time_renderer_tpu/ops/raster2.py `_resolve_kernel`
 // (Pallas, TPU; launched by `resolve`).  Same result: per pixel centre,
@@ -101,7 +102,110 @@ resolve_kernel(const int* __restrict__ starts, const float* __restrict__ recs,
     }
 }
 
+// K4: depth-only resolve of the sun shadow view.
+//
+// Replaces soc_real_time_renderer_tpu/ops/raster2.py
+// `_resolve_depth_kernel` (Pallas, TPU; launched by `resolve(...,
+// depth_only=True)`).  Same result: per pixel centre the minimum z of the
+// covering records of its bin, 1.0 where none covers; no triangle id.
+//
+// Design: the 128x128-px shadow bins are 16,384 pixels, too many for one
+// block's registers, so each bin is cut into slabs of 16 * 256 / bw rows
+// (128x32 at bw = 128: 4 slabs per bin, 4,096 blocks at 4096^2), one
+// block per slab, 256 threads with 16 pixels each: a thread owns one
+// column (lx = tid % bw) and every (256 / bw)-th row, so a*px of each
+// edge function is taken once per record.  The bin's records stream
+// through shared memory as in K1 (rows 0..14; the id row is not read).
+// Empty bins run zero chunks.  The winner is the order-free minimum z
+// (no id, no early out).  Bound: arithmetic, ~20 flops per (pair,
+// pixel) plus a division where covered; the pair stream is concentrated
+// (a scene covers a fraction of the 4096^2 map), and slabs of empty bins
+// only write their 1.0 clear.  Evaluated in the plain version's order
+// (raster2.resolve_depth_plain) with --fmad=false.
+constexpr int kDepthPPT = 16;
+constexpr int kDepthRows = 15;
+
+__global__ void __launch_bounds__(kThreads)
+resolve_depth_kernel(const int* __restrict__ starts,
+                     const float* __restrict__ recs, int cap, int bx,
+                     int bw, int bh, int out_w, float* __restrict__ depth) {
+    __shared__ float s[kDepthRows][kChunk];
+    const int b = blockIdx.x;
+    const int start = starts[b];
+    const int end = starts[b + 1];
+    const int gx0 = (b % bx) * bw;
+    const int gy0 = (b / bx) * bh;
+    const int step = kThreads / bw;               // rows per k step
+    const int lx = threadIdx.x % bw;
+    const int ly0 = blockIdx.y * step * kDepthPPT + threadIdx.x / bw;
+    const float px = (float)(lx + gx0) + 0.5f;
+
+    float py[kDepthPPT], zb[kDepthPPT];
+#pragma unroll
+    for (int k = 0; k < kDepthPPT; ++k) {
+        py[k] = (float)(ly0 + k * step + gy0) + 0.5f;
+        zb[k] = CUDART_INF_F;
+    }
+
+    for (int c0 = start; c0 < end; c0 += kChunk) {
+        const int n = min(kChunk, end - c0);
+        __syncthreads();  // the previous chunk is consumed
+        for (int i = threadIdx.x; i < kDepthRows * kChunk; i += kThreads) {
+            const int r = i / kChunk;
+            const int j = i % kChunk;
+            s[r][j] = j < n ? recs[(size_t)r * cap + c0 + j] : 0.0f;
+        }
+        __syncthreads();
+        for (int j = 0; j < n; ++j) {
+            const float a0 = s[0][j], a1 = s[1][j], a2 = s[2][j];
+            const float a3 = s[3][j], a4 = s[4][j], a5 = s[5][j];
+            const float a6 = s[6][j], a7 = s[7][j], a8 = s[8][j];
+            const float z0 = s[9][j], z1 = s[10][j], z2 = s[11][j];
+            const float w0 = s[12][j], w1 = s[13][j], w2 = s[14][j];
+            // a*px is the same product for all of a thread's pixels
+            const float c0x = a0 * px, c1x = a3 * px, c2x = a6 * px;
+#pragma unroll
+            for (int k = 0; k < kDepthPPT; ++k) {
+                const float e0 = c0x + a1 * py[k] + a2;
+                const float e1 = c1x + a4 * py[k] + a5;
+                const float e2 = c2x + a7 * py[k] + a8;
+                if (e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f) {
+                    const float ez = e0 * z0 + e1 * z1 + e2 * z2;
+                    const float ew = e0 * w0 + e1 * w1 + e2 * w2;
+                    if (ew > 0.0f) {
+                        const float z = ez / ew;
+                        if (z >= 0.0f && z <= 1.0f && z < zb[k]) zb[k] = z;
+                    }
+                }
+            }
+        }
+    }
+
+#pragma unroll
+    for (int k = 0; k < kDepthPPT; ++k) {
+        const int ly = ly0 + k * step;
+        if (ly < bh) {
+            depth[(size_t)(gy0 + ly) * out_w + gx0 + lx] =
+                zb[k] < CUDART_INF_F ? zb[k] : 1.0f;
+        }
+    }
+}
+
 }  // namespace
+
+SOC_EXPORT int resolve_depth_launch(const void* starts, const void* recs,
+                                    void* depth, int cap, int num_bins,
+                                    int bx, int bw, int bh, int out_w,
+                                    void* stream) {
+    if (bw <= 0 || kThreads % bw != 0) return (int)cudaErrorInvalidValue;
+    if (num_bins <= 0) return 0;
+    const int rows = kThreads / bw * kDepthPPT;   // rows per block
+    const dim3 grid(num_bins, (bh + rows - 1) / rows);
+    resolve_depth_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int*)starts, (const float*)recs, cap, bx, bw, bh, out_w,
+        (float*)depth);
+    return (int)cudaGetLastError();
+}
 
 SOC_EXPORT int resolve_launch(const void* starts, const void* recs,
                               void* depth, void* tri_id, int cap,

@@ -1,0 +1,339 @@
+// K6: the sky LUT over the tiled cloud-noise texture.
+//
+// Replaces soc_real_time_renderer_tpu/ops/sky_pallas.py `_sky_kernel`
+// (Pallas, TPU; launched by `render_sky_lut_pallas`).  The TPU kernel
+// keeps the 64x64 noise tile in VMEM and takes each bilinear-repeat tap
+// as a soft-one-hot MXU product in bf16.  This kernel computes the JAX
+// package's exact XLA path instead, clouds.render_sky_lut(g,
+// noise_tex=...), whose port (ops/clouds.render_sky_lut) is its plain
+// version: per lat-long texel the 16x8-step atmosphere, then the 24-step
+// cloud march between the cloud shells, each sample a 4-octave fBm over
+// the noise (two z slices, four bilinear taps each) with a 10-step sun
+// march, two-lobe HG phase, powder/Beer and the scatter integral.  The
+// horizon factor is applied by the wrapper (ops/sky.py), as
+// sky_pallas.py:391-394 does.
+//
+// Inputs: `params` 16 f32 [sun_dir 3 | atmosphere origin 3 | camera x, z
+// | elapsed | cloud drift | sky light * 0.25 / pi 3 | pad], computed by
+// the wrapper with the plain version's own PyTorch operations; `noise`
+// (64, 64) f32.  Output (3, lut_h, lut_w) f32.
+//
+// Design: one thread per LUT texel (32,768 at 256x128), the 16 KB noise
+// tile in shared memory, the march in registers.  Two skips that the
+// plain version computes and then discards, so the output is the same:
+// rays below the horizon keep the atmosphere (no march), and a march
+// sample with zero optical depth adds nothing (no sun march: 80 of its
+// 88 noise taps).  Bound: operations, up to 24 x 11 cloud-density
+// evaluations of 32 noise reads and ~100 flops each per texel, plus the
+// atmosphere's 16 x 9 exps; the noise reads hit shared memory.
+//
+// Rounding: written in the plain version's operation order, built with
+// --fmad=false, with the same CUDA math functions PyTorch's kernels call
+// (expf, sqrtf, powf, sinf, cosf); constants that the plain version
+// forms in double (Python floats) are formed in double here and rounded
+// once; a division of a tensor by a Python scalar is PyTorch's multiply
+// by the f32 reciprocal on the card (`x * (1.0f / s)` below).  The rays
+// graze the cloud shells, where `_rsi` subtracts ~4e13-sized squares
+// (ROADMAP fault C6): that is why the order matters.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kN = 64;
+constexpr double kPiD = 3.14159265358979323846;
+constexpr double kEarthD = 6371000.0;
+constexpr double kCloudMinD = 1600.0;
+constexpr double kCloudMaxD = 2100.0;
+constexpr double kLn2D = 0.69314718055994530942;
+
+constexpr float kPi = (float)kPiD;
+constexpr float kHalfPi = (float)(kPiD / 2.0);
+constexpr float kEarth = (float)kEarthD;
+constexpr float kCloudMin = (float)kCloudMinD;
+constexpr float kCloudMax = (float)kCloudMaxD;
+constexpr float kShellMin2 = (float)((kEarthD + kCloudMinD)
+                                     * (kEarthD + kCloudMinD));
+constexpr float kShellMax2 = (float)((kEarthD + kCloudMaxD)
+                                     * (kEarthD + kCloudMaxD));
+constexpr float kRPlanet = (float)6371e3;
+constexpr float kRAtmos2 = (float)(6471e3 * 6471e3);
+constexpr float kRPlanet2 = (float)(6371e3 * 6371e3);
+
+// atmosphere (clouds._atmosphere defaults)
+constexpr double kGMieD = 0.758;
+constexpr double kGGD = kGMieD * kGMieD;
+constexpr float kKMie = (float)21e-6;
+constexpr float kPRlh = (float)(3.0 / (16.0 * kPiD));
+constexpr float kPMie = (float)(3.0 / (8.0 * kPiD));
+constexpr float kOneMinusGG = (float)(1.0 - kGGD);
+constexpr float kOnePlusGG = (float)(1.0 + kGGD);
+constexpr float kTwoPlusGG = (float)(2.0 + kGGD);
+
+// clouds: _hg(x, g) = 0.25 (1 - g^2) (1 + g^2 - 2 g x)^-1.5 for the two
+// lobes of _phase_two_lobes, g = 0.8 * gm and -0.5 * gm (gm = 0.8)
+constexpr double kHgG1 = 0.8 * 0.8;
+constexpr double kHgG2 = -0.5 * 0.8;
+constexpr float kHg1A = (float)(0.25 * (1.0 - kHgG1 * kHgG1));
+constexpr float kHg1B = (float)(1.0 + kHgG1 * kHgG1);
+constexpr float kHg1C = (float)(2.0 * kHgG1);
+constexpr float kHg2A = (float)(0.25 * (1.0 - kHgG2 * kHgG2));
+constexpr float kHg2B = (float)(1.0 + kHgG2 * kHgG2);
+constexpr float kHg2C = (float)(2.0 * kHgG2);
+constexpr float kScatA = (float)(-1.11 * (1.0 / kLn2D));
+constexpr float kScatB = (float)(-1.0 / 1.11);
+constexpr float kScatC = (float)(1.0 / 1.11);
+constexpr float kLn2 = (float)kLn2D;
+constexpr float kSunBright = 3.0f;
+constexpr float kZStretch = (float)(17.0 * (1.0 / 64.0));
+constexpr float kInvRes = (float)(1.0 / 64.0);
+
+__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
+                                     float by, float bz) {
+    return ax * bx + ay * by + az * bz;
+}
+
+// clouds._rsi: (near, far), -1 on a miss; r2 the squared radius
+__device__ __forceinline__ void rsi(float px, float py, float pz, float dx,
+                                    float dy, float dz, float r2,
+                                    float* near_, float* far_) {
+    const float pod = dot3(px, py, pz, dx, dy, dz);
+    const float delta = pod * pod + r2 - dot3(px, py, pz, px, py, pz);
+    const bool ok = delta >= 0.0f;
+    const float sq = sqrtf(fmaxf(delta, 0.0f));
+    *near_ = ok ? -pod - sq : -1.0f;
+    *far_ = ok ? -pod + sq : -1.0f;
+}
+
+__device__ __forceinline__ float hg(float x, float a, float b, float c) {
+    return a * powf(b - c * x, -1.5f);
+}
+
+// clouds._sample_repeat on the shared-memory tile
+__device__ __forceinline__ float sample_repeat(const float* tex, float u,
+                                               float v) {
+    const float x = u * (float)kN - 0.5f;
+    const float y = v * (float)kN - 0.5f;
+    const float x0 = floorf(x);
+    const float y0 = floorf(y);
+    const float fx = x - x0;
+    const float fy = y - y0;
+    const int x0i = (int)x0 & (kN - 1);
+    const int x1i = (x0i + 1) & (kN - 1);
+    const int y0i = (int)y0 & (kN - 1);
+    const int y1i = (y0i + 1) & (kN - 1);
+    const float c00 = tex[y0i * kN + x0i];
+    const float c10 = tex[y0i * kN + x1i];
+    const float c01 = tex[y1i * kN + x0i];
+    const float c11 = tex[y1i * kN + x1i];
+    return (c00 * (1.0f - fx) + c10 * fx) * (1.0f - fy)
+           + (c01 * (1.0f - fx) + c11 * fx) * fy;
+}
+
+// clouds._get_3d_noise
+__device__ __forceinline__ float noise3(const float* tex, float x, float y,
+                                        float z) {
+    const float p = floorf(z);
+    const float f = z - p;
+    const float cu = x * kInvRes + p * kZStretch;
+    const float cv = y * kInvRes + p * kZStretch;
+    const float n0 = sample_repeat(tex, cu, cv);
+    const float n1 = sample_repeat(tex, cu + kZStretch, cv + kZStretch);
+    return n0 + (n1 - n0) * f;
+}
+
+// clouds._get_clouds: density at a ray-relative position
+__device__ float get_clouds(const float* tex, float px, float py, float pz,
+                            float cam_x, float cam_z, float drift) {
+    const float qy = py + kEarth;
+    const float h = sqrtf(px * px + qy * qy + pz * pz) - kEarth;
+    const float wx = px + cam_x;
+    const float wz = pz + cam_z;
+    const bool inside = h >= kCloudMin && h <= kCloudMax;
+    const float cx = wx * 0.001f + drift;
+    const float cy = h * 0.001f + 0.0f;
+    const float cz = wz * 0.001f + drift;
+    float n = noise3(tex, cx, cy, cz) * 0.5f;
+    n = n + noise3(tex, cx * 2.0f + drift, cy * 2.0f + 0.0f,
+                   cz * 2.0f + drift) * 0.25f;
+    n = n + noise3(tex, cx * 7.0f - drift, cy * 7.0f - 0.0f,
+                   cz * 7.0f - drift) * 0.125f;
+    n = n + noise3(tex, (cx + drift) * 16.0f, (cy + 0.0f) * 16.0f,
+                   (cz + drift) * 16.0f) * 0.0625f;
+    const float hh = h - kCloudMin;
+    const float thresh = (1.0f - expf(-0.01f * hh)) * expf(-0.004f * hh);
+    const float t = fminf(fmaxf((n - 0.55f) * (1.0f / 0.05f), 0.0f), 1.0f);
+    const float clouds = (t * t * (3.0f - 2.0f * t)) * thresh;
+    return inside ? clouds * 0.03f : 0.0f;
+}
+
+__global__ void sky_lut_kernel(const float* __restrict__ params,
+                               const float* __restrict__ noise,
+                               float* __restrict__ out, int lut_w,
+                               int lut_h) {
+    __shared__ float tex[kN * kN];
+    for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < kN * kN;
+         i += blockDim.x * blockDim.y)
+        tex[i] = noise[i];
+    __syncthreads();
+    const int ix = blockIdx.x * blockDim.x + threadIdx.x;
+    const int iy = blockIdx.y * blockDim.y + threadIdx.y;
+    if (ix >= lut_w || iy >= lut_h) return;
+
+    const float sx = params[0], sy = params[1], sz = params[2];
+    const float ox = params[3], oy = params[4], oz = params[5];
+    const float cam_x = params[6], cam_z = params[7];
+    const float elapsed = params[8], drift = params[9];
+    const float skl[3] = {params[10], params[11], params[12]};
+
+    // ---- the lat-long ray (render_sky_lut)
+    const float az = ((float)ix + 0.5f) * (1.0f / (float)lut_w) * 2.0f * kPi
+                     - kPi;
+    const float el = ((float)iy + 0.5f) * (1.0f / (float)lut_h) * kPi
+                     - kHalfPi;
+    const float ce = cosf(el);
+    const float dx = ce * cosf(az);
+    const float dy = sinf(el);
+    const float dz = ce * sinf(az);
+
+    // ---- atmosphere (clouds._atmosphere, 16 x 8)
+    const float nrm = fmaxf(sqrtf(dot3(dx, dy, dz, dx, dy, dz)), 1e-12f);
+    const float rx = dx / nrm, ry = dy / nrm, rz = dz / nrm;
+    float p_near, p_far, g_near, unused;
+    rsi(ox, oy, oz, rx, ry, rz, kRAtmos2, &p_near, &p_far);
+    const bool miss = p_near > p_far;
+    rsi(ox, oy, oz, rx, ry, rz, kRPlanet2, &g_near, &unused);
+    p_far = fminf(p_far, g_near);
+    const float i_step = (p_far - p_near) * (1.0f / 16.0f);
+    const float mu = dot3(rx, ry, rz, sx, sy, sz);
+    const float mumu = mu * mu;
+    const float p_rlh = kPRlh * (1.0f + mumu);
+    const float p_mie = (kPMie * (kOneMinusGG * (mumu + 1.0f)))
+                        / (powf(kOnePlusGG - 2.0f * mu * (float)kGMieD, 1.5f)
+                           * kTwoPlusGG);
+    const float k_rlh[3] = {(float)5.5e-6, (float)13.0e-6, (float)22.4e-6};
+    float tot_r[3] = {0.0f, 0.0f, 0.0f}, tot_m[3] = {0.0f, 0.0f, 0.0f};
+    float iod_r = 0.0f, iod_m = 0.0f;
+    float i_time = elapsed;                  // the :368 iTime quirk
+    for (int ii = 0; ii < 16; ++ii) {
+        const float tmid = i_time + i_step * 0.5f;
+        const float ipx = ox + rx * tmid;
+        const float ipy = oy + ry * tmid;
+        const float ipz = oz + rz * tmid;
+        const float i_h = sqrtf(dot3(ipx, ipy, ipz, ipx, ipy, ipz)) - kRPlanet;
+        const float od_r = expf(-i_h * (1.0f / 8000.0f)) * i_step;
+        const float od_m = expf(-i_h * (1.0f / 1200.0f)) * i_step;
+        iod_r = iod_r + od_r;
+        iod_m = iod_m + od_m;
+        float j_far;
+        rsi(ipx, ipy, ipz, sx, sy, sz, kRAtmos2, &unused, &j_far);
+        const float j_step = j_far * (1.0f / 8.0f);
+        float jod_r = 0.0f, jod_m = 0.0f;
+        for (int jj = 0; jj < 8; ++jj) {
+            const float tt = j_step * (float)jj + j_step * 0.5f;
+            const float jpx = ipx + sx * tt;
+            const float jpy = ipy + sy * tt;
+            const float jpz = ipz + sz * tt;
+            const float j_h = sqrtf(dot3(jpx, jpy, jpz, jpx, jpy, jpz))
+                              - kRPlanet;
+            jod_r = jod_r + expf(-j_h * (1.0f / 8000.0f)) * j_step;
+            jod_m = jod_m + expf(-j_h * (1.0f / 1200.0f)) * j_step;
+        }
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+            const float attn = expf(-(kKMie * (iod_m + jod_m)
+                                      + k_rlh[c] * (iod_r + jod_r)));
+            tot_r[c] = tot_r[c] + od_r * attn;
+            tot_m[c] = tot_m[c] + od_m * attn;
+        }
+        i_time = i_time + i_step;
+    }
+    float atmos[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+        const float a = 22.0f * (p_rlh * k_rlh[c] * tot_r[c]
+                                 + p_mie * kKMie * tot_m[c]);
+        atmos[c] = miss ? 0.0f : a;
+    }
+
+    const size_t plane = (size_t)lut_w * lut_h;
+    const size_t o = (size_t)iy * lut_w + ix;
+    if (dy < 0.0f) {            // below the horizon: the atmosphere
+#pragma unroll
+        for (int c = 0; c < 3; ++c) out[c * plane + o] = atmos[c];
+        return;
+    }
+
+    // ---- volumetric clouds (clouds._volumetric_clouds, dither 0.5)
+    float bottom, top;
+    rsi(0.0f, kEarth, 0.0f, dx, dy, dz, kShellMin2, &unused, &bottom);
+    rsi(0.0f, kEarth, 0.0f, dx, dy, dz, kShellMax2, &unused, &top);
+    const float stx = dx * bottom, sty = dy * bottom, stz = dz * bottom;
+    const float incx = (dx * top - stx) * (1.0f / 24.0f);
+    const float incy = (dy * top - sty) * (1.0f / 24.0f);
+    const float incz = (dz * top - stz) * (1.0f / 24.0f);
+    const float px0 = stx + incx * 0.5f;
+    const float py0 = sty + incy * 0.5f;
+    const float pz0 = stz + incz * 0.5f;
+    const float step_len = sqrtf(dot3(incx, incy, incz, incx, incy, incz));
+    const float ldotw = dot3(dx, dy, dz, sx, sy, sz);
+    const float lobe1 = hg(ldotw, kHg1A, kHg1B, kHg1C);
+    const float lobe2 = hg(ldotw, kHg2A, kHg2B, kHg2C);
+    const float phase = lobe2 + (lobe1 - lobe2) * 0.5f;
+    const float six = sx * 50.0f, siy = sy * 50.0f, siz = sz * 50.0f;
+
+    float sc[3] = {0.0f, 0.0f, 0.0f};
+    float trans = 1.0f;
+    for (int i = 0; i < 24; ++i) {
+        const float fi = (float)i;
+        const float cpx = px0 + incx * fi;
+        const float cpy = py0 + incy * fi;
+        const float cpz = pz0 + incz * fi;
+        const float od = get_clouds(tex, cpx, cpy, cpz, cam_x, cam_z, drift)
+                         * step_len;
+        if (!(od > 0.0f)) continue;   // no density: nothing added
+        const float qx0 = cpx + six * 0.5f;
+        const float qy0 = cpy + siy * 0.5f;
+        const float qz0 = cpz + siz * 0.5f;
+        float strans = 0.0f;
+        for (int j = 0; j < 10; ++j) {
+            const float fj = (float)j;
+            strans = strans + get_clouds(tex, qx0 + six * fj, qy0 + siy * fj,
+                                         qz0 + siz * fj, cam_x, cam_z,
+                                         drift);
+        }
+        const float sunv = expf(-strans * 50.0f);
+        const float integral = expf(kScatA * od) * kScatB + kScatC;
+        const float beers = 1.0f - expf(-(od * kLn2) * 2.0f);
+        const float x = sunv * beers * phase;
+        const float ipi = integral * kPi;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+            const float sunlight = 0.8f * x * (float)(0.5 * kPiD)
+                                   * kSunBright;
+            sc[c] = sc[c] + (sunlight + skl[c]) * ipi * trans;
+        }
+        trans = trans * expf(-od);
+    }
+    const float fade = fminf(fmaxf(sqrtf(dot3(stx, sty, stz, stx, sty, stz))
+                                   * 0.00001f * 2.5f, 0.0f), 1.0f);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+        const float mixed = atmos[c] * trans + sc[c];
+        out[c * plane + o] = mixed + (atmos[c] - mixed) * fade;
+    }
+}
+
+}  // namespace
+
+SOC_EXPORT int sky_lut_launch(const void* params, const void* noise,
+                              void* out, int lut_w, int lut_h,
+                              void* stream) {
+    if (lut_w <= 0 || lut_h <= 0) return (int)cudaErrorInvalidValue;
+    const dim3 block(64, 4);
+    const dim3 grid((lut_w + block.x - 1) / block.x,
+                    (lut_h + block.y - 1) / block.y);
+    sky_lut_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        (const float*)params, (const float*)noise, (float*)out, lut_w,
+        lut_h);
+    return (int)cudaGetLastError();
+}

@@ -4,8 +4,10 @@ Counterpart of the JAX package's ``models/scene_batch.py``: vertex
 attributes are expanded per triangle in the planar (3 verts, comps, T)
 layout, giant triangles are midpoint-split, per-triangle static shading
 flags ride in a (5, T) block, and the material atlas is packed and
-bilinear-expanded into one (N, 12) int32 table.  The tile sampler's atlas
-page is not built: the texture-tile kernel is not ported yet.
+bilinear-expanded into one (N, 12) int32 table.  Models are merged in
+mesh-entity order, each with its material offset and entity index.  The
+JAX package's tile-sampler atlas page is not built: the texture kernel
+K5 reads the (N, 12) table directly.
 """
 from __future__ import annotations
 

@@ -1,13 +1,14 @@
 """Clouds + single-scattering atmosphere through the sky LUT.
 
-Counterpart of the JAX package's ``ops/clouds.py`` on the path the
-default frame takes without the cloud-noise asset: ``render_sky_lut``
-with procedural value noise (a 256x128 lat-long direction LUT: 16x8-step
+Counterpart of the JAX package's ``ops/clouds.py`` on its LUT path:
+``render_sky_lut`` (a 256x128 lat-long direction LUT: 16x8-step
 atmosphere, 24-step cloud march with a 10-step sun march, 4-octave fBm,
-two-lobe HG, powder/Beer, scatter integral) and ``sky_from_lut`` (the
-per-pixel bayer16-dithered lookup with the reference's QUADRANT quirk).
-The per-pixel march (``render_clouds``) and the noise-texture LUT (the
-Pallas sky kernel) are not ported yet.
+two-lobe HG, powder/Beer, scatter integral), over the (64, 64) tiled
+noise texture when given one (the plain version of kernel K6,
+``ops/sky.py``) or procedural value noise without it, and
+``sky_from_lut`` (the per-pixel bayer16-dithered lookup with the
+reference's QUADRANT quirk).  The per-pixel march (``render_clouds``) is
+not ported yet.
 
 Vectors ride the LAST axis as in the JAX version.  The march's steps
 are independent except for the transmittance carry, so the 24 primary
@@ -151,20 +152,50 @@ def _value_noise2(u, v):
     return (a + (b - a) * fu) * (1 - fv) + (c + (d - c) * fu) * fv
 
 
-def _get_3d_noise(pos):
-    """:219-233 with procedural value noise in place of noise.png."""
+def _sample_repeat(tex, u, v):
+    """Bilinear repeat sampling of an (N, N) float texture at (u, v)."""
+    N = tex.shape[-1]
+    x = u * N - 0.5
+    y = v * N - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = x - x0
+    fy = y - y0
+    x0i = torch.remainder(x0.to(torch.int32), N)
+    x1i = torch.remainder(x0i + 1, N)
+    y0i = torch.remainder(y0.to(torch.int32), N)
+    y1i = torch.remainder(y0i + 1, N)
+    flat = tex.reshape(-1)
+    r0 = (y0i * N).long()
+    r1 = (y1i * N).long()
+    c00 = flat[r0 + x0i]
+    c10 = flat[r0 + x1i]
+    c01 = flat[r1 + x0i]
+    c11 = flat[r1 + x1i]
+    return ((c00 * (1 - fx) + c10 * fx) * (1 - fy)
+            + (c01 * (1 - fx) + c11 * fx) * fy)
+
+
+def _get_3d_noise(pos, noise_tex=None):
+    """:219-233: fake 3D from a tiled 2D noise field with z-slice
+    interpolation; noise_tex=None replaces noise.png with procedural
+    value noise."""
     p = torch.floor(pos[..., 2])
     f = pos[..., 2] - p
     inv_res = 1.0 / 64.0
     z_stretch = 17.0 * inv_res
     cu = pos[..., 0] * inv_res + p * z_stretch
     cv = pos[..., 1] * inv_res + p * z_stretch
-    n0 = _value_noise2(cu * 64.0, cv * 64.0)
-    n1 = _value_noise2((cu + z_stretch) * 64.0, (cv + z_stretch) * 64.0)
+    if noise_tex is None:
+        n0 = _value_noise2(cu * 64.0, cv * 64.0)
+        n1 = _value_noise2((cu + z_stretch) * 64.0, (cv + z_stretch) * 64.0)
+    else:
+        n0 = _sample_repeat(noise_tex, cu, cv)
+        n1 = _sample_repeat(noise_tex, cu + z_stretch, cv + z_stretch)
     return n0 + (n1 - n0) * f
 
 
-def _get_clouds(p, camera_pos, elapsed_time):
+def _get_clouds(p, camera_pos, elapsed_time, noise_tex=None):
     """:235-262."""
     up = _vec([0.0, EARTH_RADIUS, 0.0], p.device)
     py = _norm(p + up) - EARTH_RADIUS
@@ -175,10 +206,10 @@ def _get_clouds(p, camera_pos, elapsed_time):
     mv = torch.stack([time, torch.zeros_like(time), time], -1)
     coord = torch.stack([pxz[..., 0], py, pxz[..., 1]], -1) * 0.001 + mv
 
-    noise = _get_3d_noise(coord) * 0.5
-    noise = noise + _get_3d_noise(coord * 2.0 + mv) * 0.25
-    noise = noise + _get_3d_noise(coord * 7.0 - mv) * 0.125
-    noise = noise + _get_3d_noise((coord + mv) * 16.0) * 0.0625
+    noise = _get_3d_noise(coord, noise_tex) * 0.5
+    noise = noise + _get_3d_noise(coord * 2.0 + mv, noise_tex) * 0.25
+    noise = noise + _get_3d_noise(coord * 7.0 - mv, noise_tex) * 0.125
+    noise = noise + _get_3d_noise((coord + mv) * 16.0, noise_tex) * 0.0625
 
     hh = py - CLOUD_MIN
     thresh = (1.0 - torch.exp(-0.01 * hh)) * torch.exp(-0.004 * hh)
@@ -187,9 +218,15 @@ def _get_clouds(p, camera_pos, elapsed_time):
     return torch.where(inside, clouds * CLOUD_DENSITY, 0.0)
 
 
+def sky_light_term(sun_dir):
+    """The clouds' constant sky light, sky_light * 0.25 / pi (:196-218,
+    :341), (3,)."""
+    return _atmospheric_scattering_top(sun_dir) * 0.25 / math.pi
+
+
 def _volumetric_clouds(ray_dir, sun_dir, color, dither, sun_color,
-                       camera_pos, elapsed_time, steps: int = 24,
-                       sun_steps: int = 10):
+                       camera_pos, elapsed_time, noise_tex=None,
+                       steps: int = 24, sun_steps: int = 10):
     """:307-350 (with the :264-278 sun-visibility march inlined)."""
     dev = ray_dir.device
     up = _vec([0.0, 1.0, 0.0], dev) * EARTH_RADIUS
@@ -203,7 +240,6 @@ def _volumetric_clouds(ray_dir, sun_dir, color, dither, sun_color,
 
     ldotw = _dot(ray_dir, sun_dir)
     phase = _phase_two_lobes(ldotw)
-    sky_light = _atmospheric_scattering_top(sun_dir)
 
     # all march samples at once: (steps, ...) primary positions and
     # (steps, sun_steps, ...) sun-visibility positions
@@ -214,12 +250,13 @@ def _volumetric_clouds(ray_dir, sun_dir, color, dither, sun_color,
     jj = torch.arange(sun_steps, dtype=torch.float32, device=dev)
     spos = (cpos + s_inc * 0.5)[:, None] \
         + s_inc * jj.reshape(1, -1, *([1] * (cpos.dim() - 1)))
-    od_all = _get_clouds(cpos, camera_pos, elapsed_time) * step_len
-    sun_d = _get_clouds(spos, camera_pos, elapsed_time)
+    od_all = _get_clouds(cpos, camera_pos, elapsed_time,
+                         noise_tex) * step_len
+    sun_d = _get_clouds(spos, camera_pos, elapsed_time, noise_tex)
 
     scattering = torch.zeros_like(color)
     trans = torch.ones_like(step_len)
-    skylight = sky_light * 0.25 / math.pi
+    skylight = sky_light_term(sun_dir)
     for i in range(steps):
         od = od_all[i]
         strans = torch.zeros_like(od)
@@ -305,10 +342,19 @@ def _atmosphere(ray_dir, origin, sun_dir, elapsed_time,
     return torch.where(miss[..., None], 0.0, out)
 
 
-def render_sky_lut(g, lut_w: int = 256, lut_h: int = 128):
-    """March atmosphere + procedural-noise clouds over a lat-long
-    direction LUT.  Returns (3, lut_h, lut_w): azimuth in [-pi, pi)
-    across width, elevation in [-pi/2, pi/2] across height."""
+def sky_horizon(sun_dir):
+    """The horizon darkening max(min(|sx|, |sz|) + sy, 0) (:477)."""
+    return torch.clamp(
+        torch.minimum(torch.abs(sun_dir[0]), torch.abs(sun_dir[2]))
+        + sun_dir[1], min=0.0)
+
+
+def render_sky_lut(g, lut_w: int = 256, lut_h: int = 128, noise_tex=None):
+    """March atmosphere + clouds over a lat-long direction LUT.  Returns
+    (3, lut_h, lut_w): azimuth in [-pi, pi) across width, elevation in
+    [-pi/2, pi/2] across height.  noise_tex: the (64, 64) tiled cloud
+    noise (the exact texture branch, K6's plain version); None takes
+    procedural value noise."""
     dev = g.sun.direction.device
     az = ((torch.arange(lut_w, dtype=torch.float32, device=dev) + 0.5)
           / lut_w * 2.0 * math.pi - math.pi)
@@ -326,11 +372,8 @@ def render_sky_lut(g, lut_w: int = 256, lut_h: int = 128):
     sky = _volumetric_clouds(ray, sun_dir, atmos,
                              torch.full(shape, 0.5, device=dev),
                              _vec([0.8, 0.8, 0.8], dev),
-                             g.camera.position, g.elapsed_time)
-    horizon = torch.clamp(
-        torch.minimum(torch.abs(sun_dir[0]), torch.abs(sun_dir[2]))
-        + sun_dir[1], min=0.0)
-    return (sky * horizon).permute(2, 0, 1)
+                             g.camera.position, g.elapsed_time, noise_tex)
+    return (sky * sky_horizon(sun_dir)).permute(2, 0, 1)
 
 
 def sky_from_lut(g, lut, depth_full, width: int, height: int,

@@ -5,9 +5,11 @@ albedo twice, the exponential shadow factor, the force-zeroed
 volumetric march behind ``enable_volumetric``, sky pixels (depth == 1)
 take the clouds image.
 
-The shadow map itself comes from the sun-shadow depth kernel, which is
-not ported yet: only the statically empty map (the analytic path) and
-the no-shadow path exist here; a real map raises.
+The sun shadow is taken from the rendered depth map (the K4 shadow
+view, full or through the proved crop) or, where the build proved the
+map empty, against the constant 1.0.  The volumetric march over a
+rendered map (``sample_shadow_cmp``) is not ported: it is off by
+default and raises.
 """
 from __future__ import annotations
 
@@ -111,13 +113,20 @@ def compose(g, depth, albedo, emissive, normal, ssao, shadow_map, clouds,
     """Full composition pass (planar).
 
     depth: (H, W); albedo/emissive/normal: (3, H, W); ssao: (H, W);
-    clouds: (3, H, W) or None.  empty_shadow_map: the sun shadow map is
-    statically proved to be all 1.0, so the ESM factor is taken against
-    the constant 1.0 (exact).  Returns (3, H, W) HDR colour."""
-    if shadow_map is not None or shadow_crop is not None:
+    shadow_map: (S, S) or None; clouds: (3, H, W) or None.
+    empty_shadow_map: the sun shadow map is statically proved to be all
+    1.0, so the ESM factor is taken against the constant 1.0 (exact).
+    shadow_crop: the proved texel window (x0, y0, w, h) holding every
+    texel below 1.0 (FramePlan.shadow_crop): the ESM tap samples the
+    crop at the full-map texel coordinates shifted by the integer
+    origin, and clamps at the crop edge land on the proved 1.0 ring, so
+    the result is bit-identical to the full-map tap.  Returns (3, H, W)
+    HDR colour."""
+    if enable_volumetric and shadow_map is not None:
         raise NotImplementedError(
-            "a rendered sun shadow map needs the shadow depth kernel "
-            "(K4, ROADMAP queue B), which is not ported yet")
+            "the volumetric light march over a rendered shadow map "
+            "(sample_shadow_cmp) is not ported yet (off by default, "
+            "enable_volumetric_light=False)")
     H, W = depth.shape
     uv = sampling.grid_uv(H, W, depth.device).reshape(2, -1)
 
@@ -130,11 +139,23 @@ def compose(g, depth, albedo, emissive, normal, ssao, shadow_map, clouds,
     occ = torch.pow(torch.clamp(ssao.reshape(-1), min=0.0),
                     g.ambient_occlussion_strength)
 
-    # --- sun shadow (composition.inl:164-173), analytic all-1.0 map
-    if enable_shadow and empty_shadow_map:
+    # --- sun shadow (composition.inl:164-173)
+    if enable_shadow and (shadow_map is not None or empty_shadow_map):
         sp, _ = _project(g.sun.projection_view, position)
+        if empty_shadow_map:
+            sdepth = 1.0            # the all-1.0 map, sampled bilinearly
+        elif shadow_crop is not None:
+            S = shadow_map.shape[-1]
+            x0, y0, cw, ch = shadow_crop
+            sub = shadow_map[y0:y0 + ch, x0:x0 + cw]
+            xy = torch.stack([(sp[0] * 0.5 + 0.5) * S - 0.5 - x0,
+                              (sp[1] * 0.5 + 0.5) * S - 0.5 - y0])
+            sdepth = sampling.sample_screen(sub, xy, texel_coords=True)
+        else:
+            suv = torch.stack([sp[0] * 0.5 + 0.5, sp[1] * 0.5 + 0.5])
+            sdepth = sampling.sample_screen(shadow_map, suv)
         sun_shadow = torch.clamp(
-            torch.exp(g.sun.exponential_factor * (sp[2] - 1.0))
+            torch.exp(g.sun.exponential_factor * (sp[2] - sdepth))
             ** g.sun.darkening_factor, 0.0, 1.0)
     else:
         sun_shadow = torch.ones_like(d)

@@ -6,9 +6,11 @@ pixel one shading-record fetch by triangle id, perspective-correct
 barycentric interpolation with analytic derivatives, uv/lod, one packed
 atlas tap, TBN normal mapping, velocity against the previous camera,
 the terrain path (normal map as world normal, zero velocity) and the
-sky clear on no-hit pixels.  Records are the f32 layout only.  The tile
-sampler for multi-material atlases (the texture-tile kernel) is not
-ported yet.
+sky clear on no-hit pixels.  Records are the f32 layout only.  The tap
+goes through kernel K5 (``ops/texsample.py``), which computes
+``sample_packed_atlas`` exactly, on a card: on one card it beats the
+gather on a single-material atlas as well (PERF.md), so the TPU
+package's material-count crossover has no counterpart here.
 """
 from __future__ import annotations
 
@@ -109,9 +111,10 @@ def sample_packed_atlas(atlas, mid, uv, lod, *, size: int,
 
 def resolve_gbuffer(vis: VisibilityBuffer, shading_records, atlas,
                     prev_view_proj, *, atlas_size: int, layer_stride: int,
-                    n_levels: int, filter_mode: str = "bilinear"
-                    ) -> GBuffer:
-    """Shade the visibility buffer into the 5-target G-buffer."""
+                    n_levels: int, filter_mode: str = "bilinear",
+                    impl: str | None = None) -> GBuffer:
+    """Shade the visibility buffer into the 5-target G-buffer.  The
+    material tap is texsample.sample_atlas (K5), dispatched by `impl`."""
     H, W = vis.depth.shape
     dev = vis.depth.device
     T = shading_records.shape[1] - 1
@@ -173,9 +176,10 @@ def resolve_gbuffer(vis: VisibilityBuffer, shading_records, atlas,
                            du_dy ** 2 + dv_dy ** 2) * (atlas_size ** 2)
     lod = 0.5 * torch.log2(torch.clamp(lod_sq, min=1e-12))
 
-    tex = sample_packed_atlas(atlas, mid, uv, lod, size=atlas_size,
-                              layer_stride=layer_stride, n_levels=n_levels,
-                              filter_mode=filter_mode)          # (11, P)
+    from .texsample import sample_atlas
+    tex = sample_atlas(atlas, mid, uv, lod, size=atlas_size,
+                       layer_stride=layer_stride, n_levels=n_levels,
+                       filter_mode=filter_mode, impl=impl)      # (11, P)
     albedo_t = _srgb_to_linear(tex[0:3])
     normal_t = tex[3:6]
     mr_gb = tex[6:8]

@@ -15,6 +15,8 @@ layout only:
 4. **Resolve** (:func:`resolve`): kernel K1 (``kernels/csrc/resolve.cu``)
    on a card, :func:`resolve_plain` on the CPU: per pixel the minimum-z
    covering record of its bin, ties to the lower id, clear 1.0 / -1.
+   The shadow view's depth-only resolve (:func:`resolve_depth`) is
+   kernel K4 in the same source, :func:`resolve_depth_plain` on the CPU.
 """
 from __future__ import annotations
 
@@ -341,6 +343,67 @@ def resolve(starts, recs, grid: BinGrid, impl: str | None = None):
     return depth, tri_id
 
 
+def resolve_depth_plain(starts, recs, grid: BinGrid,
+                        pixels_per_chunk: int = 1 << 24):
+    """K4's reference in plain PyTorch: the depth-only resolve of the
+    shadow view — per pixel the minimum z over the covering records of
+    its bin, 1.0 where none covers.  Pairs go in chunks of
+    pixels_per_chunk // (bin pixels) (1,024 pairs of a 128x128 bin), so
+    one chunk's temporaries stay near 1 GB at the 4096^2 shadow map.
+    Returns depth padded to the bin grid."""
+    dev = recs.device
+    bw, bh, BX = grid.bw, grid.bh, grid.bx
+    Hp, Wp = grid.by * bh, BX * bw
+    n_pairs = int(starts[-1])
+    pix = torch.arange(bw * bh, device=dev)
+    lx, ly = pix % bw, torch.div(pix, bw, rounding_mode="floor")
+    zbuf = torch.full((Hp * Wp,), float("inf"), device=dev)
+    pair_chunk = max(1, pixels_per_chunk // (bw * bh))
+    for p0 in range(0, n_pairs, pair_chunk):
+        p = torch.arange(p0, min(p0 + pair_chunk, n_pairs), device=dev)
+        b = torch.searchsorted(starts, p.to(starts.dtype), right=True) - 1
+        gx = (b % BX * bw)[:, None] + lx[None, :]
+        gy = (torch.div(b, BX, rounding_mode="floor") * bh)[:, None] \
+            + ly[None, :]
+        cov, z = _eval_records(recs[:, p][:, :, None],
+                               gx.to(torch.float32) + 0.5,
+                               gy.to(torch.float32) + 0.5)
+        zbuf.scatter_reduce_(0, (gy * Wp + gx).reshape(-1),
+                             torch.where(cov, z, float("inf")).reshape(-1),
+                             reduce="amin")
+    return torch.where(torch.isfinite(zbuf), zbuf, 1.0).reshape(Hp, Wp)
+
+
+def resolve_depth(starts, recs, grid: BinGrid, impl: str | None = None):
+    """K4 dispatch: depth-only bin resolve -> depth padded to the bin
+    grid.  CUDA tensors launch the kernel (``resolve.cu``
+    ``resolve_depth_kernel``), CPU tensors (or impl="plain") take
+    resolve_depth_plain."""
+    if kb.choose(impl, starts, recs) == "plain":
+        return resolve_depth_plain(starts, recs, grid)
+    lib = kb.library()
+    if starts.dtype != torch.int32 or recs.dtype != torch.float32:
+        raise TypeError("resolve_depth takes int32 starts and float32 "
+                        "records")
+    if starts.shape != (grid.num_bins + 1,) or recs.shape[0] != 16:
+        raise ValueError(f"starts {tuple(starts.shape)} / records "
+                         f"{tuple(recs.shape)} do not match the grid")
+    if 256 % grid.bw:
+        raise ValueError(f"resolve_depth needs a bin width dividing 256, "
+                         f"got {grid.bw}")
+    starts = starts.contiguous()
+    recs = recs.contiguous()
+    Hp, Wp = grid.by * grid.bh, grid.bx * grid.bw
+    depth = torch.empty((Hp, Wp), dtype=torch.float32, device=recs.device)
+    code = lib.resolve_depth_launch(starts.data_ptr(), recs.data_ptr(),
+                                    depth.data_ptr(), recs.shape[1],
+                                    grid.num_bins, grid.bx, grid.bw,
+                                    grid.bh, Wp, kb.stream_ptr(recs))
+    kb.launches["resolve_depth"] += 1
+    kb.check(code, "resolve_depth")
+    return depth
+
+
 def gather_records(setup: PlanarSetup, grid: BinGrid):
     """Bin + sort + gather: (starts, bin-ordered records (16, cap),
     overflow, cropped grid) exactly as the JAX rasterize prepares the
@@ -360,13 +423,18 @@ def gather_records(setup: PlanarSetup, grid: BinGrid):
 
 
 def rasterize(clip, grid: BinGrid, cull: str = "front",
-              impl: str | None = None
+              impl: str | None = None, depth_only: bool = False
               ) -> tuple[VisibilityBuffer, PlanarSetup]:
     """Full raster: clip (3 verts, 4 comps, T) planar clip positions ->
-    visibility buffer cropped to the viewport."""
+    visibility buffer cropped to the viewport.  depth_only: the shadow
+    view's id-free resolve (K4); the buffer's tri_id is None."""
     vh, vw = grid.height, grid.width
     setup = triangle_setup_planar(clip, grid.width, grid.height, cull)
     starts, recs, overflow, rgrid = gather_records(setup, grid)
+    if depth_only:
+        depth = resolve_depth(starts, recs, rgrid, impl=impl)
+        return VisibilityBuffer(depth=depth[:vh, :vw], tri_id=None,
+                                overflow=overflow), setup
     depth, tid = resolve(starts, recs, rgrid, impl=impl)
     vis = VisibilityBuffer(depth=depth[:vh, :vw], tri_id=tid[:vh, :vw],
                            overflow=overflow)

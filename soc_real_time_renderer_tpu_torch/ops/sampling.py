@@ -54,17 +54,23 @@ def _lerp2(c00, c10, c01, c11, fx, fy):
     return top * (1 - fy) + bot * fy
 
 
-def sample_screen(img, uv):
+def sample_screen(img, uv, texel_coords: bool = False):
     """Bilinear sample of a planar image at planar uv, clamp-to-edge.
 
-    img: (C, H, W) or (H, W); uv: (2, ...).  Returns (C, ...) / (...)."""
+    img: (C, H, W) or (H, W); uv: (2, ...).  Returns (C, ...) / (...).
+    texel_coords: uv already holds the texel coordinates (x, y) that
+    u*W - 0.5, v*H - 0.5 would give (the shadow-map crop taps, whose
+    full-map coordinates are shifted by the integer crop origin)."""
     squeeze = img.dim() == 2
     if squeeze:
         img = img[None]
     C, H, W = img.shape
     flat = img.reshape(C, H * W)
-    x = uv[0] * W - 0.5
-    y = uv[1] * H - 0.5
+    if texel_coords:
+        x, y = uv[0], uv[1]
+    else:
+        x = uv[0] * W - 0.5
+        y = uv[1] * H - 0.5
     x0i = index_of(torch.floor(x), W)
     y0i = index_of(torch.floor(y), H)
     x1i = torch.clamp(x0i + 1, max=W - 1)

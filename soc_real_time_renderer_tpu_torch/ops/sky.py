@@ -1,0 +1,58 @@
+"""The noise-texture sky LUT (K6).
+
+Counterpart of the JAX package's ``ops/sky_pallas.py``, whose Pallas
+``_sky_kernel`` keeps the (64, 64) cloud-noise tile in VMEM and takes
+each bilinear-repeat tap as a soft-one-hot MXU product with bf16 noise
+and weights.  The CUDA kernel (``kernels/csrc/sky.cu``) computes the
+exact XLA oracle instead, ``clouds.render_sky_lut(g, noise_tex=...)``:
+one thread per LUT texel, the noise tile in shared memory, f32 taps.
+That function is the kernel's plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..kernels import build as kb
+from . import clouds
+
+NOISE_N = 64
+
+
+def sky_params(g):
+    """The per-frame scalars of the sky march, (16,) f32 on g's device:
+    [sun_dir 3 | atmosphere origin 3 | camera x, z | elapsed time |
+    cloud drift -0.02 * elapsed | sky light 3 | pad 3], each computed by
+    the same PyTorch operations as the plain version's."""
+    sun_dir = -g.sun.direction
+    dev = sun_dir.device
+    origin = clouds._vec([0.0, 6372e3, 0.0], dev) + g.camera.position
+    drift = -clouds.CLOUD_SPEED * g.elapsed_time
+    cam = g.camera.position
+    return torch.cat([
+        sun_dir, origin, cam[0:1], cam[2:3], g.elapsed_time.reshape(1),
+        drift.reshape(1), clouds.sky_light_term(sun_dir),
+        torch.zeros(3, dtype=torch.float32, device=dev)]).to(torch.float32)
+
+
+def render_sky_lut_noise(g, noise_tex, lut_w: int = 256, lut_h: int = 128,
+                         impl: str | None = None):
+    """K6 dispatch: the sky LUT (3, lut_h, lut_w) over the (64, 64) cloud
+    noise, horizon factor applied.  CUDA tensors launch the kernel, CPU
+    tensors (or impl="plain") take clouds.render_sky_lut."""
+    if kb.choose(impl, noise_tex, g.sun.direction) == "plain":
+        return clouds.render_sky_lut(g, lut_w, lut_h, noise_tex=noise_tex)
+    lib = kb.library()
+    if noise_tex.shape != (NOISE_N, NOISE_N) \
+            or noise_tex.dtype != torch.float32:
+        raise ValueError(f"noise_tex {tuple(noise_tex.shape)} "
+                         f"{noise_tex.dtype}: want (64, 64) float32")
+    noise_tex = noise_tex.contiguous()
+    params = sky_params(g).contiguous()
+    out = torch.empty((3, lut_h, lut_w), dtype=torch.float32,
+                      device=noise_tex.device)
+    code = lib.sky_lut_launch(params.data_ptr(), noise_tex.data_ptr(),
+                              out.data_ptr(), lut_w, lut_h,
+                              kb.stream_ptr(noise_tex))
+    kb.launches["sky_lut"] += 1
+    kb.check(code, "sky_lut")
+    return out * clouds.sky_horizon(-g.sun.direction)

@@ -1,12 +1,21 @@
-"""Scene presets -> BuiltScene (batch, plan, per-frame globals).
+"""Scenes -> BuiltScene (batch, plan, per-frame globals).
 
-Counterpart of the JAX package's ``scenes.py`` for the one preset that
-needs no asset mount: ``terrain`` (BASELINE config 4), a procedural
-512^2 fBm heightmap baked into 176k triangles.  It is one entity with an
-identity transform and no lights, so the ECS scene model is not needed
-yet.  The build runs the same host-side proofs: the sun-shadow emptiness
-proof (which elides the shadow raster for this scene) and the data-sized
-pair caps of the main bin grid.
+Counterpart of the JAX package's ``scenes.py``.  A scene is an ECS
+:class:`~.scene.scene.Scene` of mesh entities (TRS transforms, lights);
+:func:`_finish` packs its models into one batch and runs the same
+host-side proofs as the JAX package: the light-count bounds of the
+composition loops, the data-sized pair caps of both bin grids, and the
+sun-shadow proof (``_prove_shadow``): either the map is statically
+empty (the shadow raster is elided) or a 128-aligned texel crop is
+proved to hold every texel below the 1.0 clear, for these transforms.
+
+The one named preset is ``terrain`` (BASELINE config 4).  The presets
+with the DamagedHelmet or the Sponza textures need glTF loading and
+image decoding (ROADMAP A10/A11); other scenes are composed from
+``Scene`` + ``_finish`` exactly as with the JAX package.
+
+Entry points run on the CUDA card unless the caller passes a device
+(``device="cpu"`` runs every kernel's plain PyTorch version).
 """
 from __future__ import annotations
 
@@ -18,35 +27,46 @@ import numpy as np
 import torch
 
 from .camera import Camera3D, camera_matrices
-from .config import LightArrays, RenderConfig, ShaderGlobals, SunInfo
+from .config import RenderConfig, ShaderGlobals, SunInfo, resolve_device
 from .graph import frame as frame_mod
 from .models.scene_batch import SceneBatch, build_scene_batch
+from .scene.components import MeshComponent, TransformComponent
+from .scene.scene import Scene
 from .utils import mathutil as mu
 
 # the asset tree (SOC_ASSETS, default: assets/ of the checkout); only its
-# cloud-noise texture is looked up, to refuse the noise-texture sky path
+# cloud-noise texture is looked up, to refuse what needs image decoding
 ASSETS = os.environ.get("SOC_ASSETS", os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets"))
 
 
 @dataclass
 class BuiltScene:
+    scene: Scene
     batch: SceneBatch
     plan: frame_mod.FramePlan
     camera: Camera3D
     camera_position: np.ndarray
     camera_target: np.ndarray
-    model_mats: torch.Tensor      # (E, 4, 4)
-    normal_mats: torch.Tensor     # (E, 4, 4)
     device: torch.device
+    animate: bool = False
+    sun: SunInfo | None = None    # None: the default sun
 
     def frame_globals(self, frame_index: int, dt: float = 1.0 / 60.0,
                       peek: bool = False):
-        """Per-frame host update (camera, jitter, prev-camera roll) ->
-        (g, model_mats, normal_mats) on the scene's device, with the
-        default sun the shadow proof ran against.  peek=True reads
-        without advancing the prev-camera roll."""
+        """Per-frame host update (Application::update + Scene::update):
+        the camera (orbiting its target when `animate`), jitter, the
+        prev-camera roll, the scene's lights and transforms ->
+        (g, model_mats, normal_mats) on the scene's device.  peek=True
+        reads without advancing the prev-camera roll."""
         pos = self.camera_position
+        if self.animate:
+            ang = 0.25 * frame_index * dt
+            c, s = np.cos(ang), np.sin(ang)
+            rel = self.camera_position - self.camera_target
+            pos = self.camera_target + np.array(
+                [c * rel[0] - s * rel[2], rel[1], s * rel[0] + c * rel[2]],
+                np.float32)
         self.camera.view_mat = mu.look_at(pos, self.camera_target,
                                           np.array([0., 1., 0.], np.float32))
         cam = camera_matrices(self.camera, pos, frame_index,
@@ -55,21 +75,26 @@ class BuiltScene:
         cam_prev = getattr(self, "_prev_cam", cam)
         if not peek:
             self._prev_cam = cam
+        lights = self.scene.update(dt)
         g = ShaderGlobals.create(
-            camera=cam, camera_prev=cam_prev,
-            lights=LightArrays.empty(),
+            camera=cam, camera_prev=cam_prev, lights=lights, sun=self.sun,
             near_clip=self.camera.near_clip, far_clip=self.camera.far_clip,
             elapsed_time=np.float32(frame_index * dt),
             delta_time=np.float32(dt),
             frame_counter=np.int32(frame_index), device=self.device)
-        return g, self.model_mats, self.normal_mats
+        mm, nm = self.scene.transform_matrices()
+        return (g, torch.from_numpy(mm).to(self.device),
+                torch.from_numpy(nm).to(self.device))
 
 
 def _prove_shadow(pos, ent, model_mats, sun_pv,
                   shadow_resolution: int | None = None):
     """(statically_empty, proved_sun_pv-or-None, shadow_crop-or-None) for
-    the given host geometry (pos (3, 3, T), ent (T,)), transforms and sun
-    projection_view — the JAX package's scenes._prove_shadow."""
+    the given host geometry (pos (3, 3, T), ent (T,)), transforms (E, 4,
+    4) and sun projection_view — the JAX package's scenes._prove_shadow.
+    The crop (only when not empty): the xy sun-NDC bbox of every vertex
+    plus a 4-texel margin, 128-aligned, kept when under 70% of the map;
+    every texel outside it is exactly the 1.0 clear."""
     empty, ndc = _shadow_statically_empty(pos, ent, model_mats, sun_pv)
     proved = None
     crop = None
@@ -133,24 +158,31 @@ def _cap_grid(grid, T: int):
     return dataclasses.replace(grid, pair_cap=want, med_cap=med_cap)
 
 
-def _finish(models, config, camera_pos, camera_target, device,
-            atlas_size=1024):
-    # the terrain preset has no lights: the light loops are bounded to 0
-    config = config.replace(max_point_lights=0, max_spot_lights=0)
+def _finish(scene: Scene, models, config: RenderConfig, camera_pos,
+            camera_target, animate: bool = False, atlas_size: int = 1024,
+            sun: SunInfo | None = None, device=None) -> BuiltScene:
+    """Pack `models` (one per mesh entity of `scene`, creation order)
+    and prove the plan — the JAX package's scenes._finish.  `device`:
+    default the CUDA card (raises without one unless "cpu")."""
+    device = resolve_device(device)
+    lights = scene.update(0.0)
+    config = config.replace(max_point_lights=int(lights.point_count),
+                            max_spot_lights=int(lights.spot_count))
     batch, atlas = build_scene_batch(models, atlas_size=atlas_size,
                                      device=device)
     noise_path = os.path.join(ASSETS, "Clouds/noise.png")
     if config.enable_clouds and os.path.exists(noise_path):
         raise NotImplementedError(
-            "the cloud-noise asset selects the noise-texture sky LUT (K6, "
-            "ROADMAP queue B), which is not ported yet")
+            "the cloud-noise asset needs PNG decoding, not ported yet "
+            "(ROADMAP A10); give the batch a decoded (64, 64) "
+            "cloud_noise field instead")
     plan = frame_mod.FramePlan.create(config, atlas)
     T = batch.num_triangles
     plan = dataclasses.replace(plan, main_grid=_cap_grid(plan.main_grid, T),
                                shadow_grid=_cap_grid(plan.shadow_grid, T))
-    E = len(models)
-    mm = np.broadcast_to(np.eye(4, dtype=np.float32), (E, 4, 4)).copy()
-    sun_pv = SunInfo.create().projection_view.numpy()
+    mm, nm = scene.transform_matrices()
+    sun_pv = (sun if sun is not None else SunInfo.create()
+              ).projection_view.cpu().numpy()
     empty, proved, crop = _prove_shadow(
         batch.tri_pos.cpu().numpy(), batch.tri_entity.cpu().numpy(), mm,
         sun_pv, shadow_resolution=config.shadow_resolution)
@@ -161,12 +193,10 @@ def _finish(models, config, camera_pos, camera_target, device,
                           if crop is not None else None))
     cam = Camera3D()
     cam.resize(config.width, config.height)
-    return BuiltScene(batch=batch, plan=plan, camera=cam,
+    return BuiltScene(scene=scene, batch=batch, plan=plan, camera=cam,
                       camera_position=np.asarray(camera_pos, np.float32),
                       camera_target=np.asarray(camera_target, np.float32),
-                      model_mats=torch.from_numpy(mm).to(device),
-                      normal_mats=torch.from_numpy(mm.copy()).to(device),
-                      device=torch.device(device))
+                      device=device, animate=animate, sun=sun)
 
 
 def terrain_model():
@@ -178,19 +208,25 @@ def terrain_model():
                                            terrain_mod.default_albedo(hm))
 
 
-def build_terrain(config: RenderConfig, device="cpu", **kw) -> BuiltScene:
+def build_terrain(config: RenderConfig, device=None, **kw) -> BuiltScene:
     """BASELINE config 4: terrain + (elided) shadow + atmosphere sky."""
-    return _finish([terrain_model()], config,
+    device = resolve_device(device)
+    scene = Scene("terrain")
+    e = scene.create_entity("terrain")
+    e.add_component(TransformComponent())
+    mc = e.add_component(MeshComponent())
+    mc.model = terrain_model()
+    return _finish(scene, [mc.model], config,
                    camera_pos=[20.0, 12.0, 20.0], camera_target=[50, 0, 50],
                    device=device, **kw)
 
 
-def build(name: str, config: RenderConfig, device="cpu", **kw) -> BuiltScene:
-    """kw passes through to _finish (atlas_size)."""
+def build(name: str, config: RenderConfig, device=None, **kw) -> BuiltScene:
+    """kw passes through to _finish (atlas_size, sun)."""
     if name == "terrain":
         return build_terrain(config, device=device, **kw)
     if name in ("helmet", "helmet_lifted", "sponza", "full"):
         raise NotImplementedError(
-            f"scene {name!r} needs glTF loading and the asset mount, not "
-            f"ported yet (ROADMAP queue A: glTF loading, the other presets)")
+            f"scene {name!r} needs glTF loading and image decoding, not "
+            f"ported yet (ROADMAP A10/A11)")
     raise ValueError(name)

@@ -73,3 +73,45 @@ def rotate_z(v: np.ndarray, angle_rad: float) -> np.ndarray:
     c, s = np.cos(angle_rad), np.sin(angle_rad)
     x, y, z = v
     return np.array([c * x - s * y, s * x + c * y, z], dtype=np.float32)
+
+
+def quat_to_mat3(q) -> np.ndarray:
+    """Quaternion (w, x, y, z) -> 3x3 rotation matrix (glm ``toMat4``)."""
+    w, x, y, z = (np.float32(c) for c in q)
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ], dtype=np.float32)
+
+
+def euler_to_quat(euler_rad) -> np.ndarray:
+    """glm's Euler -> quaternion convention (pitch=x, yaw=y, roll=z),
+    ``glm::qua<f32>(glm::radians(rotation))``."""
+    ex, ey, ez = (np.float32(a) * 0.5 for a in euler_rad)
+    cx, sx = np.cos(ex), np.sin(ex)
+    cy, sy = np.cos(ey), np.sin(ey)
+    cz, sz = np.cos(ez), np.sin(ez)
+    return np.array([
+        cx * cy * cz + sx * sy * sz,
+        sx * cy * cz - cx * sy * sz,
+        cx * sy * cz + sx * cy * sz,
+        cx * cy * sz - sx * sy * cz,
+    ], dtype=np.float32)
+
+
+def compose_trs(position, rotation_euler_deg, scale) -> np.ndarray:
+    """TRS model matrix of the reference's TransformComponent:
+    ``translate(pos) * toMat4(qua(radians(rot))) * scale(s)``
+    (``scene.cpp:64-67``)."""
+    q = euler_to_quat(np.radians(np.asarray(rotation_euler_deg, np.float32)))
+    r = quat_to_mat3(q)
+    m = np.eye(4, dtype=np.float32)
+    m[:3, :3] = r * np.asarray(scale, np.float32)[None, :]
+    m[:3, 3] = np.asarray(position, np.float32)
+    return m
+
+
+def normal_matrix(model: np.ndarray) -> np.ndarray:
+    """``transpose(inverse(model))`` as a 4x4 (``scene.cpp:69``)."""
+    return np.linalg.inv(model).T.astype(model.dtype)

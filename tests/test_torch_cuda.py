@@ -1,21 +1,38 @@
-"""The CUDA kernels (K1 resolve, K2 SSAO taps, K3 TAA reprojection)
-against their plain PyTorch versions on the card, at small sizes, and a
-small frame through both paths.  Marked ``cuda``: they skip where
-``torch.cuda.is_available()`` is false (this file imports no jax, so it
-also runs where only PyTorch is installed):
+"""The CUDA kernels (K1 resolve, K2 SSAO taps, K3 TAA reprojection, K4
+shadow depth resolve, K5 texture tap, K6 noise sky LUT) against their
+plain PyTorch versions on the card, at small sizes, and small frames of
+the terrain and of the two multi-entity scenes through both paths.
+Marked ``cuda``: they skip where ``torch.cuda.is_available()`` is false
+(this file imports no jax, so it also runs where only PyTorch is
+installed):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
+import os
+import subprocess
+import sys
+import textwrap
+
 import numpy as np
 import pytest
 import torch
 
+import torch_scene_kit as kit
 from soc_real_time_renderer_tpu_torch import scenes
-from soc_real_time_renderer_tpu_torch.config import RenderConfig
+from soc_real_time_renderer_tpu_torch.camera import Camera3D, \
+    camera_matrices
+from soc_real_time_renderer_tpu_torch.config import RenderConfig, \
+    ShaderGlobals
 from soc_real_time_renderer_tpu_torch.graph import frame as fm
 from soc_real_time_renderer_tpu_torch.kernels import build as kb
 from soc_real_time_renderer_tpu_torch.models import terrain
-from soc_real_time_renderer_tpu_torch.ops import raster2, ssao, taa
+from soc_real_time_renderer_tpu_torch.models.texture import \
+    PackedMaterialAtlas, expand_atlas_bilinear
+from soc_real_time_renderer_tpu_torch.ops import clouds, raster2, sky, \
+    ssao, taa, texsample
+from soc_real_time_renderer_tpu_torch.scene.components import \
+    MeshComponent, TransformComponent
+from soc_real_time_renderer_tpu_torch.scene.scene import Scene
 
 pytestmark = pytest.mark.cuda
 
@@ -89,7 +106,11 @@ def test_small_frame_kernel_path_matches_plain(dev):
     hm = terrain.procedural_heightmap(64)
     model = terrain.build_terrain_model(hm, terrain.default_albedo(hm),
                                         tess_level=1)
-    built = scenes._finish([model], RenderConfig(width=256, height=128),
+    scene = Scene("terrain")
+    e = scene.create_entity("terrain")
+    e.add_component(TransformComponent())
+    e.add_component(MeshComponent()).model = model
+    built = scenes._finish(scene, [model], RenderConfig(width=256, height=128),
                            [20.0, 12.0, 20.0], [50, 0, 50], device=dev,
                            atlas_size=64)
     hk = hp = fm.RenderHistory.create(built.plan.config, device=dev)
@@ -100,6 +121,125 @@ def test_small_frame_kernel_path_matches_plain(dev):
         op, hp = fm.render_frame(built.plan, built.batch, g, hp, mm, nm,
                                  impl="plain")
     torch.cuda.synchronize()
-    assert kb.launches == {"resolve": 3, "ssao_taps": 3, "taa_reproject": 3}
+    assert kb.launches == {"resolve": 3, "resolve_depth": 0, "texsample": 3,
+                           "ssao_taps": 3, "sky_lut": 0, "taa_reproject": 3}
+    assert torch.isfinite(ok.color).all()
+    assert (ok.color - op.color).abs().max().item() < 1e-5
+
+
+@pytest.mark.parametrize("S", [512, 1024])
+def test_resolve_depth_kernel_matches_plain(dev, S):
+    """K4 on a soup seen as a shadow view (128-px bins, back-face cull):
+    bit-identical to resolve_depth_plain, empty bins included."""
+    grid = raster2.default_grid(S, S, kind="shadow")
+    grid = raster2.BinGrid(**{**grid.__dict__, "pair_cap": 65536,
+                              "med_cap": 512})
+    clip = _soup(400, S, S, S).to(dev)
+    setup = raster2.triangle_setup_planar(clip, S, S, "back")
+    starts, recs, _, rgrid = raster2.gather_records(setup, grid)
+    n0 = kb.launches["resolve_depth"]
+    dk = raster2.resolve_depth(starts, recs, rgrid)
+    assert kb.launches["resolve_depth"] == n0 + 1
+    dp = raster2.resolve_depth(starts, recs, rgrid, impl="plain")
+    torch.cuda.synchronize()
+    assert torch.equal(dk, dp)
+    assert 0.05 < (dk < 1.0).float().mean().item() < 1.0
+
+
+def _toy_atlas(M=3, size=64, seed=0):
+    rng = np.random.default_rng(seed)
+    n_levels = int(np.log2(size)) + 1
+    stride = sum((size >> k) ** 2 for k in range(n_levels))
+    packed = rng.integers(0, 256, (16, M * stride), dtype=np.uint8)
+    return PackedMaterialAtlas(packed=packed, size=size, num_materials=M,
+                               layer_stride=stride, n_levels=n_levels)
+
+
+@pytest.mark.parametrize("mode", ["bilinear", "nearest", "trilinear"])
+def test_texsample_kernel_matches_plain(dev, mode):
+    """K5 on a random 3-material atlas at random (mid, uv, lod), uv
+    wrapping through negative values: max abs <= 1e-6."""
+    atlas = _toy_atlas()
+    table = torch.from_numpy(expand_atlas_bilinear(atlas)).to(dev)
+    rng = np.random.default_rng(3)
+    n = 50_000
+    mid = torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(dev)
+    uv = torch.from_numpy(rng.uniform(-3, 4, (2, n)).astype(np.float32)
+                          ).to(dev)
+    lod = torch.from_numpy(rng.uniform(-1, 8, n).astype(np.float32)).to(dev)
+    kw = dict(size=atlas.size, layer_stride=atlas.layer_stride,
+              n_levels=atlas.n_levels, filter_mode=mode)
+    k = texsample.sample_atlas(table, mid, uv, lod, **kw)
+    p = texsample.sample_atlas(table, mid, uv, lod, impl="plain", **kw)
+    torch.cuda.synchronize()
+    assert (k - p).abs().max().item() <= 1e-6
+
+
+def test_texsample_kernel_asserts_past_the_atlas(dev):
+    """A mid past the atlas's last material is a device-side assert, as
+    the plain version's gather is on the card, not a clamped read of
+    another material.  In a child process: the assert ends its CUDA
+    context."""
+    code = textwrap.dedent("""
+        import numpy as np, torch
+        from soc_real_time_renderer_tpu_torch.models.texture import \\
+            PackedMaterialAtlas, expand_atlas_bilinear
+        from soc_real_time_renderer_tpu_torch.ops import texsample
+        packed = np.zeros((16, 3 * 5461), np.uint8)
+        atlas = PackedMaterialAtlas(packed=packed, size=64, num_materials=3,
+                                    layer_stride=5461, n_levels=7)
+        table = torch.from_numpy(expand_atlas_bilinear(atlas)).cuda()
+        mid = torch.tensor([0, 3], dtype=torch.int32, device="cuda")
+        uv = torch.full((2, 2), 0.25, device="cuda")
+        lod = torch.zeros(2, device="cuda")
+        texsample.sample_atlas(table, mid, uv, lod, size=64,
+                               layer_stride=5461, n_levels=7)
+        torch.cuda.synchronize()
+        print("no error")
+    """)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode != 0 and "no error" not in res.stdout
+    assert "device-side assert" in res.stderr, res.stderr[-2000:]
+
+
+def test_sky_kernel_matches_plain(dev):
+    """K6 at the frame's 256x128 LUT: max abs <= 1e-6 (the plain
+    version's order and functions, see sky.cu; bit-identical on the
+    H100 at full size)."""
+    cam = Camera3D()
+    cam.resize(256, 128)
+    g = ShaderGlobals.create(
+        camera=camera_matrices(cam, [0.0, 2.0, 0.0], 1, 256, 128),
+        elapsed_time=np.float32(3.0), device=dev)
+    noise = torch.from_numpy(kit.cloud_noise()).to(dev)
+    k = sky.render_sky_lut_noise(g, noise)
+    p = sky.render_sky_lut_noise(g, noise, impl="plain")
+    torch.cuda.synchronize()
+    assert torch.isfinite(k).all()
+    assert (k - p).abs().max().item() <= 1e-6
+    assert torch.equal(p, clouds.render_sky_lut(g, noise_tex=noise))
+
+
+@pytest.mark.parametrize("name", ["full_nohelmet", "atrium_lifted"])
+def test_small_scene_kernel_path_matches_plain(dev, name):
+    """Three frames of each multi-entity scene (small atrium, 256x128,
+    512^2 shadow map, cloud noise): every kernel of the path launches on
+    every frame and the colour equals the plain path's within 1e-5."""
+    built = kit.build_port(name, RenderConfig(width=256, height=128,
+                                              shadow_resolution=512), dev)
+    hk = hp = fm.RenderHistory.create(built.plan.config, device=dev)
+    kb.reset_launches()
+    for f in range(3):
+        g, mm, nm = built.frame_globals(f)
+        ok, hk = fm.render_frame(built.plan, built.batch, g, hk, mm, nm)
+        op, hp = fm.render_frame(built.plan, built.batch, g, hp, mm, nm,
+                                 impl="plain")
+    torch.cuda.synchronize()
+    want = {"resolve": 3, "texsample": 3, "ssao_taps": 3, "sky_lut": 3,
+            "taa_reproject": 3,
+            "resolve_depth": 0 if name == "full_nohelmet" else 3}
+    assert kb.launches == want
     assert torch.isfinite(ok.color).all()
     assert (ok.color - op.color).abs().max().item() < 1e-5

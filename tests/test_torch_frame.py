@@ -39,6 +39,8 @@ from soc_real_time_renderer_tpu_torch.ops import clouds as pclouds
 from soc_real_time_renderer_tpu_torch.ops import raster2 as praster
 from soc_real_time_renderer_tpu_torch.ops import ssao as pssao
 from soc_real_time_renderer_tpu_torch.ops import taa as ptaa
+from soc_real_time_renderer_tpu_torch.scene import components as pcomp
+from soc_real_time_renderer_tpu_torch.scene.scene import Scene as PScene
 
 W, H = 128, 64
 CAMERA = dict(camera_pos=[20.0, 12.0, 20.0], camera_target=[50, 0, 50])
@@ -64,8 +66,12 @@ def built():
     hm2 = pterrain.procedural_heightmap(64)
     pmodel = pterrain.build_terrain_model(
         hm2, pterrain.default_albedo(hm2), tess_level=1)
-    pb = pscenes._finish([pmodel], RenderConfig(**ORACLE), device="cpu",
-                         atlas_size=64, **CAMERA)
+    pscene = PScene("terrain")
+    pe = pscene.create_entity("terrain")
+    pe.add_component(pcomp.TransformComponent())
+    pe.add_component(pcomp.MeshComponent()).model = pmodel
+    pb = pscenes._finish(pscene, [pmodel], RenderConfig(**ORACLE),
+                         device="cpu", atlas_size=64, **CAMERA)
     return jb, pb
 
 
@@ -85,7 +91,7 @@ def frames(built):
     plan = jb.plan
     out = []
     jh = jframe.RenderHistory.create(plan.config)
-    ph = pframe.RenderHistory.create(pb.plan.config)
+    ph = pframe.RenderHistory.create(pb.plan.config, device="cpu")
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jssao, "_rand", smooth_rand_jax)
         mp.setattr(pssao, "_rand", smooth_rand_torch)
