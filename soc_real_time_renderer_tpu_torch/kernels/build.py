@@ -79,12 +79,13 @@ def _nvcc() -> str:
     return path
 
 
-def _build(sources) -> str:
-    """Compile every source in parallel, then link; returns nvcc's
-    output.  Raises on the first failure."""
+def build(sources, lib: str = LIB) -> str:
+    """Compile every source in parallel, then link them into `lib`;
+    returns nvcc's output.  Raises on the first failure."""
     nvcc = _nvcc()
+    out_dir = os.path.dirname(lib)
     tag = f"{os.getpid()}"
-    objs = [os.path.join(BUILD_DIR, os.path.basename(s) + f".{tag}.o")
+    objs = [os.path.join(out_dir, os.path.basename(s) + f".{tag}.o")
             for s in sources]
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", s, "-o", o],
                               stdout=subprocess.PIPE,
@@ -99,19 +100,31 @@ def _build(sources) -> str:
     try:
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n" + "".join(log))
-        tmp = f"{LIB}.{tag}.tmp"
+        tmp = f"{lib}.{tag}.tmp"
         res = subprocess.run([nvcc, *ARCH, "-shared", "-o", tmp, *objs],
                              capture_output=True, text=True)
         log.append(res.stdout + res.stderr)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                                + "".join(log))
-        os.replace(tmp, LIB)
+        os.replace(tmp, lib)
     finally:
         for o in objs:
             if os.path.exists(o):
                 os.remove(o)
     return "".join(log)
+
+
+def load(lib: str) -> ctypes.CDLL:
+    """The kernel library at `lib`, its launch functions typed."""
+    cdll = ctypes.CDLL(lib)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(cdll, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    cdll.soc_error_string.argtypes = [ctypes.c_int]
+    cdll.soc_error_string.restype = ctypes.c_char_p
+    return cdll
 
 
 def library() -> ctypes.CDLL:
@@ -127,17 +140,10 @@ def library() -> ctypes.CDLL:
     if stale:
         os.makedirs(BUILD_DIR, exist_ok=True)
         t0 = time.perf_counter()
-        build_log = _build(sources)
+        build_log = build(sources)
         build_seconds = time.perf_counter() - t0
-    lib = ctypes.CDLL(LIB)
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.soc_error_string.argtypes = [ctypes.c_int]
-    lib.soc_error_string.restype = ctypes.c_char_p
-    _lib = lib
-    return lib
+    _lib = load(LIB)
+    return _lib
 
 
 def check(code: int, what: str) -> None:

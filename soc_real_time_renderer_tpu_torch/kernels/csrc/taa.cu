@@ -12,10 +12,18 @@
 // velocity).  Output (C, H, W) f32.
 //
 // Design: one thread per pixel computes the tap position and weights
-// once and fetches the 4 corners of each of the C channels.  Bound:
-// memory, about 2C x 4 bytes of scattered-but-local bf16 reads and 4C
-// bytes written per pixel.  Built with --fmad=false in the plain
-// version's operation order (ops/taa.reproject_plain).
+// once and fetches the 4 corners of each of the C channels, so that each
+// load and store instruction of a warp covers 32 neighbouring pixels (the
+// corner gathers of neighbouring pixels share their 32-byte sectors).
+// Bound: memory, 2C x 4 bytes of scattered-but-local bf16 reads, 8 bytes
+// of velocity and 4C bytes written per pixel.  Measured on the H100 at
+// 1920x1088 and not kept: four contiguous pixels a thread with 16-byte
+// velocity and output vectors and bf16x2 corner pairs (about 2x slower:
+// the gathers of a warp instruction spread over four times the sectors,
+// the pair loads diverge on odd x0), and all corner loads issued before
+// the first store (a few per cent faster only with C fixed at five, about
+// 30% slower with a loop bound on C).  Built with --fmad=false in the
+// plain version's operation order (ops/taa.reproject_plain).
 #include <cuda_bf16.h>
 
 #include "common.cuh"

@@ -44,15 +44,33 @@ def dev():
     return torch.device("cuda:0")
 
 
-def _soup(n, seed, w, h):
+def _soup(n, seed, w, h, z=(-4.0, -2.0), spread=0.5, squash=(1, 1, 1)):
+    """(3, 4, n) planar clip positions of n view-space triangles around
+    centres with view z in `z` (z > 0 lies behind the camera), vertices
+    within `spread`, scaled by `squash` (the oracle's slivers: y * 0.02)."""
     rng = np.random.default_rng(seed)
-    c = rng.uniform([-1, -1, -4], [1, 1, -2], (n, 1, 3))
-    v = (c + rng.uniform(-0.5, 0.5, (n, 3, 3))).astype(np.float32)
+    c = rng.uniform([-1, -1, z[0]], [1, 1, z[1]], (n, 1, 3))
+    v = ((c + rng.uniform(-spread, spread, (n, 3, 3)))
+         * np.asarray(squash, np.float32)).astype(np.float32)
     from soc_real_time_renderer_tpu_torch.utils import mathutil as mu
     p = mu.perspective(90.0, w / h, 0.1, 100.0)
     clip = v @ p[:, :3].T + p[:, 3]
     return torch.from_numpy(np.ascontiguousarray(
         clip.transpose(1, 2, 0).astype(np.float32)))
+
+
+def _resolve_both(setup, grid):
+    """K1 and resolve_plain on the setup's records: asserts one launch
+    and bit-identical (depth, tri_id); returns (tri_id, starts)."""
+    starts, recs, _, rgrid = raster2.gather_records(setup, grid)
+    n0 = kb.launches["resolve"]
+    dk, ik = raster2.resolve(starts, recs, rgrid)
+    assert kb.launches["resolve"] == n0 + 1
+    dp, ip = raster2.resolve(starts, recs, rgrid, impl="plain")
+    torch.cuda.synchronize()
+    assert torch.equal(ik, ip)
+    assert torch.equal(dk, dp)
+    return ik, starts
 
 
 @pytest.mark.parametrize("w,h,bins", [(128, 64, (64, 32)), (96, 96, (32, 32)),
@@ -71,6 +89,79 @@ def test_resolve_kernel_matches_plain(dev, w, h, bins):
     assert torch.equal(ik, ip)
     assert torch.equal(dk, dp)
     assert (ik >= 0).float().mean() > 0.1
+
+
+@pytest.mark.parametrize("cull", ["front", "none"])
+def test_resolve_kernel_behind_and_across_the_camera(dev, cull):
+    """A soup from behind the camera to in front of it: triangles with
+    no w > 0 (binned into bin 0, rejected whole by K1) and triangles
+    crossing the near plane; bit-identical to resolve_plain."""
+    w, h = 256, 128
+    grid = raster2.BinGrid(width=w, height=h, bin_w=64, bin_h=32,
+                           pair_cap=32768, med_cap=1024)
+    clip = _soup(1500, 7, w, h, z=(-5.0, 3.0), spread=1.5).to(dev)
+    setup = raster2.triangle_setup_planar(clip, w, h, cull)
+    pos = setup.ws > 0
+    assert int((~pos.any(0) & setup.valid).sum()) > 100
+    assert int((pos.any(0) & ~pos.all(0) & setup.valid).sum()) > 10
+    ik, _ = _resolve_both(setup, grid)
+    assert (ik >= 0).float().mean() > 0.1
+
+
+def test_resolve_kernel_one_heavy_bin(dev):
+    """One 64x32 bin of >= 20,000 pairs (small triangles, and 5,000
+    wholly behind the camera), so every block of the bin walks a long
+    pair range."""
+    rng = np.random.default_rng(9)
+    n = 25_000
+    xy = rng.uniform(-1, 1, (n, 1, 2)) + rng.uniform(-0.15, 0.15, (n, 3, 2))
+    wv = rng.uniform(0.5, 2.0, (n, 1, 1)).repeat(3, axis=1)
+    wv[:5000] *= -1.0
+    z = rng.uniform(0.05, 0.95, (n, 3, 1))
+    clip = np.concatenate([xy * wv, z * wv, wv], axis=2).astype(np.float32)
+    clip = torch.from_numpy(np.ascontiguousarray(clip.transpose(1, 2, 0)))
+    grid = raster2.BinGrid(width=64, height=32, bin_w=64, bin_h=32, group=1,
+                           pair_cap=32768, med_cap=256)
+    setup = raster2.triangle_setup_planar(clip.to(dev), 64, 32, "none")
+    ik, starts = _resolve_both(setup, grid)
+    assert grid.num_bins == 1 and int(starts[-1]) >= 20_000
+    assert (ik >= 0).float().mean() > 0.9
+
+
+def test_resolve_kernel_exact_ties_take_the_lower_id(dev):
+    """800 triangles on one view plane (one depth quantum, so each bin's
+    pairs sort by id) with triangles 0 and 1 repeated as ids 799 and
+    400: the copies sit far apart in the bin's pair range from their
+    originals, tie on z at every pixel, and never win."""
+    rng = np.random.default_rng(10)
+    n = 800
+    c = rng.uniform([-1.5, -1.5], [1.5, 1.5], (n, 1, 2))
+    xy = c + rng.uniform(-0.4, 0.4, (n, 3, 2))
+    v = np.concatenate([xy, np.full((n, 3, 1), -2.0)], axis=2)
+    v[n - 1], v[n // 2] = v[0], v[1]
+    from soc_real_time_renderer_tpu_torch.utils import mathutil as mu
+    w, h = 128, 64
+    p = mu.perspective(90.0, w / h, 0.1, 100.0)
+    clip = (v.astype(np.float32) @ p[:, :3].T + p[:, 3]).astype(np.float32)
+    clip = torch.from_numpy(np.ascontiguousarray(clip.transpose(1, 2, 0)))
+    grid = raster2.BinGrid(width=w, height=h, bin_w=64, bin_h=32,
+                           pair_cap=8192, med_cap=1024)
+    setup = raster2.triangle_setup_planar(clip.to(dev), w, h, "none")
+    ik, _ = _resolve_both(setup, grid)
+    assert bool((ik == 0).any()) and bool((ik == 1).any())
+    assert not bool((ik == n - 1).any()) and not bool((ik == n // 2).any())
+
+
+@pytest.mark.parametrize("bins", [(64, 32), (32, 32)])
+def test_resolve_kernel_slivers(dev, bins):
+    """The raster oracle's slivers (tests/test_torch_raster.py: y * 0.02)
+    on a 256x256 target, where they cover pixels."""
+    grid = raster2.BinGrid(width=256, height=256, bin_w=bins[0],
+                           bin_h=bins[1], pair_cap=4096, med_cap=256)
+    clip = _soup(60, 2, 256, 256, squash=(1.0, 0.02, 1.0)).to(dev)
+    setup = raster2.triangle_setup_planar(clip, 256, 256, "none")
+    ik, _ = _resolve_both(setup, grid)
+    assert int((ik >= 0).sum()) > 100
 
 
 def test_ssao_kernel_matches_plain(dev):
@@ -100,6 +191,27 @@ def test_taa_kernel_matches_plain(dev):
     p = taa.reproject_history(hist, vel, impl="plain")
     torch.cuda.synchronize()
     assert torch.equal(k, p)
+
+
+@pytest.mark.parametrize("C,H,W,speed", [(5, 37, 53, 0.2), (5, 1, 1, 0.2),
+                                         (5, 48, 64, 3.0), (7, 29, 70, 3.0)])
+def test_taa_kernel_edges_match_plain(dev, C, H, W, speed):
+    """K3 at widths that are no multiple of 4 or of a warp's 32 pixels
+    (ragged blocks, odd planes), at 1x1, and with velocities that throw
+    taps past all four borders, with the packed history's 5 channels
+    and with 7."""
+    g = torch.Generator(device="cpu").manual_seed(H * W + C)
+    hist = (torch.rand(C, H, W, generator=g) * 3).to(torch.bfloat16).to(dev)
+    vel = ((torch.rand(2, H, W, generator=g) - 0.5) * 2 * speed).to(dev)
+    k = taa.reproject_history(hist, vel)
+    p = taa.reproject_history(hist, vel, impl="plain")
+    torch.cuda.synchronize()
+    assert torch.equal(k, p)
+    if speed > 1:
+        from soc_real_time_renderer_tpu_torch.ops import sampling
+        uv = sampling.grid_uv(H, W, dev) - vel
+        for a in (0, 1):
+            assert bool((uv[a] < 0).any()) and bool((uv[a] > 1).any())
 
 
 def test_small_frame_kernel_path_matches_plain(dev):

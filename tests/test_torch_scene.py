@@ -216,15 +216,15 @@ def test_entry_points_refuse_without_a_card(monkeypatch):
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    """Every module of the port, and chip_smoke.py, import neither jax
-    nor the JAX package."""
+    """Every module of the port, chip_smoke.py and kernel_ab.py import
+    neither jax nor the JAX package."""
     code = (
         "import pkgutil, sys\n"
         "import soc_real_time_renderer_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
         "for n in names: __import__(n)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, kernel_ab\n"
         "assert len(names) > 20, names\n"
         "bad = [m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'soc_real_time_renderer_tpu' "
