@@ -25,18 +25,20 @@ Both atrium scenes are composed from ``Scene`` + ``scenes._finish``, as
 the JAX package composes its presets.  For each scene: the build, the
 spread of each rastered view's pairs over its bins (mean and heaviest
 bin, the pairs wholly behind the camera), each kernel of its path
-against its plain PyTorch version on the frame's own inputs (K1 and K3
-bit for bit), 8 frames through ``render_frame`` (launch counts set to 0
-just before, read just after: each kernel of the path launches once per
-frame, the others never), the kernel-path frame against the plain-path
-frame, frame times with CUDA events, kernel times per call (``ms``, the
-wrapper's host time included) and on the card alone (``device_ms``: L2
-evicted before each call, calls queued behind a sleeping kernel so that
-the host's launch path is hidden; null for K6, whose call waits for the
-card), and a per-stage breakdown.  Any failure exits nonzero before
-the last line; on success the line before the last is the per-kernel
-JSON and the last line the contract line ``{"ok": true, "device":
-{...}}``.  Imports nothing of JAX.
+against its plain PyTorch version on the frame's own inputs (K1, K3, K4,
+K5 and K6 bit for bit), 8 frames through ``render_frame`` (launch counts
+set to 0 just before, read just after: each kernel of the path launches
+once per frame, the others never), the kernel-path frame against the
+plain-path frame, frame times with CUDA events, kernel times per call
+(``ms``, the wrapper's host time included) and on the card alone
+(``device_ms``: L2 evicted before each call, calls queued behind a
+sleeping kernel so that the host's launch path is hidden; a call that
+waits for the card fails the run; for K6 also ``launch_device_ms``, its
+launch alone without the wrapper's small PyTorch kernels around it), and
+a per-stage breakdown.
+Any failure exits nonzero before the last line; on success the line
+before the last is the per-kernel JSON and the last line the contract
+line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -85,9 +87,6 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "taa_reproject": (SRC + "taa.cu",
                       "soc_real_time_renderer_tpu/ops/taa_pallas.py:30"),
 }
-# kernels whose call waits for the card, so that device_ms cannot queue
-# them: K6's wrapper copies its parameter block from host values
-SYNCHRONISES = {"sky_lut"}
 # the scene whose inputs give each kernel's line in the JSON
 HOME = {"resolve": "terrain", "ssao_taps": "terrain",
         "taa_reproject": "terrain", "texsample": "full_nohelmet",
@@ -256,9 +255,10 @@ def skew(name, view, starts, recs, grid):
 def kernel_cases(name, built, dev):
     """Per kernel of the scene's path: (call(impl), compare(k, p) ->
     (max_abs_err, message, ok), (bytes, operations), library call or
-    None), all on the frame's own inputs: a plain-path warm frame (frame
-    0) gives the G-buffer, history and texture-tap inputs, frame 1's
-    globals the rest."""
+    None, the kernel's launch alone or None where the wrapper runs no
+    other device work), all on the frame's own inputs: a plain-path warm
+    frame (frame 0) gives the G-buffer, history and texture-tap inputs,
+    frame 1's globals the rest."""
     import torch
     from soc_real_time_renderer_tpu_torch.graph import frame as fm
     from soc_real_time_renderer_tpu_torch.ops import raster2, sky, ssao, \
@@ -308,7 +308,7 @@ def kernel_cases(name, built, dev):
     cases["resolve"] = (
         lambda i: raster2.resolve(starts, recs, rgrid, impl=i), cmp_resolve,
         (starts.numel() * 4 + 16 * n1 * 4 + hp * wp * 8,
-         resolve_ops(starts, recs, rgrid)), None)
+         resolve_ops(starts, recs, rgrid)), None, None)
 
     # K4: the sun shadow view
     if "resolve_depth" in path:
@@ -329,15 +329,15 @@ def kernel_cases(name, built, dev):
                    if crop is not None else k[:S, :S])
             lit = (win < 1.0).float().mean().item()
             return e, (f"{n4} pairs, overflow 0, depth max abs {e:.3g} "
-                       f"(<= 1e-6), texels < 1.0: {lit:.4f} of the "
+                       f"(== 0), texels < 1.0: {lit:.4f} of the "
                        f"{'crop' if crop else 'map'} (>= 0.1)"), \
-                e <= 1e-6 and lit >= 0.1
+                e == 0.0 and lit >= 0.1
 
         sp = sgrid.by * sgrid.bh * sgrid.bx * sgrid.bw
         cases["resolve_depth"] = (
             lambda i: raster2.resolve_depth(sst, srec, sgrid, impl=i),
             cmp_depth, (sst.numel() * 4 + 15 * n4 * 4 + sp * 4,
-                        resolve_ops(sst, srec, sgrid)), None)
+                        resolve_ops(sst, srec, sgrid)), None, None)
 
     # K5: the material tap at the frame's (mid, uv, lod)
     if "texsample" in path:
@@ -350,13 +350,13 @@ def kernel_cases(name, built, dev):
         def cmp_tex(k, p):
             e = (k - p).abs().max().item()
             return e, (f"{P} pixels, {kw['filter_mode']}, max abs {e:.3g} "
-                       f"(<= 1e-6)"), e <= 1e-6
+                       f"(== 0)"), e == 0.0
 
         cases["texsample"] = (
             lambda i: texsample.sample_atlas(atlas, mid, uv, lod, impl=i,
                                              **kw),
             cmp_tex, (P * (4 + 8 + 4 + 44) + rows * 48,
-                      P * 11 * TEX_OPS_CHANNEL * levels), None)
+                      P * 11 * TEX_OPS_CHANNEL * levels), None, None)
 
     # K2: SSAO taps
     depth = out0.gbuffer.depth
@@ -377,7 +377,7 @@ def kernel_cases(name, built, dev):
     cases["ssao_taps"] = (
         lambda i: ssao.ssao_taps(*k2_args, impl=i), cmp_ssao,
         ((planes.numel() + depth.numel() + h2 * w2) * 4,
-         h2 * w2 * kern.shape[0] * SSAO_OPS), None)
+         h2 * w2 * kern.shape[0] * SSAO_OPS), None, None)
 
     # K6: the sky LUT over the noise texture
     if "sky_lut" in path:
@@ -389,17 +389,19 @@ def kernel_cases(name, built, dev):
             scale = max(p.abs().max().item(), 1e-6)
             mx, mn = d.max().item() / scale, d.mean().item() / scale
             return d.max().item(), (
-                f"{tuple(k.shape)}: max abs {d.max().item():.3g} (<= 1e-6), "
+                f"{tuple(k.shape)}: max abs {d.max().item():.3g} (== 0), "
                 f"max abs / scale {mx:.3g}, mean abs / scale {mn:.3g}, "
                 f"scale {scale:.4g}, {n_hit} of {n_up * 24} march samples "
-                f"hold cloud"), d.max().item() <= 1e-6
+                f"hold cloud"), d.max().item() == 0.0
 
+        sky_block = sky.sky_params(g1)
         cases["sky_lut"] = (
             lambda i: sky.render_sky_lut_noise(g1, noise, impl=i), cmp_sky,
             ((16 + noise.numel() + 3 * n_tex) * 4,
              n_tex * SKY_OPS_ATMOS
              + n_up * 24 * (SKY_OPS_DENSITY + SKY_OPS_SAMPLE)
-             + n_hit * 10 * SKY_OPS_DENSITY), None)
+             + n_hit * 10 * SKY_OPS_DENSITY), None,
+            lambda: sky.launch_sky_lut(sky_block, noise))
 
     # K3: TAA history fetch
     *_, vel_s = taa.neighbourhood(out0.hdr, depth, out0.gbuffer.velocity)
@@ -414,7 +416,7 @@ def kernel_cases(name, built, dev):
         lambda i: taa.reproject_history(packed, vel_s, impl=i), cmp_taa,
         (C * H * W * 2 + 2 * H * W * 4 + C * H * W * 4,
          H * W * (TAA_OPS_PIXEL + C * TAA_OPS_CHANNEL)),
-        grid_sample_call(packed, vel_s))
+        grid_sample_call(packed, vel_s), None)
     return path, cases
 
 
@@ -651,7 +653,7 @@ def scene_phase(name, dev, card, results):
     path_k, cases = kernel_cases(name, built, dev)
     check(sorted(path_k) == sorted(cases), f"a case for each of {path_k}")
     out_k = {}
-    for k, (call, cmp, _, _) in cases.items():
+    for k, (call, cmp, _, _, _) in cases.items():
         got = call("cuda")
         want = call("plain")
         torch.cuda.synchronize()
@@ -713,14 +715,19 @@ def scene_phase(name, dev, card, results):
     # kernel and library times per call (cuda_ms: the wrapper's host
     # time included) and on the card alone (device_ms)
     l2 = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
-    for k, (call, _, (nbytes, ops), lib) in cases.items():
+    for k, (call, _, (nbytes, ops), lib, bare) in cases.items():
         call("cuda")
         call("plain")
         k_ms = cuda_ms(lambda: call("cuda"), 20)
         k_dev = device_ms(lambda: call("cuda"), 20, l2.zero_)
-        check(k_dev is not None or k in SYNCHRONISES,
-              f"{k} timed on the card alone: its call must not wait for "
-              f"the card")
+        check(k_dev is not None, f"{k} timed on the card alone: its call "
+              f"must not wait for the card")
+        bare_dev = None
+        if bare is not None:
+            bare()
+            bare_dev = device_ms(bare, 20, l2.zero_)
+            check(bare_dev is not None, f"{k}'s launch timed on the card "
+                  f"alone")
         p_ms = cuda_ms(lambda: call("plain"), TIMED)
         lib_ms = lib_dev = None
         if lib is not None:
@@ -732,11 +739,12 @@ def scene_phase(name, dev, card, results):
         b_ms, b_by = bound(nbytes, ops)
 
         def shown(call_ms, dev_ms):
-            on_card = ("not measured (the call waits for the card)"
-                       if dev_ms is None else f"{dev_ms:.4f} ms")
-            return f"{call_ms:.4f} ms per call, on the card {on_card}"
+            return f"{call_ms:.4f} ms per call, on the card {dev_ms:.4f} ms"
 
-        log(f"[{name}] {k}: kernel {shown(k_ms, k_dev)}, plain {p_ms:.4f} "
+        launch = ("" if bare_dev is None else
+                  f" (its launch alone {bare_dev:.4f} ms)")
+        log(f"[{name}] {k}: kernel {shown(k_ms, k_dev)}{launch}, plain "
+            f"{p_ms:.4f} "
             f"ms, bound {b_ms:.4f} ms by {b_by} ({nbytes} bytes, {ops} ops),"
             f" library {'none' if lib is None else shown(lib_ms, lib_dev)}"
             f" {card}")
@@ -744,7 +752,7 @@ def scene_phase(name, dev, card, results):
             "launches": counts[k], "max_abs_err": out_k[k], "ms": k_ms,
             "device_ms": k_dev, "plain_ms": p_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms,
-            "library_device_ms": lib_dev}
+            "library_device_ms": lib_dev, "launch_device_ms": bare_dev}
     del l2
 
     st = stage_table(built, g, h7, mm, nm)
@@ -806,7 +814,8 @@ def main():
             "launches": sum(r["launches"] for r in results[name].values()),
             **{k: home[k] for k in ("max_abs_err", "ms", "device_ms",
                                     "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms", "library_device_ms")},
+                                    "library_ms", "library_device_ms",
+                                    "launch_device_ms")},
             "by_scene": results[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

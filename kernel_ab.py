@@ -9,17 +9,30 @@ this, other.
     python3 kernel_ab.py \\
         --other build/other/soc_real_time_renderer_tpu_torch/kernels/csrc
 
+Without ``--other`` the other build is the checkout's own sources, which
+with ``--other-flags`` times a compile-time variant against the default
+(K4's region of 32x8 pixels against its default 32x16):
+
+    python3 kernel_ab.py --kernels resolve_depth --scenes atrium_lifted \\
+        --other-flags=-DSOC_K4_TILES=1
+
 Per scene (``chip_smoke``'s builds at 1920x1088) and kernel (default
-K1 and K3): the kernel's case from ``chip_smoke.kernel_cases`` on the
-frame's own inputs, each build compared with the plain version there
-(``chip_smoke``'s tolerances) and timed by ``chip_smoke.device_ms``
-(median of 20 calls, L2 evicted before each), twice each; the library
-call where the case has one, between the builds.  For K1 also the
-this-build's time on the frame's records with every bin but one made
+K1, K4 and K6; any of the six by name): the kernel's case from
+``chip_smoke.kernel_cases`` on the frame's own inputs, each build
+compared with the plain version there (``chip_smoke``'s tolerances) and
+timed by ``chip_smoke.device_ms`` (median of 20 calls, L2 evicted before
+each) and per wrapper call, twice each; the library call where the case
+has one, between the builds.  For K1 and K4 also
+the this-build's time on the frame's records with every bin but one made
 empty (the heaviest bin; the heaviest bin counting only records with
 some w > 0) and with every bin empty: how far one bin sets the kernel's
-time.  The last line is one JSON object with every reading.  Needs a
-card; imports nothing of JAX.
+time.  For K6 also its launch alone, on a parameter block made
+beforehand, without the wrapper's small PyTorch kernels around it.  Then
+what the kernels sit in, per wrapper call with both builds in the same
+turns: the whole frame (``render_frame``) and, where the scene pays it,
+the sun shadow view's stage (setup, binning, K4): whether a kernel's
+gain shows one and two layers up.  The last line is one JSON object
+with every reading.  Needs a card; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -36,14 +49,15 @@ import chip_smoke as cs
 REPS = 20
 
 
-def other_library(csrc):
-    """The kernel library built from the .cu sources in `csrc`."""
+def other_library(csrc, flags=()):
+    """The kernel library built from the .cu sources in `csrc` with the
+    extra nvcc `flags`."""
     from soc_real_time_renderer_tpu_torch.kernels import build as kb
     sources = sorted(glob.glob(os.path.join(csrc, "*.cu")))
     cs.check(sources, f"CUDA sources in {csrc}")
     lib = os.path.join(kb.BUILD_DIR, "other", "libsoc_kernels.so")
     os.makedirs(os.path.dirname(lib), exist_ok=True)
-    kb.build(sources, lib)
+    kb.build(sources, lib, flags)
     return kb.load(lib)
 
 
@@ -55,12 +69,11 @@ def only_bin(starts, b):
     return s
 
 
-def resolve_tail(name, starts, recs, grid, flush):
-    """K1 (this build) on the frame's records, on its heaviest bin
-    alone, on its heaviest bin by live records alone, and on no
-    records."""
+def resolve_tail(name, k, fn, starts, recs, grid, flush):
+    """Resolve `fn` (K1's or K4's wrapper, this build) on the frame's
+    records, on its heaviest bin alone, on its heaviest bin by live
+    records alone, and on no records."""
     import torch
-    from soc_real_time_renderer_tpu_torch.ops import raster2
     n = int(starts[-1])
     per_bin = (starts[1:] - starts[:-1]).long()
     dead = ~(recs[12:15, :n] > 0).any(dim=0)
@@ -79,12 +92,45 @@ def resolve_tail(name, starts, recs, grid, flush):
             "no pairs": torch.zeros_like(starts)}
     out = {}
     for what, s in runs.items():
-        raster2.resolve(s, recs, grid, impl="cuda")
-        t = cs.device_ms(lambda: raster2.resolve(s, recs, grid, impl="cuda"),
-                         REPS, flush)
-        cs.check(t is not None, "K1 timed on the card alone")
-        cs.log(f"[{name}] resolve tail, {what}: {t:.4f} ms")
+        fn(s, recs, grid, impl="cuda")
+        t = cs.device_ms(lambda: fn(s, recs, grid, impl="cuda"), REPS, flush)
+        cs.check(t is not None, f"{k} timed on the card alone")
+        cs.log(f"[{name}] {k} tail, {what}: {t:.4f} ms")
         out[what] = t
+    return out
+
+
+def path_ab(name, built, dev, libs, card):
+    """The whole frame and the shadow view's stage with each build, ms per
+    call (CUDA events, median of REPS), runs other, this, this, other."""
+    from soc_real_time_renderer_tpu_torch.graph import frame as fm
+    from soc_real_time_renderer_tpu_torch.kernels import build as kb
+    from soc_real_time_renderer_tpu_torch.ops import raster2
+    plan, batch = built.plan, built.batch
+    g, mm, nm = built.frame_globals(1, peek=True)
+    hist = fm.RenderHistory.create(plan.config, device=dev)
+    runs = {"whole frame":
+            lambda: fm.render_frame(plan, batch, g, hist, mm, nm)}
+    if "resolve_depth" in cs.path_of(plan, batch):
+        world, _ = fm.transform_triangles(batch, mm, nm)
+        sclip = fm._clip_of(world, g.sun.projection_view)
+        runs["shadow view stage (setup, binning, K4)"] = \
+            lambda: raster2.rasterize(sclip, plan.shadow_grid, cull="back",
+                                      depth_only=True)
+    out = {}
+    try:
+        for what, fn in runs.items():
+            times = {lab: [] for lab in libs}
+            for lab in ("other", "this", "this", "other"):
+                kb._lib = libs[lab]
+                fn()
+                times[lab].append(cs.cuda_ms(fn, REPS))
+            cs.log(f"[{name}] {what}, ms per call (median of {REPS} each, "
+                   f"runs other, this, this, other): other "
+                   f"{times['other']}, this {times['this']} {card}")
+            out[what] = times
+    finally:
+        kb._lib = libs["this"]
     return out
 
 
@@ -95,21 +141,27 @@ def scene_ab(name, dev, libs, kernels, card):
     built = cs.build_scene(name, dev)
     _, cases = cs.kernel_cases(name, built, dev)
     seen = {}
-    real_resolve = raster2.resolve
+    real = {"resolve": raster2.resolve,
+            "resolve_depth": raster2.resolve_depth}
 
-    def spy(*a, **k):         # records K1's inputs as its case calls it
-        seen.setdefault("resolve", a)
-        return real_resolve(*a, **k)
+    def spy(k):               # records K1's / K4's inputs as its case calls
+        def call(*a, **kw):
+            seen.setdefault(k, a)
+            return real[k](*a, **kw)
+        return call
 
-    raster2.resolve = spy
+    for k in real:
+        setattr(raster2, k, spy(k))
     try:
         out = {}
         l2 = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
         for k in kernels:
             if k not in cases:
                 continue
-            call, cmp, _, lib = cases[k]
+            call, cmp, _, lib, bare = cases[k]
             times = {lab: [] for lab in libs}
+            per_call = {lab: [] for lab in libs}
+            launch = {lab: [] for lab in libs}
             lib_times = []
             for order in (("other", "this"), ("this", "other")):
                 for lab in order:
@@ -122,6 +174,11 @@ def scene_ab(name, dev, libs, kernels, card):
                     t = cs.device_ms(lambda: call("cuda"), REPS, l2.zero_)
                     cs.check(t is not None, f"{k} timed on the card alone")
                     times[lab].append(t)
+                    per_call[lab].append(cs.cuda_ms(lambda: call("cuda"),
+                                                    REPS))
+                    if bare is not None:
+                        launch[lab].append(cs.device_ms(bare, REPS,
+                                                        l2.zero_))
                     if lib is not None and lab == order[0]:
                         lib()
                         lib_times.append(cs.device_ms(lib, REPS, l2.zero_))
@@ -129,18 +186,29 @@ def scene_ab(name, dev, libs, kernels, card):
             cs.log(f"[{name}] {k} on the card (ms, median of {REPS} each, "
                    f"runs other, this, this, other): other "
                    f"{times['other']}, this {times['this']}, library "
-                   f"{lib_times or 'none'} {card}")
+                   f"{lib_times or 'none'}; per wrapper call, its host "
+                   f"time included: other {per_call['other']}, this "
+                   f"{per_call['this']}; the launch alone, without the "
+                   f"wrapper's other device work: other "
+                   f"{launch['other'] or 'the same'}, this "
+                   f"{launch['this'] or 'the same'} {card}")
             rec = {"other_ms": times["other"], "this_ms": times["this"],
+                   "other_call_ms": per_call["other"],
+                   "this_call_ms": per_call["this"],
+                   "other_launch_ms": launch["other"] or None,
+                   "this_launch_ms": launch["this"] or None,
                    "library_ms": lib_times or None,
                    "this_over_other": statistics.median(times["this"])
                    / statistics.median(times["other"])}
-            if k == "resolve":
-                rec["tail_ms"] = resolve_tail(name, *seen["resolve"],
+            if k in real:
+                rec["tail_ms"] = resolve_tail(name, k, real[k], *seen[k],
                                               l2.zero_)
             out[k] = rec
     finally:
-        raster2.resolve = real_resolve
+        for k in real:
+            setattr(raster2, k, real[k])
         kb._lib = libs["this"]
+    out["path_ms"] = path_ab(name, built, dev, libs, card)
     del built, cases
     torch.cuda.empty_cache()
     return out
@@ -149,11 +217,15 @@ def scene_ab(name, dev, libs, kernels, card):
 def main():
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--other", required=True,
-                    help="directory of the other build's .cu sources")
+    ap.add_argument("--other", default=None,
+                    help="directory of the other build's .cu sources "
+                    "(default: the checkout's own)")
+    ap.add_argument("--other-flags", default="",
+                    help="extra nvcc flags of the other build, space "
+                    "separated (e.g. -DSOC_K4_TILES=1)")
     ap.add_argument("--scenes", default="terrain,full_nohelmet,"
                     "atrium_lifted")
-    ap.add_argument("--kernels", default="resolve,taa_reproject")
+    ap.add_argument("--kernels", default="resolve,resolve_depth,sky_lut")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this A/B needs a GPU")
@@ -162,7 +234,9 @@ def main():
     cs.log(f"device {card}, torch {torch.__version__} cuda "
            f"{torch.version.cuda}")
     dev = torch.device("cuda:0")
-    libs = {"this": kb.library(), "other": other_library(args.other)}
+    libs = {"this": kb.library(),
+            "other": other_library(args.other or kb.CSRC,
+                                   args.other_flags.split())}
     kernels = args.kernels.split(",")
     results = {name: scene_ab(name, dev, libs, kernels, card)
                for name in args.scenes.split(",")}

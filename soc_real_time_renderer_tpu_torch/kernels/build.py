@@ -79,15 +79,17 @@ def _nvcc() -> str:
     return path
 
 
-def build(sources, lib: str = LIB) -> str:
+def build(sources, lib: str = LIB, extra_flags=()) -> str:
     """Compile every source in parallel, then link them into `lib`;
-    returns nvcc's output.  Raises on the first failure."""
+    returns nvcc's output.  Raises on the first failure.  extra_flags:
+    more nvcc flags (a -D that picks a compile-time variant)."""
     nvcc = _nvcc()
     out_dir = os.path.dirname(lib)
     tag = f"{os.getpid()}"
     objs = [os.path.join(out_dir, os.path.basename(s) + f".{tag}.o")
             for s in sources]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", s, "-o", o],
+    flags = [*NVCC_FLAGS, *extra_flags]
+    procs = [subprocess.Popen([nvcc, *flags, "-c", s, "-o", o],
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for s, o in zip(sources, objs)]

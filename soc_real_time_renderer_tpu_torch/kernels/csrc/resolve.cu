@@ -1,82 +1,115 @@
 // K1: bin resolve of the sort-binned rasterizer (visibility buffer), and
-// below it K4, the depth-only resolve of the shadow view.
+// K4, the depth-only resolve of the shadow view: one kernel body
+// (`resolve_body`), two instantiations.
 //
-// Replaces soc_real_time_renderer_tpu/ops/raster2.py `_resolve_kernel`
+// K1 replaces soc_real_time_renderer_tpu/ops/raster2.py `_resolve_kernel`
 // (Pallas, TPU; launched by `resolve`).  Same result: per pixel centre,
 // the minimum-depth covering triangle of the pixel's screen bin, ties to
 // the lower triangle id, clear 1.0 / -1.
 //
+// K4 replaces soc_real_time_renderer_tpu/ops/raster2.py
+// `_resolve_depth_kernel` (Pallas, TPU; launched by `resolve(...,
+// depth_only=True)`).  Same result: per pixel centre the minimum z of
+// the covering records of its bin, 1.0 where none covers; no triangle
+// id, so no tie rule (the minimum of a set does not depend on order).
+//
 // Inputs: `starts` (num_bins + 1) int32 offsets into the bin-sorted pair
 // records `recs` (16, cap) float32, rows [adjugate 3x3 | z0..2 | w0..2 |
-// id as an exact float].  Outputs `depth` f32 and `tri_id` i32, both
-// (rows of bins * bh, out_w) with out_w = bins per row * bw.
+// id as an exact float] (K4 reads rows 0-14).  Outputs `depth` f32 and,
+// for K1, `tri_id` i32, both (rows of bins * bh, out_w) with out_w = bins
+// per row * bw.
 //
 // The work.  What an exact resolve must do is small: of the (pair,
 // pixel) tests a bin resolve could make, only 0.5-1.8% fall inside a
 // triangle at 1920x1088 (3-4% of (pair, 8x4 tile) combinations touch
 // one), and the inputs are ~64 B per pair plus 8 B per pixel (~30 MB,
-// ~0.01 ms at 3.35 TB/s).  The pair stream is skewed: bins hold from 0
-// to 18,000 pairs against a mean near 200.
+// ~0.01 ms at 3.35 TB/s).  The pair stream is skewed: the main view's
+// bins hold from 0 to 18,000 pairs against a mean near 200, the 4096^2
+// shadow view's 128x128 bins up to 1,900 against a mean of 83, and most
+// of the shadow map's bins are empty: K4's bound is the 67 MB of depth
+// it must write.
 //
-// Why the first design lost its time in one block.  It ran one block of
-// 256 threads per bin and tested every record at every bin pixel.
-// Triangles wholly behind the camera keep their setup's fallback bbox
-// (0, 0, 1, 1) and stay valid in the binning (the reference's rule), so
-// they all land in bin 0: 6-18k pairs that can cover nothing, each
-// tested at 2,048 pixels by one block while the rest of the card idled.
-// Its time tracked bin 0's pair count (0.47 us per pair in three scenes).
+// Why the first designs lost their time in a few blocks.  K1 ran one
+// block of 256 threads per bin and tested every record at every bin
+// pixel.  Triangles wholly behind the camera keep their setup's fallback
+// bbox (0, 0, 1, 1) and stay valid in the binning (the reference's
+// rule), so they all land in bin 0: 6-18k pairs that can cover nothing,
+// each tested at 2,048 pixels by one block while the rest of the card
+// idled.  K4 cut a bin into four 128x32 slabs, 16 pixels a thread, and
+// likewise tested every record of the bin at every pixel: the heaviest
+// bin's four blocks set its time, at 100x its bound.
 //
 // The design:
 // 1. Exact rejects before any per-pixel work, in two levels.  A block
-//    owns a 32x8 pixel region: each of its 256 threads takes one record
-//    of the staged window and keeps it only if some w > 0 (a record with
-//    no w > 0 covers nothing: with every e >= 0 and every w <= 0 or NaN,
-//    each e*w is <= 0 or NaN and so is their sum, so `ew > 0` fails at
-//    every pixel in f32) and it may cover the region (edge_may_cover at
-//    the region's corners, with a stated rounding margin); the kept
-//    records are compacted into a shared list by ballots.  Then each
-//    warp owns an 8x4 tile of the region (one pixel per lane): its 32
-//    lanes test 32 listed records against the tile's corners, and the
-//    warp walks the ballot's bits, reading each kept record from shared
-//    memory as a broadcast and testing it at its 32 pixels (the depth
-//    only where all three edges pass).
-// 2. The bin's pixels are split over several blocks: a 64x32 bin is 8
-//    blocks (8,160 at 1920x1088), each reading the bin's records through
-//    L2.  No block carries a heavy bin's pixels alone, and bin 0's dead
-//    records cost one compare per (record, block).
+//    owns a region of 32 x (8 * kTiles) pixels: each of its 256 threads
+//    takes one record of the staged window and keeps it only if some
+//    w > 0 (a record with no w > 0 covers nothing: with every e >= 0 and
+//    every w <= 0 or NaN, each e*w is <= 0 or NaN and so is their sum,
+//    so `ew > 0` fails at every pixel in f32) and it may cover the
+//    region (edge_may_cover at the region's corners, with a stated
+//    rounding margin); the kept records are compacted into a shared
+//    list by ballots.  Then each warp owns kTiles tiles of 8x4 pixels,
+//    8 rows apart (one pixel of each per lane): its 32 lanes test 32
+//    listed records against a tile's corners, and the warp walks the
+//    ballot's bits, reading each kept record from shared memory as a
+//    broadcast and testing it at the tile's 32 pixels (the depth only
+//    where all three edges pass).
+// 2. The bin's pixels are split over several blocks, each reading the
+//    bin's records through L2.  K1 takes kTiles = 1 (a 64x32 bin is 8
+//    blocks of 32x8, 8,160 at 1920x1088): no block carries a heavy
+//    bin's pixels alone, and bin 0's dead records cost one compare per
+//    (record, block).  K4 takes kTiles = SOC_K4_TILES (a 128x128 bin is
+//    32 blocks of 32x16 at the default 2): fewer blocks stage the same
+//    windows than with 32x8, at the price of a coarser first reject and
+//    a longer walk per warp; on the atrium's 4096^2 shadow view 2 beat
+//    1, 4 and 8 (kernel_ab.py --other-flags=-DSOC_K4_TILES=1 times the
+//    choice).
 // 3. Records reach shared memory by cp.async, double-buffered, in
 //    256-aligned windows of 256 (16 B copies when the row stride
 //    allows), so the next window loads while this one is tested.
+// 4. A region of an empty bin stages nothing and writes its clear as
+//    whole 128 B rows.
 //
 // What bounds it on this card is then the per-pixel work of the records
 // the tile test keeps, and the staging and barriers of each window, not
 // bytes.  The heaviest bin with live records still sets much of the
 // time: resolved alone it takes more than half of the whole frame's K1
-// time (kernel_ab.py), because each warp walks its tile's kept records
-// one after another.  Splitting a heavy bin's pair range over more
-// blocks, merged by a 64-bit atomicMin of (z bits, id), would shorten
-// that walk; it is not built.
+// time and half of K4's (kernel_ab.py), its blocks running after most
+// of the grid has left.  Two ways to shorten a heavy region's time
+// inside its block were measured slower and are not here: dealing the
+// kept records over the block's warps (each testing all of the
+// region's tiles, merged through shared memory), and evaluating four
+// kept records at a time without early outs.  So the block's
+// instruction rate, not one warp's latency, is what a heavy region
+// waits for, and the remedy is more blocks for a heavy bin's pair range
+// (merged by an atomicMin of (z bits, id)) or starting the heavy bins
+// first; neither is built.
 //
-// The winner test is order independent (the minimum z, then the minimum
-// id), so neither the sort's order, the windows nor the ballots can
-// change the result, and the TPU kernel's near-to-far early out is left
-// out.  Built with --fmad=false so the edge functions round exactly as
-// the plain version's separate multiply and add (raster2.resolve_plain).
+// The winner test is order independent (the minimum z, then for K1 the
+// minimum id), so neither the sort's order, the windows nor the ballots
+// can change the result, and the TPU kernel's near-to-far early out is
+// left out.  Built with --fmad=false so the edge functions round exactly
+// as the plain versions' separate multiply and add
+// (raster2.resolve_plain, raster2.resolve_depth_plain).
 #include <cstdint>
 
 #include "common.cuh"
 
+// K4's tiles per warp: its block's region is 32 x (8 * SOC_K4_TILES) pixels
+#ifndef SOC_K4_TILES
+#define SOC_K4_TILES 2
+#endif
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kChunk = 128;
-constexpr int kRows = 16;
-constexpr int kWindow = 256;           // K1: records per staged window
-constexpr int kTileW = 8, kTileH = 4;  // K1: a warp's tile, lane = pixel
-constexpr int kWarpsX = 4;             // K1: a block is 4 x 2 warp tiles
+constexpr int kWindow = 256;           // records per staged window
+constexpr int kTileW = 8, kTileH = 4;  // a warp's tile, lane = pixel
+constexpr int kWarpsX = 4;             // a block is 4 x 2 warps
 constexpr int kBlockW = kTileW * kWarpsX;
 constexpr int kBlockH = kTileH * (kThreads / 32 / kWarpsX);
-static_assert(kWindow == kThreads, "K1's region test: one record a thread");
+static_assert(kWindow == kThreads, "the region test: one record a thread");
+static_assert(kThreads % kBlockW == 0, "the clear: whole rows a pass");
 
 __device__ __forceinline__ void cp_async(float* smem, const float* gmem,
                                          bool vec, bool in) {
@@ -98,15 +131,16 @@ __device__ __forceinline__ void cp_async_wait_all_but_one() {
     asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
-// Columns [c0, c0 + kWindow) of all 16 rows into dst; columns at or past
-// `cap` are zero-filled (they lie past `end` and are never tested).  vec:
-// 16 B copies, for a 16 B aligned base and cap % 4 == 0, so a quad of
-// columns is wholly inside or wholly past cap.
+// Columns [c0, c0 + kWindow) of the first kR rows into dst; columns at or
+// past `cap` are zero-filled (they lie past `end` and are never tested).
+// vec: 16 B copies, for a 16 B aligned base and cap % 4 == 0, so a quad
+// of columns is wholly inside or wholly past cap.
+template <int kR>
 __device__ __forceinline__ void stage_window(float (*dst)[kWindow],
                                              const float* recs, int cap,
                                              int c0, bool vec) {
     const int per = vec ? 4 : 1;
-    const int n = kRows * kWindow / per;
+    const int n = kR * kWindow / per;
     for (int i = threadIdx.x; i < n; i += kThreads) {
         const int r = i / (kWindow / per);
         const int q = i % (kWindow / per) * per;
@@ -143,12 +177,18 @@ __device__ __forceinline__ bool edge_may_cover(float a0, float a1, float a2,
     return !(ec < -(s * 0x1p-21f + 0x1p-126f));
 }
 
+// kIds: K1 (the id row is staged, ties go to the lower id, tri_id is
+// written); else K4 (15 rows, the minimum z alone).  kTiles: 8x4 tiles a
+// warp owns, 8 rows apart; the block's region is 32 x (8 * kTiles).
+template <bool kIds, int kTiles>
 __global__ void __launch_bounds__(kThreads)
-resolve_kernel(const int* __restrict__ starts, const float* __restrict__ recs,
-               int cap, int vec, int bx, int bw, int bh, int parts_x,
-               int parts, int out_w, float* __restrict__ depth,
-               int* __restrict__ tri_id) {
-    __shared__ __align__(16) float s[2][kRows][kWindow];
+resolve_body(const int* __restrict__ starts, const float* __restrict__ recs,
+             int cap, int vec, int bx, int bw, int bh, int parts_x,
+             int parts, int out_w, float* __restrict__ depth,
+             int* __restrict__ tri_id) {
+    constexpr int kR = kIds ? 16 : 15;
+    constexpr int kRegionH = kBlockH * kTiles;
+    __shared__ __align__(16) float s[2][kR][kWindow];
     __shared__ int kept[kWindow];             // window columns kept
     __shared__ int kept_by_warp[kThreads / 32];
     const int b = blockIdx.x / parts;
@@ -157,38 +197,58 @@ resolve_kernel(const int* __restrict__ starts, const float* __restrict__ recs,
     const int lane = threadIdx.x % 32;
     const int gx0 = (b % bx) * bw;
     const int gy0 = (b / bx) * bh;
-    // this block's region and this warp's tile in bin pixels, and this
-    // lane's pixel in the tile; pixel centres (l + o) + 0.5 are exact in
-    // float like the plain version's
+    // this block's region in bin pixels
     const int rx = part % parts_x * kBlockW;
-    const int ry = part / parts_x * kBlockH;
+    const int ry = part / parts_x * kRegionH;
+    const int start = starts[b];
+    const int end = starts[b + 1];
+
+    if (end <= start) {   // an empty bin: the clear, a 128 B row a warp
+        for (int y0 = 0; y0 < kRegionH; y0 += kThreads / kBlockW) {
+            const int x = rx + threadIdx.x % kBlockW;
+            const int y = ry + y0 + threadIdx.x / kBlockW;
+            if (x < bw && y < bh) {
+                const size_t o = (size_t)(y + gy0) * out_w + (x + gx0);
+                depth[o] = 1.0f;
+                if (kIds) tri_id[o] = -1;
+            }
+        }
+        return;
+    }
+
+    // this warp's tiles (tile t lies t * kBlockH rows below the first)
+    // and this lane's pixel in each; pixel centres (l + o) + 0.5 are
+    // exact in float like the plain version's
     const int tx = rx + warp % kWarpsX * kTileW;
     const int ty = ry + warp / kWarpsX * kTileH;
     const int lx = tx + lane % kTileW;
     const int ly = ty + lane / kTileW;
     const float px = (float)(lx + gx0) + 0.5f;
-    const float py = (float)(ly + gy0) + 0.5f;
     const float rxl = (float)(rx + gx0) + 0.5f;
     const float rxh = (float)(rx + kBlockW - 1 + gx0) + 0.5f;
     const float ryl = (float)(ry + gy0) + 0.5f;
-    const float ryh = (float)(ry + kBlockH - 1 + gy0) + 0.5f;
+    const float ryh = (float)(ry + kRegionH - 1 + gy0) + 0.5f;
     const float txl = (float)(tx + gx0) + 0.5f;
     const float txh = (float)(tx + kTileW - 1 + gx0) + 0.5f;
-    const float tyl = (float)(ty + gy0) + 0.5f;
-    const float tyh = (float)(ty + kTileH - 1 + gy0) + 0.5f;
-    float zb = CUDART_INF_F;
-    int ib = -1;
+    float py[kTiles], tyl[kTiles], tyh[kTiles], zb[kTiles];
+    int ib[kTiles];
+#pragma unroll
+    for (int t = 0; t < kTiles; ++t) {
+        py[t] = (float)(ly + t * kBlockH + gy0) + 0.5f;
+        tyl[t] = (float)(ty + t * kBlockH + gy0) + 0.5f;
+        tyh[t] = (float)(ty + t * kBlockH + kTileH - 1 + gy0) + 0.5f;
+        zb[t] = CUDART_INF_F;
+        ib[t] = -1;
+    }
 
-    const int start = starts[b];
-    const int end = starts[b + 1];
     const int w0 = start / kWindow * kWindow;
-    const int nwin = end > start ? (end - w0 + kWindow - 1) / kWindow : 0;
-    if (nwin > 0) stage_window(s[0], recs, cap, w0, vec);
+    const int nwin = (end - w0 + kWindow - 1) / kWindow;
+    stage_window<kR>(s[0], recs, cap, w0, vec);
     cp_async_commit();
     for (int k = 0; k < nwin; ++k) {
         const int c0 = w0 + k * kWindow;
         if (k + 1 < nwin) {
-            stage_window(s[(k + 1) & 1], recs, cap, c0 + kWindow, vec);
+            stage_window<kR>(s[(k + 1) & 1], recs, cap, c0 + kWindow, vec);
         }
         cp_async_commit();
         cp_async_wait_all_but_one();  // window k has landed
@@ -217,37 +277,45 @@ resolve_kernel(const int* __restrict__ starts, const float* __restrict__ recs,
         if (keep) kept[slot + __popc(km & ((1u << lane) - 1))] = j;
         __syncthreads();
 
-        // level 2: the warp's tile, 32 kept records at a time
+        // level 2: the warp's tiles, 32 kept records at a time
         for (int i0 = 0; i0 < n_kept; i0 += 32) {
             const int i = i0 + lane;
             const int q = i < n_kept ? kept[i] : 0;
-            const bool may =
-                i < n_kept
-                && edge_may_cover(r[0][q], r[1][q], r[2][q], txl, txh, tyl,
-                                  tyh)
-                && edge_may_cover(r[3][q], r[4][q], r[5][q], txl, txh, tyl,
-                                  tyh)
-                && edge_may_cover(r[6][q], r[7][q], r[8][q], txl, txh, tyl,
-                                  tyh);
-            unsigned m = __ballot_sync(0xffffffffu, may);
-            while (m) {
-                const int t = __shfl_sync(0xffffffffu, q, __ffs(m) - 1);
-                m &= m - 1;
-                const float e0 = r[0][t] * px + r[1][t] * py + r[2][t];
-                const float e1 = r[3][t] * px + r[4][t] * py + r[5][t];
-                const float e2 = r[6][t] * px + r[7][t] * py + r[8][t];
-                if (e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f) {
-                    const float ez =
-                        e0 * r[9][t] + e1 * r[10][t] + e2 * r[11][t];
-                    const float ew =
-                        e0 * r[12][t] + e1 * r[13][t] + e2 * r[14][t];
-                    if (ew > 0.0f) {
-                        const float z = ez / ew;
-                        const int id = (int)r[15][t];
-                        if (z >= 0.0f && z <= 1.0f
-                            && (z < zb || (z == zb && id < ib))) {
-                            zb = z;
-                            ib = id;
+#pragma unroll
+            for (int t = 0; t < kTiles; ++t) {
+                const bool may =
+                    i < n_kept
+                    && edge_may_cover(r[0][q], r[1][q], r[2][q], txl, txh,
+                                      tyl[t], tyh[t])
+                    && edge_may_cover(r[3][q], r[4][q], r[5][q], txl, txh,
+                                      tyl[t], tyh[t])
+                    && edge_may_cover(r[6][q], r[7][q], r[8][q], txl, txh,
+                                      tyl[t], tyh[t]);
+                unsigned m = __ballot_sync(0xffffffffu, may);
+                while (m) {
+                    const int u = __shfl_sync(0xffffffffu, q, __ffs(m) - 1);
+                    m &= m - 1;
+                    const float e0 = r[0][u] * px + r[1][u] * py[t] + r[2][u];
+                    const float e1 = r[3][u] * px + r[4][u] * py[t] + r[5][u];
+                    const float e2 = r[6][u] * px + r[7][u] * py[t] + r[8][u];
+                    if (e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f) {
+                        const float ez =
+                            e0 * r[9][u] + e1 * r[10][u] + e2 * r[11][u];
+                        const float ew =
+                            e0 * r[12][u] + e1 * r[13][u] + e2 * r[14][u];
+                        if (ew > 0.0f) {
+                            const float z = ez / ew;
+                            if (kIds) {
+                                const int id = (int)r[kR - 1][u];
+                                if (z >= 0.0f && z <= 1.0f
+                                    && (z < zb[t]
+                                        || (z == zb[t] && id < ib[t]))) {
+                                    zb[t] = z;
+                                    ib[t] = id;
+                                }
+                            } else if (z >= 0.0f && z <= 1.0f && z < zb[t]) {
+                                zb[t] = z;
+                            }
                         }
                     }
                 }
@@ -256,100 +324,39 @@ resolve_kernel(const int* __restrict__ starts, const float* __restrict__ recs,
         __syncthreads();  // window k and the list are consumed
     }
 
-    if (lx < bw && ly < bh) {
-        const size_t o = (size_t)(ly + gy0) * out_w + (lx + gx0);
-        depth[o] = ib >= 0 ? zb : 1.0f;
-        tri_id[o] = ib;
-    }
-}
-
-// K4: depth-only resolve of the sun shadow view.
-//
-// Replaces soc_real_time_renderer_tpu/ops/raster2.py
-// `_resolve_depth_kernel` (Pallas, TPU; launched by `resolve(...,
-// depth_only=True)`).  Same result: per pixel centre the minimum z of the
-// covering records of its bin, 1.0 where none covers; no triangle id.
-//
-// Design: the 128x128-px shadow bins are 16,384 pixels, too many for one
-// block's registers, so each bin is cut into slabs of 16 * 256 / bw rows
-// (128x32 at bw = 128: 4 slabs per bin, 4,096 blocks at 4096^2), one
-// block per slab, 256 threads with 16 pixels each: a thread owns one
-// column (lx = tid % bw) and every (256 / bw)-th row, so a*px of each
-// edge function is taken once per record.  The bin's records stream
-// through shared memory as in K1 (rows 0..14; the id row is not read).
-// Empty bins run zero chunks.  The winner is the order-free minimum z
-// (no id, no early out).  Bound: arithmetic, ~20 flops per (pair,
-// pixel) plus a division where covered; the pair stream is concentrated
-// (a scene covers a fraction of the 4096^2 map), and slabs of empty bins
-// only write their 1.0 clear.  Evaluated in the plain version's order
-// (raster2.resolve_depth_plain) with --fmad=false.
-constexpr int kDepthPPT = 16;
-constexpr int kDepthRows = 15;
-
-__global__ void __launch_bounds__(kThreads)
-resolve_depth_kernel(const int* __restrict__ starts,
-                     const float* __restrict__ recs, int cap, int bx,
-                     int bw, int bh, int out_w, float* __restrict__ depth) {
-    __shared__ float s[kDepthRows][kChunk];
-    const int b = blockIdx.x;
-    const int start = starts[b];
-    const int end = starts[b + 1];
-    const int gx0 = (b % bx) * bw;
-    const int gy0 = (b / bx) * bh;
-    const int step = kThreads / bw;               // rows per k step
-    const int lx = threadIdx.x % bw;
-    const int ly0 = blockIdx.y * step * kDepthPPT + threadIdx.x / bw;
-    const float px = (float)(lx + gx0) + 0.5f;
-
-    float py[kDepthPPT], zb[kDepthPPT];
 #pragma unroll
-    for (int k = 0; k < kDepthPPT; ++k) {
-        py[k] = (float)(ly0 + k * step + gy0) + 0.5f;
-        zb[k] = CUDART_INF_F;
-    }
-
-    for (int c0 = start; c0 < end; c0 += kChunk) {
-        const int n = min(kChunk, end - c0);
-        __syncthreads();  // the previous chunk is consumed
-        for (int i = threadIdx.x; i < kDepthRows * kChunk; i += kThreads) {
-            const int r = i / kChunk;
-            const int j = i % kChunk;
-            s[r][j] = j < n ? recs[(size_t)r * cap + c0 + j] : 0.0f;
-        }
-        __syncthreads();
-        for (int j = 0; j < n; ++j) {
-            const float a0 = s[0][j], a1 = s[1][j], a2 = s[2][j];
-            const float a3 = s[3][j], a4 = s[4][j], a5 = s[5][j];
-            const float a6 = s[6][j], a7 = s[7][j], a8 = s[8][j];
-            const float z0 = s[9][j], z1 = s[10][j], z2 = s[11][j];
-            const float w0 = s[12][j], w1 = s[13][j], w2 = s[14][j];
-            // a*px is the same product for all of a thread's pixels
-            const float c0x = a0 * px, c1x = a3 * px, c2x = a6 * px;
-#pragma unroll
-            for (int k = 0; k < kDepthPPT; ++k) {
-                const float e0 = c0x + a1 * py[k] + a2;
-                const float e1 = c1x + a4 * py[k] + a5;
-                const float e2 = c2x + a7 * py[k] + a8;
-                if (e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f) {
-                    const float ez = e0 * z0 + e1 * z1 + e2 * z2;
-                    const float ew = e0 * w0 + e1 * w1 + e2 * w2;
-                    if (ew > 0.0f) {
-                        const float z = ez / ew;
-                        if (z >= 0.0f && z <= 1.0f && z < zb[k]) zb[k] = z;
-                    }
-                }
+    for (int t = 0; t < kTiles; ++t) {
+        const int y = ly + t * kBlockH;
+        if (lx < bw && y < bh) {
+            const size_t o = (size_t)(y + gy0) * out_w + (lx + gx0);
+            if (kIds) {
+                depth[o] = ib[t] >= 0 ? zb[t] : 1.0f;
+                tri_id[o] = ib[t];
+            } else {
+                depth[o] = zb[t] < CUDART_INF_F ? zb[t] : 1.0f;
             }
         }
     }
+}
 
-#pragma unroll
-    for (int k = 0; k < kDepthPPT; ++k) {
-        const int ly = ly0 + k * step;
-        if (ly < bh) {
-            depth[(size_t)(gy0 + ly) * out_w + gx0 + lx] =
-                zb[k] < CUDART_INF_F ? zb[k] : 1.0f;
-        }
+template <bool kIds, int kTiles>
+int launch(const void* starts, const void* recs, void* depth, void* tri_id,
+           int cap, int num_bins, int bx, int bw, int bh, int out_w,
+           void* stream) {
+    if (bw <= 0 || bh <= 0) return (int)cudaErrorInvalidValue;
+    if (num_bins <= 0) return 0;
+    const int region_h = kBlockH * kTiles;
+    const int parts_x = (bw + kBlockW - 1) / kBlockW;
+    const int parts = parts_x * ((bh + region_h - 1) / region_h);
+    if ((long long)num_bins * parts > 0x7fffffff) {
+        return (int)cudaErrorInvalidValue;
     }
+    const int vec = cap % 4 == 0 && (uintptr_t)recs % 16 == 0;
+    resolve_body<kIds, kTiles>
+        <<<num_bins * parts, kThreads, 0, (cudaStream_t)stream>>>(
+            (const int*)starts, (const float*)recs, cap, vec, bx, bw, bh,
+            parts_x, parts, out_w, (float*)depth, (int*)tri_id);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -358,32 +365,16 @@ SOC_EXPORT int resolve_depth_launch(const void* starts, const void* recs,
                                     void* depth, int cap, int num_bins,
                                     int bx, int bw, int bh, int out_w,
                                     void* stream) {
-    if (bw <= 0 || kThreads % bw != 0) return (int)cudaErrorInvalidValue;
-    if (num_bins <= 0) return 0;
-    const int rows = kThreads / bw * kDepthPPT;   // rows per block
-    const dim3 grid(num_bins, (bh + rows - 1) / rows);
-    resolve_depth_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int*)starts, (const float*)recs, cap, bx, bw, bh, out_w,
-        (float*)depth);
-    return (int)cudaGetLastError();
+    return launch<false, SOC_K4_TILES>(starts, recs, depth, nullptr, cap,
+                                       num_bins, bx, bw, bh, out_w, stream);
 }
 
 SOC_EXPORT int resolve_launch(const void* starts, const void* recs,
                               void* depth, void* tri_id, int cap,
                               int num_bins, int bx, int bw, int bh,
                               int out_w, void* stream) {
-    if (bw <= 0 || bh <= 0) return (int)cudaErrorInvalidValue;
-    if (num_bins <= 0) return 0;
-    const int parts_x = (bw + kBlockW - 1) / kBlockW;
-    const int parts = parts_x * ((bh + kBlockH - 1) / kBlockH);
-    if ((long long)num_bins * parts > 0x7fffffff) {
-        return (int)cudaErrorInvalidValue;
-    }
-    const int vec = cap % 4 == 0 && (uintptr_t)recs % 16 == 0;
-    resolve_kernel<<<num_bins * parts, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int*)starts, (const float*)recs, cap, vec, bx, bw, bh,
-        parts_x, parts, out_w, (float*)depth, (int*)tri_id);
-    return (int)cudaGetLastError();
+    return launch<true, 1>(starts, recs, depth, tri_id, cap, num_bins, bx,
+                           bw, bh, out_w, stream);
 }
 
 SOC_EXPORT const char* soc_error_string(int code) {

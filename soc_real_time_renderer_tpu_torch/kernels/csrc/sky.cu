@@ -18,14 +18,34 @@
 // the wrapper with the plain version's own PyTorch operations; `noise`
 // (64, 64) f32.  Output (3, lut_h, lut_w) f32.
 //
-// Design: one thread per LUT texel (32,768 at 256x128), the 16 KB noise
-// tile in shared memory, the march in registers.  Two skips that the
-// plain version computes and then discards, so the output is the same:
-// rays below the horizon keep the atmosphere (no march), and a march
-// sample with zero optical depth adds nothing (no sun march: 80 of its
-// 88 noise taps).  Bound: operations, up to 24 x 11 cloud-density
-// evaluations of 32 noise reads and ~100 flops each per texel, plus the
-// atmosphere's 16 x 9 exps; the noise reads hit shared memory.
+// What held the first design back: one thread per texel in 128 blocks
+// put two warps on a scheduler, with nothing to hide the latency of a
+// dependent chain of 16 x 9 atmosphere samples and up to 24 x 11 cloud
+// densities (32 shared-memory reads and ~250 operations each); the
+// blocks below the horizon left after the atmosphere; and a lane whose
+// sample held cloud ran its 10-step sun march while the other 31 waited.
+//
+// Design: a warp per texel (each warp takes every (number of warps)-th
+// texel in row-major order, so it gets rows below and above the horizon
+// alike), the 16 KB noise tile in shared memory once per block, and one
+// texel's independent samples spread over the lanes; only the sums stay
+// serial, replayed in the plain version's order, because f32 addition
+// is not associative and the result is held bit for bit:
+// * atmosphere: lane l takes primary step l / 2 and four of its eight
+//   light samples; the light sum passes from the even lane to the odd
+//   one in order; the optical-depth prefix over the 16 steps runs by
+//   shuffles; the six (channel, Rayleigh | Mie) totals are each summed
+//   by one lane over the steps' products parked in shared memory;
+// * clouds, for rays above the horizon: lanes 0-23 take the 24 primary
+//   densities; a ballot finds the samples that hold cloud (a sample
+//   with zero optical depth adds nothing, so its sun march, 80 of its
+//   88 noise taps, is skipped as the plain version's `where` discards
+//   it); the (hit sample, sun step) pairs are dealt over the 32 lanes
+//   and their densities parked in shared memory; each hit lane sums its
+//   own ten in order and forms its scatter term; the scatter and
+//   transmittance recurrence walks the hit samples in order by shuffles.
+// Bound: operations (the same count as before: this run's data decides
+// how many sun marches there are); the noise reads hit shared memory.
 //
 // Rounding: written in the plain version's operation order, built with
 // --fmad=false, with the same CUDA math functions PyTorch's kernels call
@@ -166,55 +186,78 @@ __device__ float get_clouds(const float* tex, float px, float py, float pz,
     return inside ? clouds * 0.03f : 0.0f;
 }
 
-__global__ void sky_lut_kernel(const float* __restrict__ params,
-                               const float* __restrict__ noise,
-                               float* __restrict__ out, int lut_w,
-                               int lut_h) {
+constexpr int kWarps = 8;              // warps (texels in flight) a block
+constexpr int kTexelsPerWarp = 2;      // the grid is sized for this many
+constexpr int kISteps = 16, kJSteps = 8;
+constexpr int kSteps = 24, kSunSteps = 10;
+constexpr unsigned kFull = 0xffffffffu;
+static_assert(kISteps * 2 == 32 && kJSteps == 8,
+              "atmosphere: two lanes a primary step, four samples a lane");
+static_assert(kSteps <= 32, "clouds: a lane a primary sample");
+
+__global__ void __launch_bounds__(kWarps * 32)
+sky_lut_kernel(const float* __restrict__ params,
+               const float* __restrict__ noise, float* __restrict__ out,
+               int lut_w, int lut_h) {
     __shared__ float tex[kN * kN];
-    for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < kN * kN;
-         i += blockDim.x * blockDim.y)
+    // per warp: the sun-march densities [sample][sun step]; before them
+    // the atmosphere's products [step][channel, Rayleigh | Mie]
+    __shared__ float scratch[kWarps][kSteps * kSunSteps];
+    static_assert(kISteps * 6 <= kSteps * kSunSteps, "scratch is shared");
+    for (int i = threadIdx.x; i < kN * kN; i += kWarps * 32)
         tex[i] = noise[i];
     __syncthreads();
-    const int ix = blockIdx.x * blockDim.x + threadIdx.x;
-    const int iy = blockIdx.y * blockDim.y + threadIdx.y;
-    if (ix >= lut_w || iy >= lut_h) return;
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    float* park = scratch[warp];
 
     const float sx = params[0], sy = params[1], sz = params[2];
     const float ox = params[3], oy = params[4], oz = params[5];
     const float cam_x = params[6], cam_z = params[7];
     const float elapsed = params[8], drift = params[9];
     const float skl[3] = {params[10], params[11], params[12]};
-
-    // ---- the lat-long ray (render_sky_lut)
-    const float az = ((float)ix + 0.5f) * (1.0f / (float)lut_w) * 2.0f * kPi
-                     - kPi;
-    const float el = ((float)iy + 0.5f) * (1.0f / (float)lut_h) * kPi
-                     - kHalfPi;
-    const float ce = cosf(el);
-    const float dx = ce * cosf(az);
-    const float dy = sinf(el);
-    const float dz = ce * sinf(az);
-
-    // ---- atmosphere (clouds._atmosphere, 16 x 8)
-    const float nrm = fmaxf(sqrtf(dot3(dx, dy, dz, dx, dy, dz)), 1e-12f);
-    const float rx = dx / nrm, ry = dy / nrm, rz = dz / nrm;
-    float p_near, p_far, g_near, unused;
-    rsi(ox, oy, oz, rx, ry, rz, kRAtmos2, &p_near, &p_far);
-    const bool miss = p_near > p_far;
-    rsi(ox, oy, oz, rx, ry, rz, kRPlanet2, &g_near, &unused);
-    p_far = fminf(p_far, g_near);
-    const float i_step = (p_far - p_near) * (1.0f / 16.0f);
-    const float mu = dot3(rx, ry, rz, sx, sy, sz);
-    const float mumu = mu * mu;
-    const float p_rlh = kPRlh * (1.0f + mumu);
-    const float p_mie = (kPMie * (kOneMinusGG * (mumu + 1.0f)))
-                        / (powf(kOnePlusGG - 2.0f * mu * (float)kGMieD, 1.5f)
-                           * kTwoPlusGG);
     const float k_rlh[3] = {(float)5.5e-6, (float)13.0e-6, (float)22.4e-6};
-    float tot_r[3] = {0.0f, 0.0f, 0.0f}, tot_m[3] = {0.0f, 0.0f, 0.0f};
-    float iod_r = 0.0f, iod_m = 0.0f;
-    float i_time = elapsed;                  // the :368 iTime quirk
-    for (int ii = 0; ii < 16; ++ii) {
+    const size_t plane = (size_t)lut_w * lut_h;
+    const int n_texels = lut_w * lut_h;
+
+    for (int texel = blockIdx.x * kWarps + warp; texel < n_texels;
+         texel += gridDim.x * kWarps) {
+        const int ix = texel % lut_w;
+        const int iy = texel / lut_w;
+
+        // ---- the lat-long ray (render_sky_lut), the same in every lane
+        const float az = ((float)ix + 0.5f) * (1.0f / (float)lut_w) * 2.0f
+                         * kPi - kPi;
+        const float el = ((float)iy + 0.5f) * (1.0f / (float)lut_h) * kPi
+                         - kHalfPi;
+        const float ce = cosf(el);
+        const float dx = ce * cosf(az);
+        const float dy = sinf(el);
+        const float dz = ce * sinf(az);
+
+        // ---- atmosphere (clouds._atmosphere, 16 x 8)
+        const float nrm = fmaxf(sqrtf(dot3(dx, dy, dz, dx, dy, dz)), 1e-12f);
+        const float rx = dx / nrm, ry = dy / nrm, rz = dz / nrm;
+        float p_near, p_far, g_near, unused;
+        rsi(ox, oy, oz, rx, ry, rz, kRAtmos2, &p_near, &p_far);
+        const bool miss = p_near > p_far;
+        rsi(ox, oy, oz, rx, ry, rz, kRPlanet2, &g_near, &unused);
+        p_far = fminf(p_far, g_near);
+        const float i_step = (p_far - p_near) * (1.0f / 16.0f);
+        const float mu = dot3(rx, ry, rz, sx, sy, sz);
+        const float mumu = mu * mu;
+        const float p_rlh = kPRlh * (1.0f + mumu);
+        const float p_mie =
+            (kPMie * (kOneMinusGG * (mumu + 1.0f)))
+            / (powf(kOnePlusGG - 2.0f * mu * (float)kGMieD, 1.5f)
+               * kTwoPlusGG);
+
+        // this lane's primary step and its start time: elapsed (the :368
+        // iTime quirk) plus `step` additions of i_step, one by one
+        const int step = lane / 2;
+        float i_time = elapsed;
+        for (int k = 0; k < kISteps - 1; ++k)
+            i_time = k < step ? i_time + i_step : i_time;
         const float tmid = i_time + i_step * 0.5f;
         const float ipx = ox + rx * tmid;
         const float ipy = oy + ry * tmid;
@@ -222,104 +265,175 @@ __global__ void sky_lut_kernel(const float* __restrict__ params,
         const float i_h = sqrtf(dot3(ipx, ipy, ipz, ipx, ipy, ipz)) - kRPlanet;
         const float od_r = expf(-i_h * (1.0f / 8000.0f)) * i_step;
         const float od_m = expf(-i_h * (1.0f / 1200.0f)) * i_step;
-        iod_r = iod_r + od_r;
-        iod_m = iod_m + od_m;
         float j_far;
         rsi(ipx, ipy, ipz, sx, sy, sz, kRAtmos2, &unused, &j_far);
         const float j_step = j_far * (1.0f / 8.0f);
-        float jod_r = 0.0f, jod_m = 0.0f;
-        for (int jj = 0; jj < 8; ++jj) {
+        // four of the step's eight light samples: 0-3 on the even lane,
+        // 4-7 on the odd one
+        float e_r[4], e_m[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            const int jj = (lane & 1) * 4 + k;
             const float tt = j_step * (float)jj + j_step * 0.5f;
             const float jpx = ipx + sx * tt;
             const float jpy = ipy + sy * tt;
             const float jpz = ipz + sz * tt;
             const float j_h = sqrtf(dot3(jpx, jpy, jpz, jpx, jpy, jpz))
                               - kRPlanet;
-            jod_r = jod_r + expf(-j_h * (1.0f / 8000.0f)) * j_step;
-            jod_m = jod_m + expf(-j_h * (1.0f / 1200.0f)) * j_step;
+            e_r[k] = expf(-j_h * (1.0f / 8000.0f)) * j_step;
+            e_m[k] = expf(-j_h * (1.0f / 1200.0f)) * j_step;
         }
+        // the light sum over j = 0..7 in order: the even lane's partial
+        // sum goes on in the odd lane, which hands the whole sum back
+        float jod_r = 0.0f, jod_m = 0.0f;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            jod_r = jod_r + e_r[k];
+            jod_m = jod_m + e_m[k];
+        }
+        const float half_r = __shfl_sync(kFull, jod_r, lane & ~1);
+        const float half_m = __shfl_sync(kFull, jod_m, lane & ~1);
+        if (lane & 1) {
+            jod_r = half_r;
+            jod_m = half_m;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                jod_r = jod_r + e_r[k];
+                jod_m = jod_m + e_m[k];
+            }
+        }
+        jod_r = __shfl_sync(kFull, jod_r, lane | 1);
+        jod_m = __shfl_sync(kFull, jod_m, lane | 1);
+        // the primary optical depth up to and including this lane's step
+        float iod_r = 0.0f, iod_m = 0.0f, run_r = 0.0f, run_m = 0.0f;
+        for (int k = 0; k < kISteps; ++k) {
+            run_r = run_r + __shfl_sync(kFull, od_r, 2 * k);
+            run_m = run_m + __shfl_sync(kFull, od_m, 2 * k);
+            if (k == step) {
+                iod_r = run_r;
+                iod_m = run_m;
+            }
+        }
+        // the step's six products; then lanes 0-5 each sum one of them
+        // over the steps in order
+        if ((lane & 1) == 0) {
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+                const float attn = expf(-(kKMie * (iod_m + jod_m)
+                                          + k_rlh[c] * (iod_r + jod_r)));
+                park[step * 6 + c] = od_r * attn;
+                park[step * 6 + 3 + c] = od_m * attn;
+            }
+        }
+        __syncwarp();
+        float tot = 0.0f;
+        if (lane < 6) {
+            for (int k = 0; k < kISteps; ++k) tot = tot + park[k * 6 + lane];
+        }
+        __syncwarp();   // the products are read: the scratch is free
+        float atmos[3];
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-            const float attn = expf(-(kKMie * (iod_m + jod_m)
-                                      + k_rlh[c] * (iod_r + jod_r)));
-            tot_r[c] = tot_r[c] + od_r * attn;
-            tot_m[c] = tot_m[c] + od_m * attn;
+            const float tot_r = __shfl_sync(kFull, tot, c);
+            const float tot_m = __shfl_sync(kFull, tot, 3 + c);
+            const float a = 22.0f * (p_rlh * k_rlh[c] * tot_r
+                                     + p_mie * kKMie * tot_m);
+            atmos[c] = miss ? 0.0f : a;
         }
-        i_time = i_time + i_step;
-    }
-    float atmos[3];
+
+        const size_t o = (size_t)iy * lut_w + ix;
+        if (dy < 0.0f) {        // below the horizon: the atmosphere
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-        const float a = 22.0f * (p_rlh * k_rlh[c] * tot_r[c]
-                                 + p_mie * kKMie * tot_m[c]);
-        atmos[c] = miss ? 0.0f : a;
-    }
-
-    const size_t plane = (size_t)lut_w * lut_h;
-    const size_t o = (size_t)iy * lut_w + ix;
-    if (dy < 0.0f) {            // below the horizon: the atmosphere
-#pragma unroll
-        for (int c = 0; c < 3; ++c) out[c * plane + o] = atmos[c];
-        return;
-    }
-
-    // ---- volumetric clouds (clouds._volumetric_clouds, dither 0.5)
-    float bottom, top;
-    rsi(0.0f, kEarth, 0.0f, dx, dy, dz, kShellMin2, &unused, &bottom);
-    rsi(0.0f, kEarth, 0.0f, dx, dy, dz, kShellMax2, &unused, &top);
-    const float stx = dx * bottom, sty = dy * bottom, stz = dz * bottom;
-    const float incx = (dx * top - stx) * (1.0f / 24.0f);
-    const float incy = (dy * top - sty) * (1.0f / 24.0f);
-    const float incz = (dz * top - stz) * (1.0f / 24.0f);
-    const float px0 = stx + incx * 0.5f;
-    const float py0 = sty + incy * 0.5f;
-    const float pz0 = stz + incz * 0.5f;
-    const float step_len = sqrtf(dot3(incx, incy, incz, incx, incy, incz));
-    const float ldotw = dot3(dx, dy, dz, sx, sy, sz);
-    const float lobe1 = hg(ldotw, kHg1A, kHg1B, kHg1C);
-    const float lobe2 = hg(ldotw, kHg2A, kHg2B, kHg2C);
-    const float phase = lobe2 + (lobe1 - lobe2) * 0.5f;
-    const float six = sx * 50.0f, siy = sy * 50.0f, siz = sz * 50.0f;
-
-    float sc[3] = {0.0f, 0.0f, 0.0f};
-    float trans = 1.0f;
-    for (int i = 0; i < 24; ++i) {
-        const float fi = (float)i;
-        const float cpx = px0 + incx * fi;
-        const float cpy = py0 + incy * fi;
-        const float cpz = pz0 + incz * fi;
-        const float od = get_clouds(tex, cpx, cpy, cpz, cam_x, cam_z, drift)
-                         * step_len;
-        if (!(od > 0.0f)) continue;   // no density: nothing added
-        const float qx0 = cpx + six * 0.5f;
-        const float qy0 = cpy + siy * 0.5f;
-        const float qz0 = cpz + siz * 0.5f;
-        float strans = 0.0f;
-        for (int j = 0; j < 10; ++j) {
-            const float fj = (float)j;
-            strans = strans + get_clouds(tex, qx0 + six * fj, qy0 + siy * fj,
-                                         qz0 + siz * fj, cam_x, cam_z,
-                                         drift);
+            for (int c = 0; c < 3; ++c)
+                if (lane == c) out[c * plane + o] = atmos[c];
+            continue;
         }
-        const float sunv = expf(-strans * 50.0f);
-        const float integral = expf(kScatA * od) * kScatB + kScatC;
-        const float beers = 1.0f - expf(-(od * kLn2) * 2.0f);
-        const float x = sunv * beers * phase;
-        const float ipi = integral * kPi;
+
+        // ---- volumetric clouds (clouds._volumetric_clouds, dither 0.5)
+        float bottom, top;
+        rsi(0.0f, kEarth, 0.0f, dx, dy, dz, kShellMin2, &unused, &bottom);
+        rsi(0.0f, kEarth, 0.0f, dx, dy, dz, kShellMax2, &unused, &top);
+        const float stx = dx * bottom, sty = dy * bottom, stz = dz * bottom;
+        const float incx = (dx * top - stx) * (1.0f / 24.0f);
+        const float incy = (dy * top - sty) * (1.0f / 24.0f);
+        const float incz = (dz * top - stz) * (1.0f / 24.0f);
+        const float px0 = stx + incx * 0.5f;
+        const float py0 = sty + incy * 0.5f;
+        const float pz0 = stz + incz * 0.5f;
+        const float step_len = sqrtf(dot3(incx, incy, incz, incx, incy,
+                                          incz));
+        const float ldotw = dot3(dx, dy, dz, sx, sy, sz);
+        const float lobe1 = hg(ldotw, kHg1A, kHg1B, kHg1C);
+        const float lobe2 = hg(ldotw, kHg2A, kHg2B, kHg2C);
+        const float phase = lobe2 + (lobe1 - lobe2) * 0.5f;
+        const float six = sx * 50.0f, siy = sy * 50.0f, siz = sz * 50.0f;
+
+        // the 24 primary samples, one a lane
+        float od = 0.0f;
+        if (lane < kSteps) {
+            const float fi = (float)lane;
+            od = get_clouds(tex, px0 + incx * fi, py0 + incy * fi,
+                            pz0 + incz * fi, cam_x, cam_z, drift)
+                 * step_len;
+        }
+        const unsigned hits = __ballot_sync(kFull, od > 0.0f);
+        // the sun marches of the samples that hold cloud, a (sample, sun
+        // step) pair a lane
+        const int n_pairs = __popc(hits) * kSunSteps;
+        for (int p = lane; p < n_pairs; p += 32) {
+            unsigned m = hits;
+            for (int k = p / kSunSteps; k > 0; --k) m &= m - 1;
+            const int i = __ffs(m) - 1;
+            const int j = p % kSunSteps;
+            const float fi = (float)i, fj = (float)j;
+            const float cpx = px0 + incx * fi;
+            const float cpy = py0 + incy * fi;
+            const float cpz = pz0 + incz * fi;
+            const float qx0 = cpx + six * 0.5f;
+            const float qy0 = cpy + siy * 0.5f;
+            const float qz0 = cpz + siz * 0.5f;
+            park[i * kSunSteps + j] =
+                get_clouds(tex, qx0 + six * fj, qy0 + siy * fj,
+                           qz0 + siz * fj, cam_x, cam_z, drift);
+        }
+        __syncwarp();
+        // each hit sample's scatter term and transmittance factor
+        float scat[3] = {0.0f, 0.0f, 0.0f};
+        float decay = 1.0f;
+        if (od > 0.0f) {
+            float strans = 0.0f;
+            for (int j = 0; j < kSunSteps; ++j)
+                strans = strans + park[lane * kSunSteps + j];
+            const float sunv = expf(-strans * 50.0f);
+            const float integral = expf(kScatA * od) * kScatB + kScatC;
+            const float beers = 1.0f - expf(-(od * kLn2) * 2.0f);
+            const float x = sunv * beers * phase;
+            const float ipi = integral * kPi;
+            const float sunlight = 0.8f * x * (float)(0.5 * kPiD) * kSunBright;
+#pragma unroll
+            for (int c = 0; c < 3; ++c) scat[c] = (sunlight + skl[c]) * ipi;
+            decay = expf(-od);
+        }
+        __syncwarp();   // the densities are read: the scratch is free
+        // the recurrence over the hit samples, near to far
+        float sc[3] = {0.0f, 0.0f, 0.0f};
+        float trans = 1.0f;
+        for (unsigned m = hits; m; m &= m - 1) {
+            const int i = __ffs(m) - 1;
+#pragma unroll
+            for (int c = 0; c < 3; ++c)
+                sc[c] = sc[c] + __shfl_sync(kFull, scat[c], i) * trans;
+            trans = trans * __shfl_sync(kFull, decay, i);
+        }
+        const float fade =
+            fminf(fmaxf(sqrtf(dot3(stx, sty, stz, stx, sty, stz)) * 0.00001f
+                        * 2.5f, 0.0f), 1.0f);
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-            const float sunlight = 0.8f * x * (float)(0.5 * kPiD)
-                                   * kSunBright;
-            sc[c] = sc[c] + (sunlight + skl[c]) * ipi * trans;
+            const float mixed = atmos[c] * trans + sc[c];
+            const float v = mixed + (atmos[c] - mixed) * fade;
+            if (lane == c) out[c * plane + o] = v;
         }
-        trans = trans * expf(-od);
-    }
-    const float fade = fminf(fmaxf(sqrtf(dot3(stx, sty, stz, stx, sty, stz))
-                                   * 0.00001f * 2.5f, 0.0f), 1.0f);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-        const float mixed = atmos[c] * trans + sc[c];
-        out[c * plane + o] = mixed + (atmos[c] - mixed) * fade;
     }
 }
 
@@ -329,10 +443,11 @@ SOC_EXPORT int sky_lut_launch(const void* params, const void* noise,
                               void* out, int lut_w, int lut_h,
                               void* stream) {
     if (lut_w <= 0 || lut_h <= 0) return (int)cudaErrorInvalidValue;
-    const dim3 block(64, 4);
-    const dim3 grid((lut_w + block.x - 1) / block.x,
-                    (lut_h + block.y - 1) / block.y);
-    sky_lut_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+    const long long texels = (long long)lut_w * lut_h;
+    if (texels > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    const long long per_block = kWarps * kTexelsPerWarp;
+    const int grid = (int)((texels + per_block - 1) / per_block);
+    sky_lut_kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
         (const float*)params, (const float*)noise, (float*)out, lut_w,
         lut_h);
     return (int)cudaGetLastError();

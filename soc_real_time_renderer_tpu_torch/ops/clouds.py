@@ -18,6 +18,7 @@ loop, and the sums over steps are taken in loop order.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -38,8 +39,19 @@ R_LOG2 = float(1.0 / math.log(2.0))
 LN2 = math.log(2.0)
 
 
+@functools.lru_cache(maxsize=None)
+def _constant(values, device):
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
 def _vec(v, device):
-    return torch.tensor(v, dtype=torch.float32, device=device)
+    """The f32 constant `v` (a number or a sequence of numbers) on
+    `device`, made once per (values, device) and reused: building a
+    tensor from host values is a blocking copy that waits for the card's
+    queue, and a sky LUT needs a dozen of them per call.  The tensors
+    are shared, so no caller writes them in place."""
+    values = tuple(v) if isinstance(v, (list, tuple)) else float(v)
+    return _constant(values, torch.device(device))
 
 
 def _dot(a, b):
@@ -118,8 +130,7 @@ def _atmospheric_scattering_top(sun_dir):
     """:196-218 — constant per frame (sky light for cloud shading)."""
     dev = sun_dir.device
     total = _vec(RAYLEIGH, dev) + _vec(MIE, dev)
-    od = 100000.0 / torch.tensor(max(1.0 * 2.0 - 0.01, 0.01),
-                                 dtype=torch.float32, device=dev)
+    od = 100000.0 / _vec(max(1.0 * 2.0 - 0.01, 0.01), dev)
     odl = _particle_thickness(sun_dir[1])
     scatter_view = total * od
     absorb_view = _absorb(total, od)

@@ -376,8 +376,8 @@ def resolve_depth_plain(starts, recs, grid: BinGrid,
 
 def resolve_depth(starts, recs, grid: BinGrid, impl: str | None = None):
     """K4 dispatch: depth-only bin resolve -> depth padded to the bin
-    grid.  CUDA tensors launch the kernel (``resolve.cu``
-    ``resolve_depth_kernel``), CPU tensors (or impl="plain") take
+    grid.  CUDA tensors launch the kernel (``resolve.cu``: K1's body
+    without the id row, any bin size), CPU tensors (or impl="plain") take
     resolve_depth_plain."""
     if kb.choose(impl, starts, recs) == "plain":
         return resolve_depth_plain(starts, recs, grid)
@@ -388,9 +388,6 @@ def resolve_depth(starts, recs, grid: BinGrid, impl: str | None = None):
     if starts.shape != (grid.num_bins + 1,) or recs.shape[0] != 16:
         raise ValueError(f"starts {tuple(starts.shape)} / records "
                          f"{tuple(recs.shape)} do not match the grid")
-    if 256 % grid.bw:
-        raise ValueError(f"resolve_depth needs a bin width dividing 256, "
-                         f"got {grid.bw}")
     starts = starts.contiguous()
     recs = recs.contiguous()
     Hp, Wp = grid.by * grid.bh, grid.bx * grid.bw

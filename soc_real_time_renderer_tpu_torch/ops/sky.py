@@ -5,8 +5,10 @@ Counterpart of the JAX package's ``ops/sky_pallas.py``, whose Pallas
 each bilinear-repeat tap as a soft-one-hot MXU product with bf16 noise
 and weights.  The CUDA kernel (``kernels/csrc/sky.cu``) computes the
 exact XLA oracle instead, ``clouds.render_sky_lut(g, noise_tex=...)``:
-one thread per LUT texel, the noise tile in shared memory, f32 taps.
-That function is the kernel's plain version.
+a warp per LUT texel, the texel's atmosphere and march samples spread
+over its lanes and their sums replayed in that function's order, the
+noise tile in shared memory, f32 taps.  That function is the kernel's
+plain version.
 """
 from __future__ import annotations
 
@@ -34,20 +36,21 @@ def sky_params(g):
         torch.zeros(3, dtype=torch.float32, device=dev)]).to(torch.float32)
 
 
-def render_sky_lut_noise(g, noise_tex, lut_w: int = 256, lut_h: int = 128,
-                         impl: str | None = None):
-    """K6 dispatch: the sky LUT (3, lut_h, lut_w) over the (64, 64) cloud
-    noise, horizon factor applied.  CUDA tensors launch the kernel, CPU
-    tensors (or impl="plain") take clouds.render_sky_lut."""
-    if kb.choose(impl, noise_tex, g.sun.direction) == "plain":
-        return clouds.render_sky_lut(g, lut_w, lut_h, noise_tex=noise_tex)
+def launch_sky_lut(params, noise_tex, lut_w: int = 256, lut_h: int = 128):
+    """K6's launch: the sky LUT (3, lut_h, lut_w) of the parameter block
+    `params` (sky_params) over the (64, 64) cloud noise, before the
+    horizon factor.  CUDA tensors only."""
+    kb.choose("cuda", params, noise_tex)
     lib = kb.library()
     if noise_tex.shape != (NOISE_N, NOISE_N) \
             or noise_tex.dtype != torch.float32:
         raise ValueError(f"noise_tex {tuple(noise_tex.shape)} "
                          f"{noise_tex.dtype}: want (64, 64) float32")
+    if params.shape != (16,) or params.dtype != torch.float32:
+        raise ValueError(f"params {tuple(params.shape)} {params.dtype}: "
+                         f"want (16,) float32")
     noise_tex = noise_tex.contiguous()
-    params = sky_params(g).contiguous()
+    params = params.contiguous()
     out = torch.empty((3, lut_h, lut_w), dtype=torch.float32,
                       device=noise_tex.device)
     code = lib.sky_lut_launch(params.data_ptr(), noise_tex.data_ptr(),
@@ -55,4 +58,15 @@ def render_sky_lut_noise(g, noise_tex, lut_w: int = 256, lut_h: int = 128,
                               kb.stream_ptr(noise_tex))
     kb.launches["sky_lut"] += 1
     kb.check(code, "sky_lut")
+    return out
+
+
+def render_sky_lut_noise(g, noise_tex, lut_w: int = 256, lut_h: int = 128,
+                         impl: str | None = None):
+    """K6 dispatch: the sky LUT (3, lut_h, lut_w) over the (64, 64) cloud
+    noise, horizon factor applied.  CUDA tensors launch the kernel, CPU
+    tensors (or impl="plain") take clouds.render_sky_lut."""
+    if kb.choose(impl, noise_tex, g.sun.direction) == "plain":
+        return clouds.render_sky_lut(g, lut_w, lut_h, noise_tex=noise_tex)
+    out = launch_sky_lut(sky_params(g), noise_tex, lut_w, lut_h)
     return out * clouds.sky_horizon(-g.sun.direction)

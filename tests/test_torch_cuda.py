@@ -8,6 +8,7 @@ installed):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -243,10 +244,14 @@ def test_small_frame_kernel_path_matches_plain(dev):
 def test_resolve_depth_kernel_matches_plain(dev, S):
     """K4 on a soup seen as a shadow view (128-px bins, back-face cull):
     bit-identical to resolve_depth_plain, empty bins included."""
-    grid = raster2.default_grid(S, S, kind="shadow")
-    grid = raster2.BinGrid(**{**grid.__dict__, "pair_cap": 65536,
-                              "med_cap": 512})
-    clip = _soup(400, S, S, S).to(dev)
+    dk, _ = _depth_both(_soup(400, S, S, S).to(dev), S, _shadow_grid(S))
+    assert 0.05 < (dk < 1.0).float().mean().item() < 1.0
+
+
+def _depth_both(clip, S, grid):
+    """K4 and resolve_depth_plain on the clip triangles seen as a shadow
+    view (back-face cull): asserts one launch and bit-identical depth;
+    returns (depth, starts)."""
     setup = raster2.triangle_setup_planar(clip, S, S, "back")
     starts, recs, _, rgrid = raster2.gather_records(setup, grid)
     n0 = kb.launches["resolve_depth"]
@@ -254,8 +259,67 @@ def test_resolve_depth_kernel_matches_plain(dev, S):
     assert kb.launches["resolve_depth"] == n0 + 1
     dp = raster2.resolve_depth(starts, recs, rgrid, impl="plain")
     torch.cuda.synchronize()
+    assert dk.shape == (rgrid.by * rgrid.bh, rgrid.bx * rgrid.bw)
     assert torch.equal(dk, dp)
-    assert 0.05 < (dk < 1.0).float().mean().item() < 1.0
+    return dk, starts
+
+
+def _shadow_grid(S, **kw):
+    grid = raster2.default_grid(S, S, kind="shadow")
+    return raster2.BinGrid(**{**grid.__dict__, "pair_cap": 65536,
+                              "med_cap": 512, **kw})
+
+
+def _heavy_bin_clip(n=25_000, seed=9):
+    """n small triangles over the whole clip square, w in [0.5, 2]."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(-1, 1, (n, 1, 2)) + rng.uniform(-0.15, 0.15, (n, 3, 2))
+    wv = rng.uniform(0.5, 2.0, (n, 1, 1)).repeat(3, axis=1)
+    z = rng.uniform(0.05, 0.95, (n, 3, 1))
+    clip = np.concatenate([xy * wv, z * wv, wv], axis=2).astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(clip.transpose(1, 2, 0)))
+
+
+@pytest.mark.parametrize("case", ["heavy_bin", "slivers", "empty", "behind",
+                                  "bins96", "bins80"])
+def test_resolve_depth_kernel_cases(dev, case):
+    """K4 bit-identical to resolve_depth_plain on: one 128x128 bin of
+    more than 10,000 pairs (25,000 triangles of both facings, back-face
+    culled), so each block of the bin walks dozens of windows; the raster
+    oracle's slivers on 128-px bins; a view with no pair at all (the
+    clear alone); a view whose only pairs lie wholly behind the camera
+    (all in bin 0, covering nothing); and 96x96 and 80x80 bins on a
+    480^2 target: bin widths that do not divide 256, the second cut by
+    the block's 32-pixel regions into ragged parts."""
+    if case == "heavy_bin":
+        grid = _shadow_grid(128, pair_cap=32768)
+        dk, starts = _depth_both(_heavy_bin_clip().to(dev), 128, grid)
+        assert grid.num_bins == 1 and int(starts[-1]) >= 10_000
+        assert (dk < 1.0).float().mean() > 0.9
+    elif case == "slivers":
+        clip = _soup(60, 2, 256, 256, squash=(1.0, 0.02, 1.0)).to(dev)
+        # both windings: the cull keeps about half of them
+        clip = torch.cat([clip, clip[[0, 2, 1]]], dim=2)
+        dk, _ = _depth_both(clip, 256, _shadow_grid(256))
+        assert int((dk < 1.0).sum()) > 100
+    elif case == "empty":
+        clip = _soup(50, 3, 512, 512).to(dev)
+        clip[1:] = clip[:1]                       # zero area: all invalid
+        dk, starts = _depth_both(clip, 512, _shadow_grid(512))
+        assert int(starts[-1]) == 0 and bool((dk == 1.0).all())
+    elif case == "behind":
+        clip = _soup(200, 3, 512, 512).to(dev)
+        clip[:, 3] = -clip[:, 3].abs() - 1.0      # every w < 0
+        dk, starts = _depth_both(clip, 512, _shadow_grid(512))
+        assert int(starts[-1]) == int(starts[1]) > 0
+        assert bool((dk == 1.0).all())
+    else:
+        grid = raster2.BinGrid(width=480, height=480, bin_size=int(case[4:]),
+                               group=1, pair_cap=65536, med_cap=512)
+        clip = _soup(400, 96, 480, 480).to(dev)
+        dk, _ = _depth_both(clip, 480, grid)
+        assert dk.shape == (480, 480)
+        assert 0.05 < (dk < 1.0).float().mean().item() < 1.0
 
 
 def _toy_atlas(M=3, size=64, seed=0):
@@ -316,22 +380,89 @@ def test_texsample_kernel_asserts_past_the_atlas(dev):
     assert "device-side assert" in res.stderr, res.stderr[-2000:]
 
 
-def test_sky_kernel_matches_plain(dev):
-    """K6 at the frame's 256x128 LUT: max abs <= 1e-6 (the plain
-    version's order and functions, see sky.cu; bit-identical on the
-    H100 at full size)."""
+SKY_CASES = {
+    # name: (lut_w, lut_h, sun direction or None, elapsed time, noise)
+    "frame": (256, 128, None, 3.0, "field"),
+    "ragged_100x37": (100, 37, None, 3.0, "field"),
+    "sun_below_horizon": (256, 128, (0.3, 0.5, -0.2), 3.0, "field"),
+    "sun_at_zenith": (256, 128, (0.0, -1.0, 0.0), 3.0, "field"),
+    "elapsed_ten_minutes": (256, 128, None, 600.0, "field"),
+    "elapsed_ten_hours": (256, 128, None, 36000.0, "field"),
+    "noise_all_zero": (128, 64, None, 3.0, 0.0),
+    "noise_all_one": (128, 64, None, 3.0, 1.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SKY_CASES))
+def test_sky_kernel_matches_plain(dev, case):
+    """K6 bit-identical to its plain version (the plain version's order
+    and functions, see sky.cu): at the frame's 256x128 LUT; at a LUT
+    size that no block or warp count divides; with the sun below the
+    horizon (SunInfo.direction points from the sun, so y > 0) and at the
+    zenith; at ten minutes and ten hours of elapsed time (the cloud
+    drift, and the atmosphere march's start offset, the reference's
+    iTime quirk: minutes in, it starts the lowest rays under the ground,
+    where the plain version's own result is NaN, and the kernel must
+    give NaN at the same texels); and over constant noise fields, where
+    no march sample holds cloud (0) or every sample inside the shell
+    does (1)."""
+    lut_w, lut_h, sun, elapsed, field = SKY_CASES[case]
+    cam = Camera3D()
+    cam.resize(256, 128)
+    g = ShaderGlobals.create(
+        camera=camera_matrices(cam, [0.0, 2.0, 0.0], 1, 256, 128),
+        elapsed_time=np.float32(elapsed), device=dev)
+    if sun is not None:
+        d = np.asarray(sun, np.float32)
+        d = torch.from_numpy(d / np.linalg.norm(d)).to(dev)
+        g = dataclasses.replace(g, sun=dataclasses.replace(g.sun,
+                                                           direction=d))
+    if field == "field":
+        noise = torch.from_numpy(kit.cloud_noise()).to(dev)
+    else:
+        noise = torch.full((64, 64), field, device=dev)
+    n0 = kb.launches["sky_lut"]
+    k = sky.render_sky_lut_noise(g, noise, lut_w, lut_h)
+    assert kb.launches["sky_lut"] == n0 + 1
+    p = sky.render_sky_lut_noise(g, noise, lut_w, lut_h, impl="plain")
+    torch.cuda.synchronize()
+    assert k.shape == (3, lut_h, lut_w)
+    nan = torch.isnan(p)
+    assert not bool(nan.any()) or case.startswith("elapsed")
+    assert torch.isfinite(p[~nan]).all() and not bool(nan.all())
+    assert torch.equal(torch.isnan(k), nan)
+    assert torch.equal(k[~nan], p[~nan])
+    ref = clouds.render_sky_lut(g, lut_w, lut_h, noise_tex=noise)
+    assert torch.equal(p[~nan], ref[~nan])
+    if field == "field" and sun is None:
+        # the clouds change the upper half against the cloudless LUT
+        bare = sky.render_sky_lut_noise(g, torch.zeros_like(noise), lut_w,
+                                        lut_h)
+        assert not torch.equal(bare, k)
+
+
+def test_sky_call_does_not_wait_for_the_card(dev):
+    """A K6 call enqueued behind a sleeping kernel returns before the
+    sleep ends: the wrapper makes no blocking copy of host values (its
+    constants are cached per device)."""
+    import time
     cam = Camera3D()
     cam.resize(256, 128)
     g = ShaderGlobals.create(
         camera=camera_matrices(cam, [0.0, 2.0, 0.0], 1, 256, 128),
         elapsed_time=np.float32(3.0), device=dev)
     noise = torch.from_numpy(kit.cloud_noise()).to(dev)
-    k = sky.render_sky_lut_noise(g, noise)
-    p = sky.render_sky_lut_noise(g, noise, impl="plain")
+    sky.render_sky_lut_noise(g, noise)       # build, caches
     torch.cuda.synchronize()
-    assert torch.isfinite(k).all()
-    assert (k - p).abs().max().item() <= 1e-6
-    assert torch.equal(p, clouds.render_sky_lut(g, noise_tex=noise))
+    done = torch.cuda.Event()
+    torch.cuda._sleep(1 << 28)               # ~0.14 s at 1.98 GHz
+    t0 = time.perf_counter()
+    sky.render_sky_lut_noise(g, noise)
+    host = time.perf_counter() - t0
+    done.record()
+    assert not done.query(), "the sleep ended before the check"
+    torch.cuda.synchronize()
+    assert host < 0.1
 
 
 @pytest.mark.parametrize("name", ["full_nohelmet", "atrium_lifted"])

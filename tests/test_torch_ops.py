@@ -188,6 +188,26 @@ def test_render_sky_lut(frame):
     assert np.median(d) < 1e-5 and d.mean() < 0.05, (np.median(d), d.mean())
 
 
+def test_render_sky_lut_repeats_and_keeps_its_constants(frame):
+    """The procedural LUT's constants are made once per (values, device)
+    and shared between calls (ops/clouds._vec): two calls return
+    identical tensors, and every cached constant still equals a freshly
+    made one bit for bit afterwards (no call wrote one in place)."""
+    g = convert.globals_from_numpy(frame["g"])
+    first = pclouds.render_sky_lut(g, 32, 16)
+    second = pclouds.render_sky_lut(g, 32, 16)
+    assert torch.equal(first, second)
+    used = [pclouds.RAYLEIGH, pclouds.MIE, [5.5e-6, 13.0e-6, 22.4e-6],
+            [0.0, 6372e3, 0.0], [0.0, pclouds.EARTH_RADIUS, 0.0],
+            [0.0, 1.0, 0.0], [0.8, 0.8, 0.8], 1.99]
+    for v in used:
+        cached = pclouds._vec(v, "cpu")
+        assert cached is pclouds._vec(v, torch.device("cpu"))
+        fresh = torch.tensor(v, dtype=torch.float32)
+        assert cached.dtype == torch.float32 and cached.shape == fresh.shape
+        assert torch.equal(cached, fresh)
+
+
 def case_sky_from_lut(f):
     rng = np.random.default_rng(3)
     lut = rng.random((3, 16, 32), dtype=np.float32)

@@ -5,14 +5,21 @@ be exact, or the kernel would differ from ``raster2.resolve_plain``:
 
 * a record with no w > 0 covers no pixel under ``_eval_records``;
 * ``tile_may_cover``, the plain mirror below of ``edge_may_cover`` in
-  ``resolve.cu`` (with its rounding margin), never rejects an 8x4 pixel
-  tile that holds a pixel inside all three edges.
+  ``resolve.cu`` (with its rounding margin), never rejects a rectangle
+  of pixels that holds a pixel inside all three edges: a warp's 8x4
+  tile, K1's 32x8 block region and K4's 32x32 one.
+
+K4 (the shadow view's depth-only resolve) runs the same body, so the
+same rule is held on the reduced ``atrium_lifted`` shadow view's own
+records (orthographic: every w is 1), and ``resolve_depth_plain`` is
+held on a bin size that does not divide 256.
 
 The binning keeps the reference's rule for triangles wholly behind the
 camera (valid, bbox (0, 0, 1, 1), so they land in bin 0): its starts and
 sorted ids equal the JAX package's on soups that hold such triangles.
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_scene_kit as kit
 from raster_oracle import make_clip
 from soc_real_time_renderer_tpu.ops import raster2 as jraster
 from soc_real_time_renderer_tpu_torch import scenes as pscenes
@@ -197,30 +205,148 @@ def _tile_soups():
     }
 
 
+def _rule_on_rectangles(rec, w, h, rw, rh, chunk=256):
+    """The rule on every (record, rw x rh rectangle) of the w x h target
+    (w, h multiples of rw, rh): (covered, may), both (N, rectangles):
+    some pixel centre of the rectangle is inside all three edges; the
+    rectangle test keeps the record."""
+    px, py = _pixels(w, h)
+    tile = (torch.arange(w * h) // w) // rh * (w // rw) \
+        + (torch.arange(w * h) % w) // rw
+    n_tiles = (w // rw) * (h // rh)
+    t = torch.arange(n_tiles)
+    x0 = (t % (w // rw)) * rw
+    y0 = (t // (w // rw)) * rh
+    f = torch.float32
+    covered, may = [], []
+    for c0 in range(0, rec.shape[1], chunk):   # (chunk, w*h) at a time
+        r = rec[:, c0:c0 + chunk]
+        inside = _edges_inside(r, px, py)
+        cov = torch.zeros((r.shape[1], n_tiles), dtype=torch.int32)
+        cov.index_add_(1, tile, inside.to(torch.int32))
+        covered.append(cov > 0)
+        may.append(tile_may_cover(r, x0.to(f) + 0.5, (x0 + rw - 1).to(f) + 0.5,
+                                  y0.to(f) + 0.5, (y0 + rh - 1).to(f) + 0.5))
+    return torch.cat(covered), torch.cat(may)
+
+
 @pytest.mark.parametrize("name", sorted(_tile_soups()))
 def test_tile_rule_never_rejects_a_covered_tile(name):
     """Every (record, 8x4 tile) of the target: where any pixel centre
     of the tile is inside all three edges, the tile test keeps the
     record; and it rejects most of the others (it is not vacuous)."""
     rec, w, h = _tile_soups()[name]()
-    px, py = _pixels(w, h)
-    inside = _edges_inside(rec, px, py)                  # (N, w*h)
-    tx = (torch.arange(w * h) % w) // TILE_W
-    ty = (torch.arange(w * h) // w) // TILE_H
-    tile = ty * (w // TILE_W) + tx
-    n_tiles = (w // TILE_W) * (h // TILE_H)
-    covered = torch.zeros((rec.shape[1], n_tiles), dtype=torch.int32)
-    covered.index_add_(1, tile, inside.to(torch.int32))
-    covered = covered > 0
-    t = torch.arange(n_tiles)
-    x0 = (t % (w // TILE_W)) * TILE_W
-    y0 = (t // (w // TILE_W)) * TILE_H
-    f = torch.float32
-    may = tile_may_cover(rec, x0.to(f) + 0.5, (x0 + TILE_W - 1).to(f) + 0.5,
-                         y0.to(f) + 0.5, (y0 + TILE_H - 1).to(f) + 0.5)
+    covered, may = _rule_on_rectangles(rec, w, h, TILE_W, TILE_H)
     assert bool(covered.any())
     assert not bool((covered & ~may).any())
     assert (~may & ~covered).sum() > 0.5 * (~covered).sum()
+
+
+# a block's region: K1's is one 8x4 tile a warp (32x8), K4's four (32x32)
+REGIONS = {"k1_32x8": (32, 8), "k4_32x32": (32, 32)}
+
+
+@pytest.mark.parametrize("region", sorted(REGIONS))
+@pytest.mark.parametrize("name", sorted(_tile_soups()))
+def test_region_rule_never_rejects_a_covered_region(name, region):
+    """The same rule at the block's first level, on K1's and K4's region
+    sizes: no record that covers a pixel centre of a region is rejected
+    there, and some uncovered regions are (fewer than at the tile level:
+    the first reject is the coarser one)."""
+    rec, w, h = _tile_soups()[name]()
+    covered, may = _rule_on_rectangles(rec, w, h, *REGIONS[region])
+    assert bool(covered.any())
+    assert not bool((covered & ~may).any())
+    assert bool((~may & ~covered).any())
+
+
+@pytest.fixture(scope="module")
+def shadow_view():
+    """(starts, recs, grid, S) of the reduced atrium_lifted scene's sun
+    view at frame 1: the small atrium at y = 32 under the orthographic
+    sun, a 512^2 shadow map in 128x128 bins."""
+    S = 512
+    built = kit.build_port("atrium_lifted", RenderConfig(
+        width=128, height=64, shadow_resolution=S), "cpu", noise=False)
+    assert not built.plan.shadow_statically_empty
+    g, mm, nm = built.frame_globals(1)
+    world, _ = pframe.transform_triangles(built.batch, mm, nm)
+    clip = pframe._clip_of(world, g.sun.projection_view)
+    setup = praster.triangle_setup_planar(clip, S, S, "back")
+    starts, recs, ovf, grid = praster.gather_records(setup,
+                                                     built.plan.shadow_grid)
+    assert int(ovf) == 0 and (grid.bw, grid.bh) == (128, 128)
+    return starts, recs, grid, S
+
+
+@pytest.mark.parametrize("rect", [(TILE_W, TILE_H), REGIONS["k4_32x32"]],
+                         ids=["tile_8x4", "region_32x32"])
+def test_rule_on_the_shadow_views_own_records(shadow_view, rect):
+    """K4's two reject levels on the records it is given: every pair of
+    the reduced atrium_lifted shadow view (w = 1 at every vertex, so the
+    w > 0 test keeps them all) against every rectangle of the map."""
+    starts, recs, _, S = shadow_view
+    n = int(starts[-1])
+    assert n > 500
+    rec = recs[:, :n]
+    assert bool((rec[12:15] == 1.0).all())
+    covered, may = _rule_on_rectangles(rec, S, S, *rect, chunk=64)
+    assert covered.any(dim=1).float().mean() > 0.5
+    assert not bool((covered & ~may).any())
+    assert (~may & ~covered).sum() > 0.5 * (~covered).sum()
+
+
+def test_shadow_view_depth_is_the_min_over_covering_records(shadow_view):
+    """resolve_depth_plain on the shadow view's records equals the
+    minimum z, over each bin's records, of _eval_records at the pixel
+    (taken here bin by bin with amin), 1.0 where none covers; and the
+    atrium shadows a good part of the map."""
+    starts, recs, grid, S = shadow_view
+    depth = praster.resolve_depth_plain(starts, recs, grid)
+    assert depth.shape == (S, S)
+    want = torch.ones((S, S))
+    lx, ly = _pixels(grid.bw, grid.bh)
+    for b in range(grid.num_bins):
+        s0, s1 = int(starts[b]), int(starts[b + 1])
+        if s1 == s0:
+            continue
+        gx0, gy0 = b % grid.bx * grid.bw, b // grid.bx * grid.bh
+        cov, z = praster._eval_records(recs[:, s0:s1, None], lx + gx0,
+                                       ly + gy0)
+        zmin = torch.where(cov, z, math.inf).amin(dim=0)
+        want[gy0:gy0 + grid.bh, gx0:gx0 + grid.bw] = torch.where(
+            torch.isfinite(zmin), zmin, 1.0).reshape(grid.bh, grid.bw)
+    assert torch.equal(depth, want)
+    assert 0.05 < (depth < 1.0).float().mean().item() < 1.0
+
+
+@pytest.mark.parametrize("bins", [96, 80])
+def test_resolve_depth_plain_on_bins_that_do_not_divide_256(bins):
+    """A 192x192 target in 96x96 or 80x80 bins (neither divides 256, the
+    first depth kernel's restriction; 80 is no multiple of the 32-pixel
+    region either): the depth inside the viewport equals the 32x32-bin
+    resolve's and resolve_plain's depth bit for bit (a pixel's minimum
+    over its covering records does not depend on the binning), and the
+    dispatch takes the grid on CPU tensors."""
+    S = 192
+    planar = _planar(_soup(12, 300, spread=0.6))
+    setup = praster.triangle_setup_planar(planar, S, S, "back")
+
+    def grid(b):
+        return praster.BinGrid(width=S, height=S, bin_size=b, group=1,
+                               pair_cap=16384, med_cap=512, med_slots=64)
+
+    out = {}
+    for b in (bins, 32):
+        starts, recs, ovf, rgrid = praster.gather_records(setup, grid(b))
+        assert int(ovf) == 0
+        out[b] = praster.resolve_depth(starts, recs, rgrid)
+        assert out[b].shape == (rgrid.by * b, rgrid.bx * b)
+    ids_depth, ids = praster.resolve_plain(starts, recs, rgrid)
+    assert torch.equal(out[bins][:S, :S], out[32][:S, :S])
+    assert torch.equal(out[32], ids_depth)
+    assert torch.equal(out[32] < 1.0, ids >= 0)
+    assert 0.05 < (out[bins][:S, :S] < 1.0).float().mean().item() < 1.0
 
 
 JGRID = jraster.BinGrid(width=64, height=64, bin_size=32, group=2,

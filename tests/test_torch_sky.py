@@ -83,3 +83,55 @@ def test_sky_params_are_the_plain_versions_scalars(inputs):
     assert torch.equal(p[6:8], g.camera.position[[0, 2]])
     assert torch.equal(p[10:13], pclouds.sky_light_term(sun))
     assert float(p[9]) == float(-pclouds.CLOUD_SPEED * g.elapsed_time)
+
+
+def test_noise_sky_lut_repeats(inputs, port_lut):
+    """Two more calls of the noise LUT return the first call's tensor
+    bit for bit: the constants shared between calls are never written."""
+    _, g, noise = inputs
+    for _ in range(2):
+        again = psky.render_sky_lut_noise(g, torch.from_numpy(noise), LUT_W,
+                                          LUT_H)
+        assert np.array_equal(again.numpy(), port_lut)
+
+
+@pytest.mark.parametrize("values", [pclouds.RAYLEIGH, pclouds.MIE,
+                                    [0.0, 6372e3, 0.0], 1.99],
+                         ids=["rayleigh", "mie", "origin", "scalar"])
+def test_cached_constants(values):
+    """ops/clouds._vec: the cached constant equals a freshly made tensor
+    bit for bit, is float32, is the same object on a second request
+    (list or tuple, device by name or object), and lives on the device
+    asked for: another device gets a tensor of its own."""
+    fresh = torch.tensor(values, dtype=torch.float32)
+    cached = pclouds._vec(values, "cpu")
+    assert cached.dtype == torch.float32 and cached.device.type == "cpu"
+    assert torch.equal(cached, fresh)
+    again = tuple(values) if isinstance(values, list) else values
+    assert pclouds._vec(again, torch.device("cpu")) is cached
+    meta = pclouds._vec(values, "meta")
+    assert meta.device.type == "meta" and meta.shape == fresh.shape
+    assert pclouds._vec(values, "cpu") is cached
+
+
+def test_sky_params_block_keeps_its_bits(inputs):
+    """K6's parameter block from the cached constants equals the block
+    assembled from freshly made tensors, bit for bit."""
+    _, g, _ = inputs
+    sun = -g.sun.direction
+    f32 = dict(dtype=torch.float32)
+    total = torch.tensor(pclouds.RAYLEIGH, **f32) \
+        + torch.tensor(pclouds.MIE, **f32)
+    od = 100000.0 / torch.tensor(1.99, **f32)
+    odl = pclouds._particle_thickness(sun[1])
+    absorb_sun = pclouds._d02(
+        pclouds._absorb(total, odl) - pclouds._absorb(total, od)) \
+        / pclouds._d02((total * odl - total * od) * pclouds.LN2)
+    scatter_sun = torch.tensor(pclouds.MIE, **f32) * od * 0.25 \
+        + torch.tensor(pclouds.RAYLEIGH, **f32) * od * 0.375
+    light = scatter_sun * absorb_sun * pclouds.SUN_BRIGHTNESS * 0.25 / np.pi
+    origin = torch.tensor([0.0, 6372e3, 0.0], **f32) + g.camera.position
+    p = psky.sky_params(g)
+    assert torch.equal(p[3:6], origin)
+    assert torch.equal(p[10:13], light)
+    assert torch.equal(p[13:], torch.zeros(3))
