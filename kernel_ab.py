@@ -17,7 +17,7 @@ with ``--other-flags`` times a compile-time variant against the default
         --other-flags=-DSOC_K4_TILES=1
 
 Per scene (``chip_smoke``'s builds at 1920x1088) and kernel (default
-K1, K4 and K6; any of the six by name): the kernel's case from
+K1, K4, K6 and K2; any of the six by name): the kernel's case from
 ``chip_smoke.kernel_cases`` on the frame's own inputs, each build
 compared with the plain version there (``chip_smoke``'s tolerances) and
 timed by ``chip_smoke.device_ms`` (median of 20 calls, L2 evicted before
@@ -29,9 +29,10 @@ some w > 0) and with every bin empty: how far one bin sets the kernel's
 time.  For K6 also its launch alone, on a parameter block made
 beforehand, without the wrapper's small PyTorch kernels around it.  Then
 what the kernels sit in, per wrapper call with both builds in the same
-turns: the whole frame (``render_frame``) and, where the scene pays it,
-the sun shadow view's stage (setup, binning, K4): whether a kernel's
-gain shows one and two layers up.  The last line is one JSON object
+turns: the whole frame (``render_frame``), the SSAO stage (preamble, K2,
+blur, upsample) and, where the scene pays it, the sun shadow view's stage
+(setup, binning, K4): whether a kernel's gain shows one and two layers
+up.  The last line is one JSON object
 with every reading.  Needs a card; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -57,7 +58,10 @@ def other_library(csrc, flags=()):
     cs.check(sources, f"CUDA sources in {csrc}")
     lib = os.path.join(kb.BUILD_DIR, "other", "libsoc_kernels.so")
     os.makedirs(os.path.dirname(lib), exist_ok=True)
-    kb.build(sources, lib, flags)
+    report = kb.build(sources, lib, flags)
+    for ln in report.splitlines():
+        if "registers" in ln or "Compiling entry" in ln:
+            cs.log(f"  other build, ptxas: {ln.strip()}")
     return kb.load(lib)
 
 
@@ -101,16 +105,27 @@ def resolve_tail(name, k, fn, starts, recs, grid, flush):
 
 
 def path_ab(name, built, dev, libs, card):
-    """The whole frame and the shadow view's stage with each build, ms per
-    call (CUDA events, median of REPS), runs other, this, this, other."""
+    """The whole frame, the SSAO stage and the shadow view's stage with
+    each build, ms per call (CUDA events, median of REPS), runs other,
+    this, this, other."""
     from soc_real_time_renderer_tpu_torch.graph import frame as fm
     from soc_real_time_renderer_tpu_torch.kernels import build as kb
-    from soc_real_time_renderer_tpu_torch.ops import raster2
+    from soc_real_time_renderer_tpu_torch.ops import raster2, sampling, ssao
     plan, batch = built.plan, built.batch
+    cfg = plan.config
     g, mm, nm = built.frame_globals(1, peek=True)
-    hist = fm.RenderHistory.create(plan.config, device=dev)
+    hist = fm.RenderHistory.create(cfg, device=dev)
+    gbuf = fm.render_frame(plan, batch, g, hist, mm, nm)[0].gbuffer
+
+    def ssao_stage():
+        half = ssao.ssao_generate(gbuf.depth, gbuf.normal, g,
+                                  cfg.ssao_kernel_size)
+        return sampling.upsample_bilinear(ssao.ssao_blur(half), cfg.height,
+                                          cfg.width)
+
     runs = {"whole frame":
-            lambda: fm.render_frame(plan, batch, g, hist, mm, nm)}
+            lambda: fm.render_frame(plan, batch, g, hist, mm, nm),
+            "SSAO stage (preamble, K2, blur, upsample)": ssao_stage}
     if "resolve_depth" in cs.path_of(plan, batch):
         world, _ = fm.transform_triangles(batch, mm, nm)
         sclip = fm._clip_of(world, g.sun.projection_view)
@@ -225,7 +240,8 @@ def main():
                     "separated (e.g. -DSOC_K4_TILES=1)")
     ap.add_argument("--scenes", default="terrain,full_nohelmet,"
                     "atrium_lifted")
-    ap.add_argument("--kernels", default="resolve,resolve_depth,sky_lut")
+    ap.add_argument("--kernels",
+                    default="resolve,resolve_depth,sky_lut,ssao_taps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this A/B needs a GPU")

@@ -4,17 +4,20 @@ history')``, counterpart of the JAX package's ``graph/frame.py``.
 Pass order matches the reference graph:
 
   raster (visibility, K1; sun shadow, K4) -> HiZ -> G-buffer (K5) ->
-  bloom -> SSAO (K2) + blur -> sky LUT (K6) + lookup -> composition ->
-  exposure -> TAA (K3) -> tone mapping
+  bloom -> SSAO (K2) + blur -> [SSR] -> sky LUT (K6) + lookup, or the
+  per-pixel cloud march -> composition [+ volumetric light] -> [SSR mix]
+  -> [depth of field] -> exposure -> TAA (K3) -> tone mapping
 
 Cross-frame state rides in :class:`RenderHistory` (bf16 colour and
 velocity, f32 exposure).  PyTorch runs eagerly: no jit, no
 ``torch.compile``.  The hand-written kernels on the path: K1 (main-view
 resolve), K4 (the sun shadow view's depth resolve, unless the build
 proved the map empty), K5 (the material tap), K2 (SSAO taps), K6 (the
-sky LUT over the cloud-noise texture) and K3 (TAA history fetch).  Passes not ported yet raise
-``NotImplementedError`` instead of rendering something else: SSR, depth
-of field and the per-pixel cloud march.
+sky LUT over the cloud-noise texture) and K3 (TAA history fetch).  The
+bracketed passes are off by default (``RenderConfig.enable_ssr``,
+``composite_ssr``, ``enable_depth_of_field``,
+``enable_volumetric_light``, ``cloud_impl="perpixel"``) and run as plain
+PyTorch.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from ..models.scene_batch import SceneBatch
 from ..ops import bloom as bloom_ops
 from ..ops import clouds as clouds_ops
 from ..ops import composition as comp_ops
+from ..ops import dof as dof_ops
 from ..ops import exposure as exposure_ops
 from ..ops import gbuffer as gbuf_ops
 from ..ops import hiz as hiz_ops
@@ -36,6 +40,7 @@ from ..ops import raster2
 from ..ops import sampling
 from ..ops import sky as sky_ops
 from ..ops import ssao as ssao_ops
+from ..ops import ssr as ssr_ops
 from ..ops import taa as taa_ops
 from ..ops import tonemap as tonemap_ops
 
@@ -178,13 +183,6 @@ def shade_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
                 ) -> tuple[FrameOutputs, RenderHistory]:
     """Screen-space half of the frame."""
     cfg = plan.config
-    for flag, what in ((cfg.enable_ssr, "SSR"),
-                       (cfg.enable_depth_of_field, "depth of field"),
-                       (cfg.enable_clouds and cfg.cloud_impl == "perpixel",
-                        "the per-pixel cloud march")):
-        if flag:
-            raise NotImplementedError(f"{what} is not ported yet "
-                                      f"(ROADMAP queue A)")
     dev = vis.depth.device
 
     hiz_min = hiz_max = None
@@ -213,27 +211,47 @@ def shade_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
     else:
         ssao_full = torch.ones_like(vis.depth)
 
+    # SSR: computed, composited only behind composite_ssr (below)
+    ssr_img = None
+    ssr_active = torch.full((), -1, dtype=torch.int32, device=dev)
+    if cfg.enable_ssr:
+        ssr_img, ssr_overflow, ssr_active = ssr_ops.ssr(
+            vis.depth, gbuf.albedo, gbuf.normal, gbuf.metallic_roughness, g,
+            compact_cap=plan.ssr_cap)
+        overflow = overflow | ssr_overflow
+
     clouds_full = None
     clouds_half = None
     if cfg.enable_clouds:
         hw, hh = cfg.width // 2, cfg.height // 2
-        if cfg.cloud_noise_mode == "texture" and batch.cloud_noise is not None:
-            lut = sky_ops.render_sky_lut_noise(g, batch.cloud_noise,
-                                               impl=impl)
-        else:
-            if cfg.cloud_noise_mode == "texture":
-                warnings.warn(
-                    "cloud_noise_mode='texture' falling back to the "
-                    "procedural sky LUT: batch.cloud_noise is missing; "
-                    "cloud shapes will differ from the reference noise "
-                    "texture.", stacklevel=2)
-            lut = clouds_ops.render_sky_lut(g)
+        noise = batch.cloud_noise
         # QUADRANT quirk: pass the FULL resolution so the half-res rays
         # and sky mask span only the top-left frustum quadrant
-        clouds_half = clouds_ops.sky_from_lut(
-            g, lut, vis.depth, hw, hh,
+        quadrant = dict(
             full_width=None if cfg.cloud_fullscreen_rays else cfg.width,
             full_height=None if cfg.cloud_fullscreen_rays else cfg.height)
+        if cfg.cloud_noise_mode == "texture" and noise is None:
+            warnings.warn(
+                "cloud_noise_mode='texture' falling back to the "
+                "procedural sky LUT: batch.cloud_noise is missing; "
+                "cloud shapes will differ from the reference noise "
+                "texture.", stacklevel=2)
+        if cfg.cloud_impl == "perpixel" and noise is None:
+            warnings.warn(
+                "cloud_impl='perpixel' falling back to the sky-LUT "
+                "path: batch.cloud_noise is missing; the exact "
+                "per-pixel march needs the noise texture.", stacklevel=2)
+        if cfg.cloud_impl == "perpixel" and noise is not None:
+            # the exact per-pixel march: no LUT is made
+            clouds_half = clouds_ops.render_clouds(g, vis.depth, noise, hw,
+                                                   hh, **quadrant)
+        else:
+            if cfg.cloud_noise_mode == "texture" and noise is not None:
+                lut = sky_ops.render_sky_lut_noise(g, noise, impl=impl)
+            else:
+                lut = clouds_ops.render_sky_lut(g)
+            clouds_half = clouds_ops.sky_from_lut(g, lut, vis.depth, hw, hh,
+                                                  **quadrant)
         clouds_full = sampling.upsample_bilinear(clouds_half, cfg.height,
                                                  cfg.width)
 
@@ -246,6 +264,17 @@ def shade_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
         max_spot_lights=cfg.max_spot_lights,
         empty_shadow_map=cfg.enable_shadows and plan.shadow_statically_empty,
         shadow_crop=plan.shadow_crop)
+    if cfg.composite_ssr and ssr_img is not None:
+        # the mix the reference comments out (composition.inl:213-216)
+        rough = gbuf.metallic_roughness[0]
+        metal = gbuf.metallic_roughness[1]
+        hdr = hdr + (ssr_img - hdr) * (metal * (1.0 - rough))[None]
+
+    # depth of field blurs the composed colour before the luminance
+    # histogram and TAA, so it feeds the history once and does not
+    # compound (renderer.cpp:1119-1153)
+    if cfg.enable_depth_of_field:
+        hdr = dof_ops.depth_of_field(hdr, vis.depth, g)
 
     if cfg.enable_auto_exposure:
         exposure = exposure_ops.auto_exposure(hdr, history.exposure, g)
@@ -268,13 +297,12 @@ def shade_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
         previous_velocity=velocity.to(torch.bfloat16),
         exposure=exposure,
     )
-    minus1 = torch.full((), -1, dtype=torch.int32, device=dev)
-    outputs = FrameOutputs(color=color, hdr=hdr, gbuffer=gbuf,
-                           shadow_map=shadow_map, ssao=ssao,
-                           clouds=clouds_half, bloom=bloom, ssr=None,
-                           hiz_min=hiz_min, hiz_max=hiz_max,
-                           overflow=overflow, tex_dirty=minus1,
-                           ssr_active=minus1)
+    outputs = FrameOutputs(
+        color=color, hdr=hdr, gbuffer=gbuf, shadow_map=shadow_map, ssao=ssao,
+        clouds=clouds_half, bloom=bloom, ssr=ssr_img, hiz_min=hiz_min,
+        hiz_max=hiz_max, overflow=overflow,
+        tex_dirty=torch.full((), -1, dtype=torch.int32, device=dev),
+        ssr_active=ssr_active)
     return outputs, new_history
 
 

@@ -7,8 +7,8 @@ two-lobe HG, powder/Beer, scatter integral), over the (64, 64) tiled
 noise texture when given one (the plain version of kernel K6,
 ``ops/sky.py``) or procedural value noise without it, and
 ``sky_from_lut`` (the per-pixel bayer16-dithered lookup with the
-reference's QUADRANT quirk).  The per-pixel march (``render_clouds``) is
-not ported yet.
+reference's QUADRANT quirk), and the exact per-pixel march
+``render_clouds`` (``RenderConfig.cloud_impl="perpixel"``).
 
 Vectors ride the LAST axis as in the JAX version.  The march's steps
 are independent except for the transmittance carry, so the 24 primary
@@ -18,7 +18,6 @@ loop, and the sums over steps are taken in loop order.
 """
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
@@ -39,19 +38,8 @@ R_LOG2 = float(1.0 / math.log(2.0))
 LN2 = math.log(2.0)
 
 
-@functools.lru_cache(maxsize=None)
-def _constant(values, device):
-    return torch.tensor(values, dtype=torch.float32, device=device)
-
-
-def _vec(v, device):
-    """The f32 constant `v` (a number or a sequence of numbers) on
-    `device`, made once per (values, device) and reused: building a
-    tensor from host values is a blocking copy that waits for the card's
-    queue, and a sky LUT needs a dozen of them per call.  The tensors
-    are shared, so no caller writes them in place."""
-    values = tuple(v) if isinstance(v, (list, tuple)) else float(v)
-    return _constant(values, torch.device(device))
+# each f32 constant once per (values, device): see sampling.constant
+_vec = sampling.constant
 
 
 def _dot(a, b):
@@ -387,17 +375,11 @@ def render_sky_lut(g, lut_w: int = 256, lut_h: int = 128, noise_tex=None):
     return (sky * sky_horizon(sun_dir)).permute(2, 0, 1)
 
 
-def sky_from_lut(g, lut, depth_full, width: int, height: int,
-                 dither: bool = True, full_width: int | None = None,
-                 full_height: int | None = None):
-    """Per-pixel sky via LUT lookup at the pixel's ray direction
-    (render_clouds' ray construction, :445-455 quirks, and the QUADRANT
-    quirk when full_width/full_height are given).  Returns
-    (3, height, width) half-res sky colour; non-sky pixels take the
-    (0.2, 0.4, 1.0) clear."""
-    dev = depth_full.device
-    fw = width if full_width is None else full_width
-    fh = height if full_height is None else full_height
+def _pixel_rays(g, width: int, height: int, fw, fh, dev):
+    """World-space unit ray of each pixel of a (height, width) target
+    whose pixel coordinates are divided by (fw - 1, fh - 1)
+    (cloud_rendering.inl:443-455 with its quirks): (px, py, dx, dy, dz),
+    the directions (height, width)."""
     px = torch.arange(width, dtype=torch.float32, device=dev)
     py = torch.arange(height, dtype=torch.float32, device=dev)
     shape = (height, width)
@@ -415,7 +397,22 @@ def sky_from_lut(g, lut, depth_full, width: int, height: int,
     wy = inv_v[1, 0] * vx + inv_v[1, 1] * vy - inv_v[1, 2]
     wz = inv_v[2, 0] * vx + inv_v[2, 1] * vy - inv_v[2, 2]
     n = torch.sqrt(torch.clamp(wx * wx + wy * wy + wz * wz, min=1e-12))
-    dx, dy, dz = wx / n, wy / n, wz / n
+    return px, py, wx / n, wy / n, wz / n
+
+
+def sky_from_lut(g, lut, depth_full, width: int, height: int,
+                 dither: bool = True, full_width: int | None = None,
+                 full_height: int | None = None):
+    """Per-pixel sky via LUT lookup at the pixel's ray direction
+    (render_clouds' ray construction, :445-455 quirks, and the QUADRANT
+    quirk when full_width/full_height are given).  Returns
+    (3, height, width) half-res sky colour; non-sky pixels take the
+    (0.2, 0.4, 1.0) clear."""
+    dev = depth_full.device
+    fw = width if full_width is None else full_width
+    fh = height if full_height is None else full_height
+    shape = (height, width)
+    px, py, dx, dy, dz = _pixel_rays(g, width, height, fw, fh, dev)
 
     az = torch.atan2(dz, dx)
     el = torch.asin(torch.clamp(dy, -1.0, 1.0))
@@ -435,5 +432,47 @@ def sky_from_lut(g, lut, depth_full, width: int, height: int,
 
     d = sampling.sample_screen_separable(depth_full, px / (fw - 1.0),
                                          py / (fh - 1.0))
+    base = _vec([0.2, 0.4, 1.0], dev)[:, None, None]
+    return torch.where((d == 1.0)[None], sky, base)
+
+
+def render_clouds(g, depth_full, noise_tex, width: int, height: int,
+                  full_width: int | None = None,
+                  full_height: int | None = None,
+                  rows_per_chunk: int = 64):
+    """The per-pixel cloud march at half resolution
+    (cloud_rendering.inl:461): atmosphere + the 24-step cloud march with
+    its 10-step sun march at every pixel's own ray, bayer16-dithered.
+
+    depth_full: (H, W) full-res depth (sampled for the sky test);
+    noise_tex: (N, N) f32 tiled noise.  Returns (3, height, width).
+    full_width / full_height: the QUADRANT quirk, as in
+    :func:`sky_from_lut`; None: the rays span the whole frustum.
+    The march batches every sample of a pixel (24 x 10 sun samples), so
+    rows go `rows_per_chunk` at a time: at 960 pixels a row, 64 rows
+    keep the temporaries near 2 GB.  Pixels are independent, so the
+    chunking does not change the result."""
+    dev = depth_full.device
+    fw = width if full_width is None else full_width
+    fh = height if full_height is None else full_height
+    px, py, dx, dy, dz = _pixel_rays(g, width, height, fw, fh, dev)
+    ray_dir = torch.stack([dx, dy, dz], -1)                  # (h, w, 3)
+    sun_dir = -g.sun.direction
+    d = sampling.sample_screen_separable(depth_full, px / (fw - 1.0),
+                                         py / (fh - 1.0))
+    dither = bayer16(px[None, :].expand(height, width),
+                     py[:, None].expand(height, width))
+    origin = _vec([0.0, 6372e3, 0.0], dev) + g.camera.position
+    sun_color = _vec([0.8, 0.8, 0.8], dev)
+    horizon = sky_horizon(sun_dir)
+    rows = []
+    for r0 in range(0, height, rows_per_chunk):
+        ray = ray_dir[r0:r0 + rows_per_chunk]
+        atmos = _atmosphere(ray, origin, sun_dir, g.elapsed_time)
+        sky = _volumetric_clouds(ray, sun_dir, atmos,
+                                 dither[r0:r0 + rows_per_chunk], sun_color,
+                                 g.camera.position, g.elapsed_time, noise_tex)
+        rows.append(sky * horizon)
+    sky = torch.cat(rows, dim=0).permute(2, 0, 1)
     base = _vec([0.2, 0.4, 1.0], dev)[:, None, None]
     return torch.where((d == 1.0)[None], sky, base)

@@ -7,9 +7,8 @@ take the clouds image.
 
 The sun shadow is taken from the rendered depth map (the K4 shadow
 view, full or through the proved crop) or, where the build proved the
-map empty, against the constant 1.0.  The volumetric march over a
-rendered map (``sample_shadow_cmp``) is not ported: it is off by
-default and raises.
+map empty, against the constant 1.0; so is the volumetric march's
+comparison tap (``sampling.sample_shadow_cmp`` over the full map).
 """
 from __future__ import annotations
 
@@ -122,11 +121,6 @@ def compose(g, depth, albedo, emissive, normal, ssao, shadow_map, clouds,
     origin, and clamps at the crop edge land on the proved 1.0 ring, so
     the result is bit-identical to the full-map tap.  Returns (3, H, W)
     HDR colour."""
-    if enable_volumetric and shadow_map is not None:
-        raise NotImplementedError(
-            "the volumetric light march over a rendered shadow map "
-            "(sample_shadow_cmp) is not ported yet (off by default, "
-            "enable_volumetric_light=False)")
     H, W = depth.shape
     uv = sampling.grid_uv(H, W, depth.device).reshape(2, -1)
 
@@ -168,7 +162,7 @@ def compose(g, depth, albedo, emissive, normal, ssao, shadow_map, clouds,
 
     # --- volumetric light (computed-then-zeroed in the reference)
     volumetric = 0.0
-    if enable_volumetric and empty_shadow_map:
+    if enable_volumetric and (shadow_map is not None or empty_shadow_map):
         spv = g.sun.projection_view
         sp, _ = _project(spv, position)
         cam4 = torch.cat([g.camera.position, torch.ones_like(
@@ -180,13 +174,20 @@ def compose(g, depth, albedo, emissive, normal, ssao, shadow_map, clouds,
         step = normalize3(V) * step_len[None, :]
         xi = (uv[0] * W).to(torch.int64) % 4
         yi = (uv[1] * H).to(torch.int64) % 4
-        dither = torch.tensor(DITHER_PATTERN, dtype=torch.float32,
-                              device=d.device).reshape(-1)[xi * 4 + yi]
+        dither = sampling.constant(DITHER_PATTERN, d.device).reshape(-1)[
+            xi * 4 + yi]
         accum = torch.zeros_like(d)
         for i in range(2):  # NUM_STEPS_INT = 2
             pstep = scp[:, None] + step * float(i) + dither[None, :] * step
-            # comparison-sample of the all-1.0 map: the test itself
-            accum = accum + (pstep[2] < 1.0).to(torch.float32)
+            if empty_shadow_map:
+                # comparison-sample of the all-1.0 map (border 1.0 too):
+                # the bilinear blend of equal tests is the test itself
+                accum = accum + (pstep[2] < 1.0).to(torch.float32)
+            else:
+                accum = accum + sampling.sample_shadow_cmp(
+                    shadow_map,
+                    torch.stack([pstep[0] * 0.5 + 0.5, pstep[1] * 0.5 + 0.5]),
+                    pstep[2])
         vdir = normalize3(position - g.camera.position[:, None])
         vol = (accum / 2.0) * _henyey_greenstein(
             dot3(vdir, -g.sun.direction[:, None]))

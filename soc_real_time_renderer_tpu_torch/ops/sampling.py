@@ -7,8 +7,29 @@ texel and clamped to [0, 1] (``sampling.py:86-102``), integer shifts,
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(values, device):
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
+def _frozen(v):
+    return (tuple(_frozen(x) for x in v) if isinstance(v, (list, tuple))
+            else float(v))
+
+
+def constant(v, device):
+    """The f32 constant `v` (a number or a, possibly nested, sequence of
+    numbers) on `device`, made once per (values, device) and reused:
+    building a tensor from host values is a blocking copy that waits for
+    the card's queue, and a frame needs dozens of them.  The tensors are
+    shared, so no caller writes them in place."""
+    return _constant(_frozen(v), torch.device(device))
 
 
 def div(x, n):
@@ -54,8 +75,10 @@ def _lerp2(c00, c10, c01, c11, fx, fy):
     return top * (1 - fy) + bot * fy
 
 
-def sample_screen(img, uv, texel_coords: bool = False):
-    """Bilinear sample of a planar image at planar uv, clamp-to-edge.
+def sample_screen(img, uv, texel_coords: bool = False,
+                  method: str = "linear"):
+    """Bilinear (method="nearest": nearest-texel) sample of a planar
+    image at planar uv, clamp-to-edge.
 
     img: (C, H, W) or (H, W); uv: (2, ...).  Returns (C, ...) / (...).
     texel_coords: uv already holds the texel coordinates (x, y) that
@@ -71,6 +94,11 @@ def sample_screen(img, uv, texel_coords: bool = False):
     else:
         x = uv[0] * W - 0.5
         y = uv[1] * H - 0.5
+    if method == "nearest":
+        xi = index_of(torch.round(x), W)
+        yi = index_of(torch.round(y), H)
+        out = flat[:, (yi * W + xi).long()]
+        return out[0] if squeeze else out
     x0i = index_of(torch.floor(x), W)
     y0i = index_of(torch.floor(y), H)
     x1i = torch.clamp(x0i + 1, max=W - 1)
@@ -145,3 +173,41 @@ def upsample_bilinear(img, oh, ow):
 def edge_pad(img, lo_y, hi_y, lo_x, hi_x):
     """Edge-replicating pad of the last two axes of (C, H, W)."""
     return F.pad(img[None], (lo_x, hi_x, lo_y, hi_y), mode="replicate")[0]
+
+
+def sample_shadow_cmp(shadow, uv, ref, border: float = 1.0):
+    """Comparison-sampler shadow fetch (renderer.cpp:54-69).
+
+    shadow: (S, S) depth; uv: (2, ...); ref: (...).  Returns (...) in
+    [0, 1]: the bilinear blend of the four texels' (ref < depth) tests;
+    texels outside the map read the opaque-white border."""
+    S = shadow.shape[-1]
+    x = uv[0] * S - 0.5
+    y = uv[1] * S - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = x - x0
+    fy = y - y0
+    flat = shadow.reshape(-1)
+
+    def texel(v):
+        # NaN -> 0 and saturation far outside the map, as XLA converts:
+        # past [-2, S + 1] all four texels are border either way
+        return torch.clamp(torch.nan_to_num(v, nan=0.0), -2.0,
+                           S + 1.0).to(torch.int32)
+
+    x0i, y0i = texel(x0), texel(y0)
+
+    def fetch(xi, yi):
+        inside = (xi >= 0) & (xi < S) & (yi >= 0) & (yi < S)
+        idx = torch.clamp(yi, 0, S - 1) * S + torch.clamp(xi, 0, S - 1)
+        d = torch.where(inside, flat[idx.long()], border)
+        return (ref < d).to(torch.float32)
+
+    t00 = fetch(x0i, y0i)
+    t10 = fetch(x0i + 1, y0i)
+    t01 = fetch(x0i, y0i + 1)
+    t11 = fetch(x0i + 1, y0i + 1)
+    top = t00 * (1 - fx) + t10 * fx
+    bot = t01 * (1 - fx) + t11 * fx
+    return top * (1 - fy) + bot * fy

@@ -51,9 +51,16 @@ KERNEL = (  # ssao_generation.inl:76-103 (26 samples)
     (0.2448421, -0.1610962, 0.1289366))
 
 
+MAX_TAPS = 64        # K2's shared-memory table (kernels/csrc/ssao.cu)
+
+
 def kernel_vectors(kernel_size: int, device):
-    return torch.tensor(KERNEL[:kernel_size], dtype=torch.float32,
-                        device=device)
+    """The first `kernel_size` hemisphere vectors, (k, 3) f32 on
+    `device`, made once per (size, device) (sampling.constant)."""
+    if not 1 <= kernel_size <= len(KERNEL):
+        raise ValueError(f"ssao kernel_size {kernel_size}: want 1 to "
+                         f"{len(KERNEL)}")
+    return sampling.constant(KERNEL[:kernel_size], device)
 
 
 def _rand(cu, cv):
@@ -100,8 +107,7 @@ def _preamble(depth, normal, g):
     # random vector (ssao_generation.inl:184-192); noise_dim = full width
     rx = _noise(uv[0], uv[1], W * 2.0)
     ry = _noise(uv[0] ** 1.1, uv[1] ** 1.1,
-                torch.pow(torch.tensor(W * 4.2, dtype=torch.float32,
-                                       device=depth.device),
+                torch.pow(sampling.constant(W * 4.2, depth.device),
                           1.5 + uv[0] / 10.0))
     rv = normalize3(torch.stack([rx, ry, torch.zeros_like(rx)]))
 
@@ -156,7 +162,11 @@ def ssao_taps_plain(planes, depth, proj, inv_proj, radius, bias, kern):
 def ssao_taps(planes, depth, proj, inv_proj, radius, bias, kern,
               impl: str | None = None):
     """K2 dispatch: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors (or impl="plain")."""
+    for CPU tensors (or impl="plain").  1 to MAX_TAPS kernel vectors."""
+    if kern.dim() != 2 or kern.shape[1] != 3 \
+            or not 1 <= kern.shape[0] <= MAX_TAPS:
+        raise ValueError(f"ssao kernel {tuple(kern.shape)}: want (k, 3), "
+                         f"1 <= k <= {MAX_TAPS}")
     if kb.choose(impl, planes, depth) == "plain":
         return ssao_taps_plain(planes, depth, proj, inv_proj, radius, bias,
                                kern)
@@ -165,15 +175,19 @@ def ssao_taps(planes, depth, proj, inv_proj, radius, bias, kern,
     H, W = depth.shape
     if planes.dtype != torch.float32 or depth.dtype != torch.float32:
         raise TypeError("ssao_taps takes float32 planes and depth")
-    if planes.shape[0] != 12 or kern.dim() != 2 or kern.shape[1] != 3:
-        raise ValueError(f"planes {tuple(planes.shape)} / kernel "
-                         f"{tuple(kern.shape)}: want (12, h, w) / (k, 3)")
+    if planes.shape[0] != 12:
+        raise ValueError(f"planes {tuple(planes.shape)}: want (12, h, w)")
+    if H * W >= 1 << 31:
+        raise ValueError(f"depth {H}x{W}: K2 indexes texels in 32 bits")
     planes = planes.contiguous()
     depth = depth.contiguous()
+    # the kernel's parameter block, one device operation, no host copy
     params = torch.cat([proj.reshape(16), inv_proj.reshape(16),
-                        radius.reshape(1), bias.reshape(1)]).to(
-        torch.float32).contiguous()
-    kern = kern.to(torch.float32).contiguous()
+                        radius.reshape(1), bias.reshape(1)])
+    if params.dtype != torch.float32 or kern.dtype != torch.float32:
+        raise TypeError("ssao_taps takes float32 matrices, radius, bias "
+                        "and kernel vectors")
+    kern = kern.contiguous()
     out = torch.empty((h, w), dtype=torch.float32, device=planes.device)
     code = lib.ssao_taps_launch(
         planes.data_ptr(), depth.data_ptr(), params.data_ptr(),

@@ -30,7 +30,7 @@ from soc_real_time_renderer_tpu_torch.models import terrain
 from soc_real_time_renderer_tpu_torch.models.texture import \
     PackedMaterialAtlas, expand_atlas_bilinear
 from soc_real_time_renderer_tpu_torch.ops import clouds, raster2, sky, \
-    ssao, taa, texsample
+    ssao, ssr, taa, texsample
 from soc_real_time_renderer_tpu_torch.scene.components import \
     MeshComponent, TransformComponent
 from soc_real_time_renderer_tpu_torch.scene.scene import Scene
@@ -165,22 +165,122 @@ def test_resolve_kernel_slivers(dev, bins):
     assert int((ik >= 0).sum()) > 100
 
 
-def test_ssao_kernel_matches_plain(dev):
-    g = torch.Generator(device="cpu").manual_seed(0)
-    h, w = 48, 80
-    planes = torch.randn(12, h, w, generator=g).to(dev)
-    planes[2] = -planes[2].abs() - 2.0            # view z in front
-    depth = (torch.rand(2 * h, 2 * w, generator=g) * 0.2 + 0.79).to(dev)
+def _ssao_inputs(dev, h, w, H, W, k, radius=0.3, seed=0, depth=None,
+                 zero_w_rows=False):
+    """Random K2 inputs: planes (12, h, w) with view z in front, a depth
+    field (H, W), the camera's projection pair (their w rows zeroed for
+    the `ow == 0` / `vw == 0` guards), k hemisphere vectors (the
+    renderer's table up to 26, random ones past it)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    planes = torch.randn(12, h, w, generator=g)
+    planes[2] = -planes[2].abs() - 2.0
+    if depth is None:
+        depth = torch.rand(H, W, generator=g) * 0.2 + 0.79
     cam = scenes.Camera3D()
-    cam.resize(2 * w, 2 * h)
-    proj = torch.from_numpy(cam.proj_mat).to(dev)
+    cam.resize(W, H)
+    proj = torch.from_numpy(cam.proj_mat).clone()
     iproj = torch.linalg.inv(proj)
-    args = (planes, depth, proj, iproj, torch.tensor(0.3, device=dev),
-            torch.tensor(0.025, device=dev), ssao.kernel_vectors(26, dev))
+    if zero_w_rows:
+        proj[3] = 0.0
+        iproj[3] = 0.0
+    if k <= len(ssao.KERNEL):
+        kern = ssao.kernel_vectors(k, dev)
+    else:
+        kern = torch.rand(k, 3, generator=g) * 2.0 - 1.0
+    return (planes.to(dev), depth.to(dev), proj.to(dev), iproj.to(dev),
+            torch.tensor(radius, device=dev),
+            torch.tensor(0.025, device=dev), kern.to(dev))
+
+
+def test_ssao_kernel_matches_plain(dev):
+    args = _ssao_inputs(dev, 48, 80, 96, 160, 26)
     k = ssao.ssao_taps(*args)
     p = ssao.ssao_taps(*args, impl="plain")
     torch.cuda.synchronize()
-    assert torch.allclose(k, p, rtol=0, atol=1e-6)
+    assert torch.equal(k, p)
+    assert 0.05 < float((p < 1.0).float().mean()), "some pixel is occluded"
+
+
+SSAO_CASES = {
+    # h, w, H, W, k, then _ssao_inputs' keywords
+    "ragged_width": (45, 37, 90, 74, 26, {}),
+    "odd_full_res": (45, 37, 91, 75, 26, {}),
+    "one_pixel": (1, 1, 2, 2, 26, {}),
+    "one_pixel_odd": (1, 1, 3, 3, 7, {}),
+    "k1": (33, 70, 66, 140, 1, {}),
+    "k7": (33, 70, 66, 140, 7, {}),
+    "k64": (33, 70, 66, 140, 64, {}),
+    "taps_leave_the_screen": (48, 80, 96, 160, 26, {"radius": 500.0}),
+    "zero_w_guards": (48, 80, 96, 160, 26, {"zero_w_rows": True}),
+    "all_sky": (48, 80, 96, 160, 26, {"depth": "ones"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SSAO_CASES))
+def test_ssao_kernel_cases(dev, case):
+    """K2 equals `ssao_taps_plain` bit for bit at every shape and tap
+    count: widths off the block and the tap group, odd full-resolution
+    sizes, one pixel, 1 / 7 / 26 / 64 taps (the generic instantiation
+    and the 26-tap one), a radius that throws most taps off the screen
+    (they clamp to the border texels), zeroed w rows (both `!= 0`
+    guards), a depth of all 1.0."""
+    h, w, H, W, k, kw = SSAO_CASES[case]
+    kw = dict(kw)
+    if kw.get("depth") == "ones":
+        kw["depth"] = torch.ones(H, W)
+    args = _ssao_inputs(dev, h, w, H, W, k, seed=len(case), **kw)
+    got = ssao.ssao_taps(*args)
+    want = ssao.ssao_taps(*args, impl="plain")
+    torch.cuda.synchronize()
+    assert got.shape == (h, w)
+    assert torch.equal(got, want), (got - want).abs().max().item()
+    if case == "taps_leave_the_screen":
+        planes, depth, proj, _, radius, _, kern = args
+        s = planes[0:3, None] + (planes[3:6, None] * kern[:, 0, None, None]
+                                 + planes[6:9, None] * kern[:, 1, None, None]
+                                 + planes[9:12, None] * kern[:, 2, None, None]
+                                 ) * radius
+        ow = proj[3, 0] * s[0] + proj[3, 1] * s[1] + proj[3, 2] * s[2] \
+            + proj[3, 3]
+        u = (proj[0, 0] * s[0] + proj[0, 2] * s[2]) / ow * 0.5 + 0.5
+        v = (proj[1, 1] * s[1] + proj[1, 2] * s[2]) / ow * 0.5 + 0.5
+        off = (u < 0) | (u > 1) | (v < 0) | (v > 1)
+        assert float(off.float().mean()) > 0.5
+
+
+@pytest.mark.parametrize("k", [0, 65])
+def test_ssao_kernel_refuses_tap_counts(dev, k):
+    args = list(_ssao_inputs(dev, 8, 8, 16, 16, 26))
+    args[6] = torch.zeros(k, 3, device=dev)
+    with pytest.raises(ValueError):
+        ssao.ssao_taps(*args)
+
+
+def test_ssao_call_does_not_wait_for_the_card(dev):
+    """`ssao_generate` (cached kernel vectors and noise constant, the
+    parameter block made on the device) enqueued behind a sleeping
+    kernel returns before the sleep ends."""
+    import time
+    H, W = 128, 256
+    cam = Camera3D()
+    cam.resize(W, H)
+    g = ShaderGlobals.create(
+        camera=camera_matrices(cam, [0.0, 2.0, 0.0], 1, W, H), device=dev)
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    depth = (torch.rand(H, W, generator=gen) * 0.2 + 0.79).to(dev)
+    normal = torch.nn.functional.normalize(
+        torch.randn(3, H, W, generator=gen), dim=0).to(dev)
+    ssao.ssao_generate(depth, normal, g)     # build, caches
+    torch.cuda.synchronize()
+    done = torch.cuda.Event()
+    torch.cuda._sleep(1 << 28)               # ~0.14 s at 1.98 GHz
+    t0 = time.perf_counter()
+    ssao.ssao_generate(depth, normal, g)
+    host = time.perf_counter() - t0
+    done.record()
+    assert not done.query(), "the sleep ended before the check"
+    torch.cuda.synchronize()
+    assert host < 0.1
 
 
 def test_taa_kernel_matches_plain(dev):
@@ -486,3 +586,67 @@ def test_small_scene_kernel_path_matches_plain(dev, name):
     assert kb.launches == want
     assert torch.isfinite(ok.color).all()
     assert (ok.color - op.color).abs().max().item() < 1e-5
+
+
+def test_passes_scene_on_the_card(dev):
+    """Two frames of the reduced `atrium_passes` scene (metallic floor;
+    SSR composited, depth of field, volumetric light over the rendered
+    512^2 map) through the kernels: all six launch on every frame, the
+    colour equals the plain path's within 1e-5, the compacted SSR target
+    equals the dense one bit for bit, and a cap at half of the
+    reflective pixels sets bit 16."""
+    cfg = RenderConfig(width=256, height=128, shadow_resolution=512,
+                       enable_ssr=True, composite_ssr=True,
+                       enable_depth_of_field=True,
+                       enable_volumetric_light=True)
+    built = kit.build_port("atrium_passes", cfg, dev)
+    g, mm, nm = built.frame_globals(0)
+    hist = fm.RenderHistory.create(cfg, device=dev)
+    dense, _ = fm.render_frame(built.plan, built.batch, g, hist, mm, nm)
+    n = int(dense.gbuffer.metallic_roughness[1].ge(ssr.METALLIC_MIN).sum())
+    assert n > 0.01 * 256 * 128
+    plan = dataclasses.replace(built.plan, ssr_cap=n + 100)
+    hk = hp = hist
+    kb.reset_launches()
+    for f in range(2):
+        g, mm, nm = built.frame_globals(f)
+        ok, hk = fm.render_frame(plan, built.batch, g, hk, mm, nm)
+        op, hp = fm.render_frame(plan, built.batch, g, hp, mm, nm,
+                                 impl="plain")
+        if f == 0:
+            assert int(ok.ssr_active) == n and int(ok.overflow) == 0
+            assert torch.equal(ok.ssr, dense.ssr)
+            assert torch.equal(ok.color, dense.color)
+    torch.cuda.synchronize()
+    assert kb.launches == {k: 2 for k in kb.launches}
+    assert torch.isfinite(ok.color).all()
+    assert (ok.color - op.color).abs().max().item() < 1e-5
+    g, mm, nm = built.frame_globals(0, peek=True)
+    half = dataclasses.replace(built.plan, ssr_cap=n // 2)
+    tight, _ = fm.render_frame(half, built.batch, g, hist, mm, nm)
+    assert int(tight.overflow) == ssr.OVERFLOW_SSR_CAP
+
+
+def test_perpixel_clouds_on_the_card(dev):
+    """The per-pixel cloud march on the reduced terrain: K6 does not
+    launch, the clouds target is finite where the camera sees sky, and
+    the row chunking is exact on the card."""
+    cfg = RenderConfig(width=256, height=128, shadow_resolution=512,
+                       cloud_impl="perpixel")
+    built = kit.build_port("terrain_perpixel", cfg, dev)
+    g, mm, nm = built.frame_globals(0)
+    hist = fm.RenderHistory.create(cfg, device=dev)
+    kb.reset_launches()
+    out, _ = fm.render_frame(built.plan, built.batch, g, hist, mm, nm)
+    torch.cuda.synchronize()
+    assert kb.launches["sky_lut"] == 0 and kb.launches["ssao_taps"] == 1
+    clear = clouds._vec([0.2, 0.4, 1.0], dev)[:, None, None]
+    sky_px = (out.clouds != clear).any(0)
+    assert float(sky_px.float().mean()) > 0.1
+    assert torch.isfinite(out.clouds).all()
+    a = clouds.render_clouds(g, out.gbuffer.depth, built.batch.cloud_noise,
+                             128, 64, full_width=256, full_height=128)
+    b = clouds.render_clouds(g, out.gbuffer.depth, built.batch.cloud_noise,
+                             128, 64, full_width=256, full_height=128,
+                             rows_per_chunk=7)
+    assert torch.equal(a, out.clouds) and torch.equal(a, b)

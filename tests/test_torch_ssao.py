@@ -128,3 +128,62 @@ def test_ssao_taps_plain_is_the_kernel_contract():
     assert torch.equal(a, b)
     with pytest.raises(ValueError):
         pssao.ssao_generate(d, nn, pg, impl="cuda")
+
+
+@pytest.mark.parametrize("kernel_size", [1, 8, 26])
+def test_ssao_generate_kernel_sizes(kernel_size, monkeypatch):
+    """1, 8 and 26 taps through `ssao_generate` against the JAX exact
+    tail with the same smooth hash: mean abs < 1e-4, max <= one tap
+    (1 / kernel_size), as for the 26-tap case above."""
+    depth, n, g = _scene(7)
+    monkeypatch.setattr(jssao, "_rand", smooth_rand_jax)
+    monkeypatch.setattr(pssao, "_rand", smooth_rand_torch)
+    ref = np.asarray(jax.jit(lambda d, n_, g_: jssao.ssao_generate(
+        d, n_, g_, kernel_size))(depth, n, g))
+    got = pssao.ssao_generate(torch.from_numpy(depth), torch.from_numpy(n),
+                              convert.globals_from_numpy(g),
+                              kernel_size).numpy()
+    diff = np.abs(got - ref)
+    assert diff.mean() < 1e-4, diff.mean()
+    assert diff.max() <= 1.0 / kernel_size + 1e-5, diff.max()
+    assert got.min() < 1.0, "some pixel is occluded"
+
+
+@pytest.mark.parametrize("what", ["kernel_vectors", "noise_constant"])
+def test_ssao_cached_constants(what):
+    """The hemisphere table and the preamble's W * 4.2 constant are made
+    once per (values, device) (sampling.constant): equal to a freshly
+    made tensor bit for bit, the same object on the next call, and on
+    the device asked for."""
+    if what == "kernel_vectors":
+        cached = pssao.kernel_vectors(8, "cpu")
+        fresh = torch.tensor(pssao.KERNEL[:8], dtype=torch.float32)
+        again = pssao.kernel_vectors(8, torch.device("cpu"))
+        meta = pssao.kernel_vectors(8, "meta")
+        assert pssao.kernel_vectors(26, "cpu").shape == (26, 3)
+    else:
+        from soc_real_time_renderer_tpu_torch.ops import sampling
+        cached = sampling.constant(256 * 4.2, "cpu")
+        fresh = torch.tensor(256 * 4.2, dtype=torch.float32)
+        again = sampling.constant(256 * 4.2, torch.device("cpu"))
+        meta = sampling.constant(256 * 4.2, "meta")
+    assert cached.dtype == torch.float32 and cached.shape == fresh.shape
+    assert torch.equal(cached, fresh) and again is cached
+    assert meta.device.type == "meta" and meta.shape == cached.shape
+
+
+@pytest.mark.parametrize("k", [0, 65])
+def test_ssao_refuses_tap_counts(k):
+    """The tap loop takes 1 to 64 kernel vectors (K2's table), the
+    hemisphere table 1 to 26: anything else is refused on every
+    device, before the dispatch."""
+    depth, n, g = _scene(3)
+    pg = convert.globals_from_numpy(g)
+    planes = torch.zeros(12, H // 2, W // 2)
+    with pytest.raises(ValueError, match="1 <= k <= 64"):
+        pssao.ssao_taps(planes, torch.from_numpy(depth),
+                        pg.camera.projection, pg.camera.inv_projection,
+                        pg.ssao_radius, pg.ssao_bias, torch.zeros(k, 3))
+    with pytest.raises(ValueError, match="kernel_size"):
+        pssao.ssao_generate(torch.from_numpy(depth), torch.from_numpy(n), pg,
+                            kernel_size=k)

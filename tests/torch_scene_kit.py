@@ -16,6 +16,11 @@ port.
   the helmet's place — scale 0.01 at y = 32, inside the sun's ortho
   volume, so the shadow map is rastered; camera (-7, 33.8, 0) ->
   (0, 33.5, 0).
+* ``atrium_passes``: ``atrium_lifted`` with a metallic floor (material 0
+  takes ``metal_image``, a metallic-roughness image made from a seed),
+  so that SSR has pixels to march; ``terrain_perpixel``: the reduced
+  terrain alone with the cloud-noise field, whose camera sees sky, for
+  the per-pixel cloud march.
 * ``cloud_noise``: the synthetic (64, 64) tiled noise field of
   tests/test_sky_pallas.py (the shape class of assets/Clouds/noise.png).
 
@@ -40,6 +45,29 @@ SCENES = {
     "atrium_lifted": dict(camera_pos=[-7.0, 33.8, 0.0],
                           camera_target=[0, 33.5, 0]),
 }
+# the scenes of the passes that are off by default (not in SCENES: the
+# two-frame slices of test_torch_scenes.py iterate over it)
+PASS_SCENES = {
+    "atrium_passes": SCENES["atrium_lifted"],
+    "terrain_perpixel": dict(camera_pos=[20.0, 12.0, 20.0],
+                             camera_target=[50, 0, 50]),
+}
+
+
+def metal_image(seed=5, size=64):
+    """(size, size, 4) uint8 metallic-roughness image (glTF channels:
+    G roughness, B metallic): blocky roughness in [0.1, 0.5], metallic
+    ~0.9 with a quarter of the blocks dielectric."""
+    rng = np.random.default_rng(seed)
+    blocks = size // 8
+    rough = rng.integers(25, 128, (blocks, blocks))
+    metal = np.where(rng.random((blocks, blocks)) < 0.25, 0,
+                     rng.integers(215, 256, (blocks, blocks)))
+    img = np.zeros((size, size, 4), np.uint8)
+    img[..., 1] = np.kron(rough, np.ones((8, 8), np.int64))
+    img[..., 2] = np.kron(metal, np.ones((8, 8), np.int64))
+    img[..., 3] = 255
+    return img
 
 
 def cloud_noise():
@@ -86,7 +114,25 @@ def small_atrium_groups(proc):
             (crates, 4)]
 
 
-def small_atrium_jax():
+def _metal_floor(model, material_cls, image):
+    """`model` with material 0 (the floor) taking `image` as its
+    metallic-roughness image."""
+    model.images = [image]
+    model.materials[0] = material_cls(metallic_roughness_image=0)
+    return model
+
+
+def _png_bytes(img):
+    """`img` (H, W, 4) uint8 as PNG bytes: the JAX package's models hold
+    encoded images (the port's hold decoded ones)."""
+    import io
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(img, "RGBA").save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def small_atrium_jax(metal_floor=False):
     """The JAX package's ModelData of small_atrium_groups (the body of
     its build_atrium after the geometry)."""
     from soc_real_time_renderer_tpu.models import gltf as jgltf
@@ -104,16 +150,23 @@ def small_atrium_jax():
             vertex_count=len(p), material_index=mat))
         voff += len(p)
         ioff += len(ix)
-    return jgltf.ModelData(
+    model = jgltf.ModelData(
         positions=np.concatenate(pos_l), normals=np.concatenate(nrm_l),
         uvs=np.concatenate(uv_l), tangents=np.zeros((voff, 4), np.float32),
         indices=np.concatenate(idx_l).astype(np.uint32), primitives=prims,
         materials=[jgltf.MaterialData() for _ in range(5)], images=[])
+    if metal_floor:
+        _metal_floor(model, jgltf.MaterialData, jgltf.ImageRef(
+            "floor_metal", _png_bytes(metal_image())))
+    return model
 
 
-def small_atrium_port():
-    return pproc.model_from_groups(small_atrium_groups(pproc),
-                                   [pgltf.MaterialData() for _ in range(5)])
+def small_atrium_port(metal_floor=False):
+    model = pproc.model_from_groups(
+        small_atrium_groups(pproc), [pgltf.MaterialData() for _ in range(5)])
+    if metal_floor:
+        _metal_floor(model, pgltf.MaterialData, metal_image())
+    return model
 
 
 def small_terrain(pkg):
@@ -128,6 +181,8 @@ def small_terrain(pkg):
 
 def entities(name, atrium, terrain=None, atrium_scale=0.01):
     """[(entity name, model, position, scale)] of scene `name`."""
+    if name == "terrain_perpixel":
+        return [("terrain", terrain, None, None)]
     if name == "full_nohelmet":
         return [("sponza model", atrium, None, [atrium_scale] * 3),
                 ("terrain", terrain, [0.0, -8.0, 0.0], None)]
@@ -152,16 +207,23 @@ def make_scene(pkg, ents):
     return scene
 
 
+def _entities_of(pkg, name, atrium_scale):
+    atrium = small_atrium_jax if pkg == "jax" else small_atrium_port
+    terrain = (small_terrain(pkg)
+               if name in ("full_nohelmet", "terrain_perpixel") else None)
+    return entities(name, atrium(metal_floor=name == "atrium_passes"),
+                    terrain, atrium_scale)
+
+
 def build_port(name, cfg, device, *, atrium_scale=0.01, atlas_size=64,
                noise=True):
     """The port's BuiltScene of scene `name` with the small atrium (and
     the small terrain), with the cloud noise field when `noise`."""
     import torch
-    terrain = small_terrain("port") if name == "full_nohelmet" else None
-    ents = entities(name, small_atrium_port(), terrain, atrium_scale)
+    ents = _entities_of("port", name, atrium_scale)
     b = pscenes._finish(make_scene("port", ents), [m for _, m, _, _ in ents],
                         cfg, atlas_size=atlas_size, device=device,
-                        **SCENES[name])
+                        **{**SCENES, **PASS_SCENES}[name])
     if noise:
         b.batch = dataclasses.replace(
             b.batch, cloud_noise=torch.from_numpy(cloud_noise()).to(device))
@@ -173,10 +235,10 @@ def build_pair(name, jcfg_obj, pcfg_obj, *, atrium_scale=0.01,
     """(JAX BuiltScene, port BuiltScene on the CPU) of the same scene."""
     import jax.numpy as jnp
     from soc_real_time_renderer_tpu import scenes as jscenes
-    terrain = small_terrain("jax") if name == "full_nohelmet" else None
-    ents = entities(name, small_atrium_jax(), terrain, atrium_scale)
+    ents = _entities_of("jax", name, atrium_scale)
     jb = jscenes._finish(make_scene("jax", ents), [m for _, m, _, _ in ents],
-                         jcfg_obj, atlas_size=atlas_size, **SCENES[name])
+                         jcfg_obj, atlas_size=atlas_size,
+                         **{**SCENES, **PASS_SCENES}[name])
     if noise:
         jb.batch = dataclasses.replace(
             jb.batch, cloud_noise=jnp.asarray(cloud_noise()))
