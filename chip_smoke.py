@@ -32,6 +32,31 @@ Then the passes that are off by default, two frames each, same size:
   ``cloud_impl="perpixel"``: the exact cloud march at every half-res
   pixel, no LUT.  K1, K5, K2, K3 and not K6.
 
+Then the asset path, from a synthetic asset tree written into a
+temporary directory at the real assets' sizes
+(``soc_real_time_renderer_tpu_torch/tools/synth_assets.py``: a
+15,480-triangle helmet whose positions, normals and UVs share one
+strided buffer view, five 2048^2 PNG maps of mixed colour types, one
+per PNG filter type; Sponza's five materials as fifteen 1024^2 PNGs; a
+64^2 grey ``Clouds/noise.png``):
+
+* ``assets``: the seconds for writing the tree, ``load_model`` of the
+  helmet, decoding every map by hand (``utils/png.py``) and packing the
+  helmet's atlas; whether PIL imports, and where it does, ``decode_png``
+  against PIL on every map.
+* the four glTF presets ``helmet``, ``helmet_lifted``, ``sponza`` and
+  ``full`` through ``scenes.build`` (``scenes.ASSETS`` at the tree), 3
+  frames each with launch counts: every preset's batch carries the noise
+  field, so K6 runs in all four; K4 in ``helmet_lifted`` alone.  The
+  kernel-path frame against the plain-path frame on ``full`` and
+  ``helmet_lifted``; CUDA-event frame ms; the stage tables of ``full``
+  and ``helmet``.
+* ``cli``: ``python -m soc_real_time_renderer_tpu_torch.tools.render
+  --scene full ... --frames 3 --dump-passes`` in a subprocess with
+  ``SOC_ASSETS`` at the tree: exit code 0, its PNG against the
+  in-process frame (mean abs < 0.5 levels), every pass dumped; then
+  ``--pair-cap 4096`` prints the ``PAIRS`` warning and exits 0.
+
 The atrium scenes are composed from ``Scene`` + ``scenes._finish``, as
 the JAX package composes its presets.  For each of the first three
 scenes: the build, the
@@ -49,8 +74,9 @@ waits for the card fails the run; for K6 also ``launch_device_ms``, its
 launch alone without the wrapper's small PyTorch kernels around it), and
 a per-stage breakdown.  For the two scenes of the passes: launch counts
 over their frames, the kernel-path frame against the plain-path frame,
-each pass's own checks (``passes_phase``, ``perpixel_phase``) and the
-stage breakdown with their rows.
+each pass's own checks (``passes_phase``, ``perpixel_phase``; in
+``atrium_passes`` the ``ssr_cap`` that ``_finish`` sizes sets bit 16)
+and the stage breakdown with their rows.
 Any failure exits nonzero before the last line; on success the line
 before the last is the per-kernel JSON and the last line the contract
 line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -58,16 +84,24 @@ line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
+
+import numpy as np
 
 WIDTH, HEIGHT = 1920, 1088
 FRAMES = 8
 TIMED = 5
 PASS_FRAMES = 2        # frames of the atrium_passes / terrain_perpixel paths
+PRESET_FRAMES = 3      # frames of each glTF preset (the CLI renders as many)
+PRESETS = ("helmet", "helmet_lifted", "sponza", "full")   # "full" last:
+#                        its last frame is the CLI phase's reference
+ASSET_SEED = 0
 NOISE_SEED = 11
 METAL_SEED = 5
 # LUT against per-pixel clouds, mean abs over the peak sky luminance: the
@@ -251,7 +285,7 @@ def build_scene(name, dev):
     atrium = proc.build_atrium(texture_dir=None)
     if name == "full_nohelmet":
         entity("sponza model", atrium, scale=[0.01] * 3)
-        entity("terrain", scenes.terrain_model(), position=[0.0, -8.0, 0.0])
+        entity("terrain", scenes._terrain_model(), position=[0.0, -8.0, 0.0])
         built = scenes._finish(scene, models, cfg, [-7.0, 1.8, 0.0],
                                [0, 1.5, 0], animate=True, device=dev)
     else:
@@ -891,8 +925,19 @@ def passes_phase(dev, card, results):
     check(n_active > 0.01 * P, f"ssr_active {n_active} > 1% of {P} pixels")
     cap = -(-n_active * 5 // 4 // 4096) * 4096
     plan_c = dataclasses.replace(plan, ssr_cap=cap)
+    # the cap _finish sized (5% of the screen rounded up to 1,024, the
+    # JAX package's rule) is below this scene's reflective pixels, as it
+    # would be in the reference: its frame, unchanged, sets bit 16
+    scap = plan.ssr_cap
+    over = frame(g0, hist0, mm0, nm0, scap)
+    check(scap == -(-int(0.05 * P) // 1024) * 1024 < n_active
+          and int(over.overflow) & ssr.OVERFLOW_SSR_CAP,
+          f"_finish's ssr_cap {scap} sets bit 16 under {n_active} "
+          f"reflective pixels")
     log(f"[{name}] {n_active} reflective pixels of {P} "
-        f"({n_active / P:.4f}); FramePlan.ssr_cap = {cap}")
+        f"({n_active / P:.4f}); _finish's ssr_cap {scap} sets bit 16 "
+        f"(overflow {int(over.overflow)}); FramePlan.ssr_cap = {cap}")
+    del over
 
     out, (g, hist, mm, nm), counts = run_frames(built, plan_c, path,
                                                 PASS_FRAMES, dev)
@@ -1002,6 +1047,177 @@ def perpixel_phase(dev, card, results):
     return st["whole frame"]
 
 
+def asset_phase(tree, card):
+    """Writes the synthetic asset tree at the real assets' sizes
+    (tools/synth_assets.py: a 15,480-triangle helmet with five 2048^2
+    maps, Sponza's fifteen 1024^2 maps, the 64^2 noise PNG), then loads
+    the helmet, decodes every map by hand and packs the helmet's atlas:
+    the seconds of each; whether PIL imports here, and where it does,
+    decode_png against PIL on every map."""
+    import glob
+    import io
+    from soc_real_time_renderer_tpu_torch.models import gltf, texture
+    from soc_real_time_renderer_tpu_torch.tools import synth_assets
+    from soc_real_time_renderer_tpu_torch.utils import png
+    sec = {}
+    t0 = time.perf_counter()
+    paths = synth_assets.write_asset_tree(tree, seed=ASSET_SEED)
+    sec["write"] = time.perf_counter() - t0
+    maps = sorted(glob.glob(os.path.join(tree, "*", "glTF", "*.png")))
+    blobs = []
+    for m in maps:
+        with open(m, "rb") as f:
+            blobs.append(f.read())
+    t0 = time.perf_counter()
+    model = gltf.load_model(paths["helmet"])
+    sec["load_model"] = time.perf_counter() - t0
+    check(len(model.triangles) == 15_480
+          and [img.shape for img in model.images] == [(2048, 2048, 4)] * 5,
+          "the helmet: 15,480 triangles, five 2048^2 maps")
+    t0 = time.perf_counter()
+    decoded = [png.decode_png(b) for b in blobs]
+    sec["decode_png"] = time.perf_counter() - t0
+    check(png.load() is not None, "g++ built the PNG unfilter")
+    try:
+        import PIL
+        from PIL import Image
+        pil = f"PIL {PIL.__version__} imports"
+    except ImportError:
+        pil = None
+    if pil is not None:
+        t0 = time.perf_counter()
+        for b, d in zip(blobs, decoded):
+            with Image.open(io.BytesIO(b)) as im:
+                check(np.asarray(im.convert("RGBA")).tobytes()
+                      == d.tobytes(), "decode_png equals PIL's RGBA")
+        sec["PIL decode"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    atlas = texture.pack_material_atlas(model.materials, model.images,
+                                        size=1024)
+    table = texture.expand_atlas_bilinear(atlas)
+    sec["atlas (pack + expand)"] = time.perf_counter() - t0
+    log(f"[assets] {len(maps)} PNG maps, {sum(map(len, blobs))} bytes; "
+        f"PIL: {pil or 'does not import'} (texture.decode_image takes "
+        f"{'PIL' if pil else 'utils/png.py'}"
+        f"{', and decode_png equals it on every map' if pil else ''}); "
+        f"helmet atlas table {table.nbytes} bytes; seconds: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sec.items())
+        + f" ({os.cpu_count()} host cores) {card}")
+    return sec
+
+
+def preset_phase(name, dev, card, results):
+    """`name` from the asset tree at scenes.ASSETS through scenes.build
+    at WIDTH x HEIGHT: PRESET_FRAMES frames with launch counts, CUDA-event
+    frame ms; on full and helmet_lifted the kernel-path frame against the
+    plain-path frame; on full and helmet (mostly sky) the stage table.
+    Returns (build seconds, frame ms, the last frame's colour as sRGB
+    u8)."""
+    import torch
+    from soc_real_time_renderer_tpu_torch import scenes
+    from soc_real_time_renderer_tpu_torch.config import RenderConfig
+    from soc_real_time_renderer_tpu_torch.graph import frame as fm
+    from soc_real_time_renderer_tpu_torch.utils import image_io
+    t0 = time.perf_counter()
+    built = scenes.build(name, RenderConfig(width=WIDTH, height=HEIGHT),
+                         device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    plan, batch = built.plan, built.batch
+    path = path_of(plan, batch)
+    noise = batch.cloud_noise
+    log(f"[{name}] build {build_s:.1f} s: {batch.num_triangles} triangles, "
+        f"{plan.atlas_num_materials} materials, atlas "
+        f"{batch.atlas_packed.numel() * 4} bytes, cloud_noise "
+        f"{None if noise is None else tuple(noise.shape)}, "
+        f"shadow_statically_empty={plan.shadow_statically_empty}, crop "
+        f"{plan.shadow_crop}; path {path}")
+    check(noise is not None and tuple(noise.shape) == (64, 64)
+          and "sky_lut" in path, "Clouds/noise.png feeds K6")
+    check(("resolve_depth" in path) == (name == "helmet_lifted"),
+          "K4 runs on helmet_lifted alone")
+    out, (g, hist, mm, nm), counts = run_frames(built, plan, path,
+                                                PRESET_FRAMES, dev)
+    for k in counts:
+        results[k][name] = {"launches": counts[k]}
+    color = out.color
+    cov = (out.gbuffer.depth < 1.0).float().mean().item()
+    check(torch.isfinite(color).all().item() and int(out.overflow) == 0
+          and 0.05 < cov and color.std().item() > 1e-3,
+          f"finite, no overflow, coverage {cov:.4f}, not constant")
+    srgb = image_io.to_srgb_u8(color)
+    diff = None
+    if name in ("full", "helmet_lifted"):
+        outp, _ = fm.render_frame(plan, batch, g, hist, mm, nm,
+                                  impl="plain")
+        diff = (outp.color - color).abs().mean().item()
+        check(diff < 1e-3, f"{name}: kernel-path frame vs plain-path frame")
+        del outp
+    ms = cuda_ms(lambda: fm.render_frame(plan, batch, g, hist, mm, nm),
+                 TIMED)
+    log(f"[{name}] launches over {PRESET_FRAMES} frames: {counts}; frame "
+        f"{PRESET_FRAMES}: colour mean {color.mean().item():.4f} std "
+        f"{color.std().item():.4f}, coverage {cov:.4f}, overflow 0"
+        + ("" if diff is None else
+           f", kernel vs plain colour mean abs {diff:.3g} (< 1e-3)")
+        + f"; kernel-path frame {ms:.2f} ms (median of {TIMED}) {card}")
+    if name in ("full", "helmet"):
+        st = stage_table(built, g, hist, mm, nm)
+        log(f"[{name}] stages (kernel path, ms, median of 3) {card}:")
+        for s_, v in st.items():
+            log(f"[{name}]   {s_}: {v:.2f}")
+    del built, out
+    torch.cuda.empty_cache()
+    return build_s, ms, srgb
+
+
+def cli_phase(tree, ref_srgb, card):
+    """The render CLI as a user runs it, in a subprocess: --scene full at
+    WIDTH x HEIGHT, PRESET_FRAMES frames, --dump-passes, SOC_ASSETS at
+    the tree; its PNG against the preset phase's last in-process frame of
+    `full` (mean abs < 0.5 levels); then --pair-cap 4096 for one frame
+    prints the PAIRS warning and still exits 0.  Returns the first run's
+    seconds."""
+    from soc_real_time_renderer_tpu_torch.utils import png
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, SOC_ASSETS=tree, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    out = os.path.join(tree, "cli", "full.png")
+    cmd = [sys.executable, "-m", "soc_real_time_renderer_tpu_torch.tools."
+           "render", "--scene", "full", "--width", str(WIDTH), "--height",
+           str(HEIGHT), "--frames", str(PRESET_FRAMES)]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd + ["--out", out, "--dump-passes"], env=env,
+                       cwd=root, capture_output=True, text=True, timeout=600)
+    sec = time.perf_counter() - t0
+    for ln in r.stdout.splitlines():
+        log(f"[cli] {ln}")
+    check(r.returncode == 0, f"the CLI exits 0 (rc {r.returncode}): "
+          f"{r.stderr[-2000:]}")
+    with open(out, "rb") as f:
+        img = png.decode_png(f.read())
+    check(img.shape == (HEIGHT, WIDTH, 4) and (img[..., 3] == 255).all(),
+          f"the CLI's PNG is ({HEIGHT}, {WIDTH}) RGB: {img.shape}")
+    d = np.abs(img[..., :3].astype(np.int64) - ref_srgb.astype(np.int64))
+    passes = [n for n in ("albedo", "emissive", "normal", "depth",
+                          "velocity", "hdr")
+              if os.path.exists(out[:-4] + f"_{n}.png")]
+    log(f"[cli] {sec:.1f} s (process start, build, {PRESET_FRAMES} frames, "
+        f"PNGs); its "
+        f"PNG against the in-process frame: mean abs {d.mean():.4f} levels "
+        f"(< 0.5), max {d.max()}; passes dumped {passes} {card}")
+    check(d.mean() < 0.5, "the CLI's PNG matches the in-process frame")
+    check(len(passes) == 6, "--dump-passes wrote every pass")
+    r = subprocess.run(cmd[:-1] + ["1", "--pair-cap", "4096", "--out",
+                                   os.path.join(tree, "cli", "capped.png")],
+                       env=env, cwd=root, capture_output=True, text=True,
+                       timeout=600)
+    warned = [ln for ln in r.stdout.splitlines() if "PAIRS" in ln]
+    log(f"[cli] --pair-cap 4096: rc {r.returncode}, {warned}")
+    check(r.returncode == 0 and warned, "--pair-cap 4096 warns and exits 0")
+    return sec
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1048,10 +1264,25 @@ def main():
         t0 = time.perf_counter()
         pass_ms[name] = phase(dev, card, results)
         seconds[name] = time.perf_counter() - t0
+    # the asset path: a written asset tree, the four glTF presets, the CLI
+    from soc_real_time_renderer_tpu_torch import scenes
+    preset_ms = {}
+    with tempfile.TemporaryDirectory() as tree:
+        t0 = time.perf_counter()
+        asset_phase(tree, card)
+        seconds["assets"] = time.perf_counter() - t0
+        scenes.ASSETS = tree
+        for name in PRESETS:
+            t0 = time.perf_counter()
+            _, preset_ms[name], srgb = preset_phase(name, dev, card, results)
+            seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cli_phase(tree, srgb, card)
+        seconds["cli"] = time.perf_counter() - t0
     log(f"summary {card}: " + ", ".join(
         f"{n} kernel path {k:.2f} ms vs plain {p:.2f} ms"
         for n, (k, p) in frames.items()) + "; " + ", ".join(
-        f"{n} {v:.2f} ms" for n, v in pass_ms.items())
+        f"{n} {v:.2f} ms" for n, v in {**pass_ms, **preset_ms}.items())
         + "; seconds per phase " + ", ".join(
         f"{n} {v:.1f}" for n, v in seconds.items())
         + f"; total {time.perf_counter() - t_start:.0f} s")

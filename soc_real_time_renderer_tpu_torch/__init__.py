@@ -8,7 +8,10 @@ per module:
   config.py   static RenderConfig + per-frame ShaderGlobals (tensors)
   camera.py   perspective camera + TAA jitter
   scenes.py   scene presets -> BuiltScene (batch, plan, per-frame globals)
-  models/     host asset pipeline: terrain, atlas packing, scene batch
+  models/     host asset pipeline: glTF loader, image decoding, terrain,
+              procedural atrium, atlas packing, scene batch
+  utils/      PNG (no PIL), EXR, image dumps, native helpers, matrices
+  tools/      the headless render CLI; a synthetic asset tree
   ops/        render passes; each ported Pallas kernel has a CUDA kernel
               (kernels/csrc) and a plain PyTorch version side by side
   graph/      frame assembly: render_frame()

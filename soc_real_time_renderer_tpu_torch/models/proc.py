@@ -2,15 +2,24 @@
 test primitives.
 
 Counterpart of the JAX package's ``models/proc.py``, byte for byte on
-the geometry.  ``build_atrium(texture_dir=None)`` gives its five flat
-materials; the textured branch reads Sponza's JPEG materials and needs
-image decoding, which the port does not have yet (ROADMAP A10).
+the geometry.  The reference's Sponza assets keep their textures and
+glTF JSON but not their geometry, so :func:`build_atrium` synthesizes a
+Sponza-scale atrium textured with the first five opaque Sponza
+materials that carry albedo, metallic-roughness and normal maps
+(:func:`_sponza_materials`); without ``Sponza.gltf``, the first five
+``*.jpg`` files of ``texture_dir`` as albedo-only materials, else five
+flat materials.  Images are decoded (RGBA uint8).
 """
 from __future__ import annotations
+
+import glob
+import json
+import os
 
 import numpy as np
 
 from .gltf import MaterialData, ModelData, PrimitiveRange
+from .texture import decode_images_parallel
 
 
 def _mesh_from_quads(quads, uv_scale=1.0):
@@ -79,7 +88,67 @@ def _box(cx, cz, s, h):
     ]
 
 
-def model_from_groups(groups, materials, uv_scale=1 / 300.0) -> ModelData:
+def _sponza_materials(texture_dir: str, count: int = 5):
+    """(decoded images, materials) of the first `count` opaque materials
+    of ``texture_dir/Sponza.gltf`` that carry albedo, metallic-roughness
+    and normal maps, or None when the glTF is absent or has fewer.  An
+    image is one entry per (file, sRGB) pair, in first-use order, as in
+    the JAX package, so image indices and atlas bytes agree."""
+    path = os.path.join(texture_dir, "Sponza.gltf")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        g = json.load(f)
+    uris = [i.get("uri") for i in g.get("images", [])]
+    tsrc = [t.get("source", -1) for t in g.get("textures", [])]
+
+    def uri(slot):
+        if slot is None:
+            return None
+        src = tsrc[slot["index"]]
+        if src < 0:
+            # a texture whose image lives in an extension: skip the
+            # material rather than alias the last image
+            return None
+        return uris[src]
+
+    picks = []
+    for m in g.get("materials", []):
+        if m.get("alphaMode", "OPAQUE") != "OPAQUE":
+            continue        # cutout foliage on opaque walls looks wrong
+        pbr = m.get("pbrMetallicRoughness", {})
+        a = uri(pbr.get("baseColorTexture"))
+        mr = uri(pbr.get("metallicRoughnessTexture"))
+        n = uri(m.get("normalTexture"))
+        if a and mr and n:
+            picks.append((a, mr, n))
+        if len(picks) == count:
+            break
+    if len(picks) < count:
+        return None
+
+    names, index_of = [], {}
+
+    def img(name, srgb):
+        key = (name, srgb)
+        if key not in index_of:
+            names.append(name)
+            index_of[key] = len(names) - 1
+        return index_of[key]
+
+    materials = [MaterialData(albedo_image=img(a, True),
+                              metallic_roughness_image=img(mr, False),
+                              normal_image=img(n, False))
+                 for a, mr, n in picks]
+    blobs = []
+    for name in names:
+        with open(os.path.join(texture_dir, name), "rb") as f:
+            blobs.append(f.read())
+    return decode_images_parallel(blobs), materials
+
+
+def model_from_groups(groups, materials, uv_scale=1 / 300.0,
+                      images=None) -> ModelData:
     """groups: [(quads (Q, 4, 3), material index)] -> one ModelData with
     a primitive per group."""
     pos_l, nrm_l, uv_l, idx_l, prims = [], [], [], [], []
@@ -99,7 +168,7 @@ def model_from_groups(groups, materials, uv_scale=1 / 300.0) -> ModelData:
         positions=np.concatenate(pos_l), normals=np.concatenate(nrm_l),
         uvs=np.concatenate(uv_l),
         indices=np.concatenate(idx_l).astype(np.uint32),
-        primitives=prims, materials=materials, images=[])
+        primitives=prims, materials=materials, images=images or [])
 
 
 def build_atrium(texture_dir: str | None = None, target_tris: int = 260_000,
@@ -107,12 +176,9 @@ def build_atrium(texture_dir: str | None = None, target_tris: int = 260_000,
     """Sponza-scale atrium: floor, ceiling, walls, two colonnade rows,
     randomized crates, in Sponza's pre-scale units (metres * 100; the
     entity scale 0.01 of application.cpp:16).  Interior faces wind CCW
-    as seen from inside.  texture_dir=None: five flat materials."""
-    if texture_dir is not None:
-        raise NotImplementedError(
-            "the textured atrium reads Sponza's JPEG materials and needs "
-            "image decoding, not ported yet (ROADMAP A10); use "
-            "texture_dir=None for the five flat materials")
+    as seen from inside.  Materials: :func:`_sponza_materials` of
+    `texture_dir`, else its first five ``*.jpg`` as albedo-only, else
+    (and with texture_dir=None) five flat ones."""
     rng = np.random.default_rng(seed)
     L, W, H = 2400.0, 1200.0, 900.0      # post-scale: 24 x 12 x 9 m
     groups = []
@@ -150,7 +216,21 @@ def build_atrium(texture_dir: str | None = None, target_tris: int = 260_000,
         for q in _box(cx, cz, s, h):
             crates.append(subdivide_quad(*q, 4, 4))
     groups.append((np.concatenate(crates), 4))
-    return model_from_groups(groups, [MaterialData() for _ in range(5)])
+
+    got = _sponza_materials(texture_dir, count=5) if texture_dir else None
+    if got is not None:
+        images, materials = got
+    else:
+        tex_files = sorted(glob.glob(os.path.join(texture_dir, "*.jpg"))
+                           )[:5] if texture_dir else []
+        blobs = []
+        for name in tex_files:
+            with open(name, "rb") as f:
+                blobs.append(f.read())
+        images = decode_images_parallel(blobs)
+        materials = [MaterialData(albedo_image=i) if i < len(images)
+                     else MaterialData() for i in range(5)]
+    return model_from_groups(groups, materials, images=images)
 
 
 def unit_quad(z: float = -1.0, size: float = 0.5) -> ModelData:

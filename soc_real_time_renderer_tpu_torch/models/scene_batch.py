@@ -11,6 +11,7 @@ K5 reads the (N, 12) table directly.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -92,9 +93,9 @@ def build_scene_batch(models, atlas_size: int = 1024, workers: int = 8,
         img_off = len(all_images)
         all_images.extend(m.images)
         for md in m.materials:
-            all_materials.append(type(md)(**{
-                k: (v + img_off if v >= 0 else -1)
-                for k, v in vars(md).items()}))
+            all_materials.append(dataclasses.replace(md, **{
+                k: (getattr(md, k) + img_off if getattr(md, k) >= 0 else -1)
+                for k in md.IMAGE_SLOTS}))
 
     atlas = pack_material_atlas(all_materials, all_images, size=atlas_size,
                                 workers=workers)

@@ -1,7 +1,8 @@
 """Terrain: heightmap-displaced grid + height->normal + terrain material.
 
 Counterpart of the JAX package's ``models/terrain.py`` (host numpy): a
-deterministic fBm heightmap, the ``height_to_normal.inl`` stencil, the
+heightmap from an EXR or PNG (:func:`load_heightmap`) or a
+deterministic fBm one, the ``height_to_normal.inl`` stencil, the
 99x99-patch grid with the tess level baked as a subdivision factor, and
 ``(h - midpoint) * height_scale`` displacement.  The albedo and normal
 images go to the atlas packer as uint8 arrays directly (the JAX version
@@ -42,6 +43,19 @@ def procedural_heightmap(n: int = 1024, seed: int = 3, octaves: int = 6
         total += amp
         amp *= 0.5
     return out / total
+
+
+def load_heightmap(path: str | None, n: int = 1024) -> np.ndarray:
+    """EXR/PNG heightmap (R channel) or the procedural fallback."""
+    if path is None:
+        return procedural_heightmap(n)
+    if path.endswith(".exr"):
+        from ..utils import exr
+        return exr.read_exr_rgba(path)[..., 0]
+    from .texture import decode_image
+    with open(path, "rb") as f:
+        img = decode_image(f.read())
+    return img[..., 0].astype(np.float32) / 255.0
 
 
 def height_to_normal(height: np.ndarray) -> np.ndarray:

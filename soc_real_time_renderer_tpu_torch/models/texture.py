@@ -1,21 +1,56 @@
-"""Texture pipeline: mip chain -> packed material atlas (host numpy).
+"""Texture pipeline: decode -> mip chain -> packed material atlas (host
+numpy).
 
-Counterpart of the JAX package's ``models/texture.py``: every material's
-four textures are resized to one atlas size, mip-chained by 2x2 box
+Counterpart of the JAX package's ``models/texture.py``: images decode to
+(H, W, 4) uint8 RGBA (:func:`decode_image`: PIL where it imports, else
+PNG by hand through :mod:`..utils.png`), fanned out over a thread pool
+at model load (:func:`decode_images_parallel`); every material's four
+textures are resized to one atlas size, mip-chained by 2x2 box
 reduction (``native/assetpipe.cpp`` through :mod:`..utils.native`) and
 packed into one flat table; :func:`expand_atlas_bilinear` turns it into
 the (N, 12) int32 row-major device table whose one row holds all 11
-sampled channels x 4 bilinear corners.  Images arrive decoded (RGBA
-uint8); PNG/JPG decoding is not part of the port yet.
+sampled channels x 4 bilinear corners.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import io
 import sys
 import threading
 from dataclasses import dataclass
 
 import numpy as np
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """Encoded bytes -> (H, W, 4) uint8 RGBA (stb's forced 4 channels).
+    PIL where ``import PIL`` works; without it PNG decodes by hand and
+    anything else (JPEG) raises ``ValueError`` naming PIL."""
+    try:
+        from PIL import Image
+    except ImportError:
+        from ..utils import png
+        if data[:8] == png.SIGNATURE:
+            return png.decode_png(data)
+        raise ValueError(
+            "this image is not a PNG (JPEG?); decoding it needs PIL, "
+            "which does not import here") from None
+    with Image.open(io.BytesIO(data)) as im:
+        return np.asarray(im.convert("RGBA"), dtype=np.uint8)
+
+
+def decode_images_parallel(blobs: list[bytes], workers: int = 8
+                           ) -> list[np.ndarray]:
+    """Thread-pool fan-out decode (the reference's ThreadPool texture
+    loading, model.cpp:74-176)."""
+    with concurrent.futures.ThreadPoolExecutor(workers) as ex:
+        return list(ex.map(decode_image, blobs))
+
+
+def linear_to_srgb(x: np.ndarray) -> np.ndarray:
+    x = np.clip(x, 0.0, 1.0)
+    return np.where(x <= 0.0031308, x * 12.92,
+                    1.055 * x ** (1 / 2.4) - 0.055).astype(np.float32)
 
 
 def resize_bilinear(img: np.ndarray, h: int, w: int) -> np.ndarray:

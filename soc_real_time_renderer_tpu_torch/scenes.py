@@ -1,18 +1,23 @@
-"""Scenes -> BuiltScene (batch, plan, per-frame globals).
+"""Scene presets -> BuiltScene (batch, plan, per-frame globals).
 
 Counterpart of the JAX package's ``scenes.py``.  A scene is an ECS
 :class:`~.scene.scene.Scene` of mesh entities (TRS transforms, lights);
 :func:`_finish` packs its models into one batch and runs the same
 host-side proofs as the JAX package: the light-count bounds of the
-composition loops, the data-sized pair caps of both bin grids, and the
-sun-shadow proof (``_prove_shadow``): either the map is statically
-empty (the shadow raster is elided) or a 128-aligned texel crop is
-proved to hold every texel below the 1.0 clear, for these transforms.
+composition loops, the data-sized pair caps of both bin grids, the SSR
+compaction cap, and the sun-shadow proof (``_prove_shadow``): either the
+map is statically empty (the shadow raster is elided) or a 128-aligned
+texel crop is proved to hold every texel below the 1.0 clear, for these
+transforms.  It also reads the cloud-noise texture
+``ASSETS/Clouds/noise.png`` when the file exists.
 
-The one named preset is ``terrain`` (BASELINE config 4).  The presets
-with the DamagedHelmet or the Sponza textures need glTF loading and
-image decoding (ROADMAP A10/A11); other scenes are composed from
-``Scene`` + ``_finish`` exactly as with the JAX package.
+The presets (:func:`build`): ``helmet``, ``helmet_lifted``, ``sponza``,
+``terrain`` and ``full`` (BASELINE configs 1-6).  All but ``terrain``
+read the asset tree under ``ASSETS`` (``SOC_ASSETS``):
+``DamagedHelmet/glTF/DamagedHelmet.gltf`` and, for the atrium's
+materials, ``Sponza/glTF``; a missing helmet raises
+``FileNotFoundError`` naming the file.  ``terrain`` takes
+``SOC_TERRAIN_HEIGHTMAP`` / ``SOC_TERRAIN_ALBEDO`` when set.
 
 Entry points run on the CUDA card unless the caller passes a device
 (``device="cpu"`` runs every kernel's plain PyTorch version).
@@ -29,13 +34,14 @@ import torch
 from .camera import Camera3D, camera_matrices
 from .config import RenderConfig, ShaderGlobals, SunInfo, resolve_device
 from .graph import frame as frame_mod
+from .models import gltf, proc
 from .models.scene_batch import SceneBatch, build_scene_batch
+from .models.texture import decode_image
 from .scene.components import MeshComponent, TransformComponent
 from .scene.scene import Scene
 from .utils import mathutil as mu
 
-# the asset tree (SOC_ASSETS, default: assets/ of the checkout); only its
-# cloud-noise texture is looked up, to refuse what needs image decoding
+# the asset tree (SOC_ASSETS, default: assets/ of the checkout)
 ASSETS = os.environ.get("SOC_ASSETS", os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets"))
 
@@ -170,12 +176,14 @@ def _finish(scene: Scene, models, config: RenderConfig, camera_pos,
                             max_spot_lights=int(lights.spot_count))
     batch, atlas = build_scene_batch(models, atlas_size=atlas_size,
                                      device=device)
+    # the reference's tiled cloud-noise texture (cloud_rendering.inl:
+    # 219-233), K6's input; without it the procedural sky LUT runs
     noise_path = os.path.join(ASSETS, "Clouds/noise.png")
     if config.enable_clouds and os.path.exists(noise_path):
-        raise NotImplementedError(
-            "the cloud-noise asset needs PNG decoding, not ported yet "
-            "(ROADMAP A10); give the batch a decoded (64, 64) "
-            "cloud_noise field instead")
+        with open(noise_path, "rb") as f:
+            img = decode_image(f.read())
+        batch = dataclasses.replace(batch, cloud_noise=torch.from_numpy(
+            img[..., 0].astype(np.float32) / 255.0).to(device))
     plan = frame_mod.FramePlan.create(config, atlas)
     T = batch.num_triangles
     plan = dataclasses.replace(plan, main_grid=_cap_grid(plan.main_grid, T),
@@ -191,42 +199,146 @@ def _finish(scene: Scene, models, config: RenderConfig, camera_pos,
         shadow_crop=crop,
         proved_crop_mats=(tuple(float(v) for v in mm.ravel())
                           if crop is not None else None))
+    if config.enable_ssr:
+        # the SSR march runs on (cap,)-shaped arrays: 5% of the screen,
+        # rounded up to 1,024 (the JAX package's sizing); past it,
+        # OVERFLOW_SSR_CAP is set and the rays over the cap go black
+        scap = -(-int(0.05 * config.width * config.height) // 1024) * 1024
+        plan = dataclasses.replace(plan, ssr_cap=scap)
     cam = Camera3D()
     cam.resize(config.width, config.height)
-    return BuiltScene(scene=scene, batch=batch, plan=plan, camera=cam,
-                      camera_position=np.asarray(camera_pos, np.float32),
-                      camera_target=np.asarray(camera_target, np.float32),
-                      device=device, animate=animate, sun=sun)
+    bs = BuiltScene(scene=scene, batch=batch, plan=plan, camera=cam,
+                    camera_position=np.asarray(camera_pos, np.float32),
+                    camera_target=np.asarray(camera_target, np.float32),
+                    device=device, animate=animate, sun=sun)
+    bs._models = list(models)        # the models packed (strong refs)
+    return bs
 
 
-def terrain_model():
-    """The terrain preset's model: procedural 512^2 heightmap,
-    height/slope albedo, tess level 3."""
+_DEFAULT_MODELS: dict = {}
+
+
+def helmet_path() -> str:
+    return os.path.join(ASSETS, "DamagedHelmet/glTF/DamagedHelmet.gltf")
+
+
+def default_model():
+    """The DamagedHelmet ModelData, loaded once per path (what a created
+    entity's MeshComponent takes, application.cpp:22-28)."""
+    path = helmet_path()
+    if path not in _DEFAULT_MODELS:
+        _DEFAULT_MODELS[path] = gltf.load_model(path)
+    return _DEFAULT_MODELS[path]
+
+
+def _entity(scene, name, model, position=None, scale=None):
+    """A mesh entity of `scene` with a TRS transform."""
+    e = scene.create_entity(name)
+    tc = e.add_component(TransformComponent())
+    if scale is not None:
+        tc.set_scale(scale)
+    if position is not None:
+        tc.set_position(position)
+    e.add_component(MeshComponent()).model = model
+    return model
+
+
+def build_helmet(config: RenderConfig, device=None, **kw) -> BuiltScene:
+    """BASELINE config 1/2: DamagedHelmet (application.cpp:22-28)."""
+    device = resolve_device(device)
+    scene = Scene("helmet")
+    model = _entity(scene, "damaged helmet model",
+                    gltf.load_model(helmet_path()))
+    return _finish(scene, [model], config, camera_pos=[0.0, 0.0, 2.5],
+                   camera_target=[0, 0, 0], device=device, **kw)
+
+
+def build_helmet_lifted(config: RenderConfig, device=None,
+                        **kw) -> BuiltScene:
+    """The helmet lifted to y = 32, inside the sun's ortho volume (y
+    24..56 around the y = 40 light, renderer.cpp:110-112), so the 4096^2
+    shadow raster is not elidable and its cost is paid."""
+    device = resolve_device(device)
+    scene = Scene("helmet_lifted")
+    model = _entity(scene, "damaged helmet model",
+                    gltf.load_model(helmet_path()), position=[0.0, 32.0, 0.0])
+    built = _finish(scene, [model], config, camera_pos=[0.0, 32.0, 2.5],
+                    camera_target=[0, 32, 0], device=device, **kw)
+    if built.plan.shadow_statically_empty:
+        raise AssertionError("lifted helmet must defeat the elision proof")
+    return built
+
+
+def build_sponza(config: RenderConfig, device=None, **kw) -> BuiltScene:
+    """BASELINE config 3/5 stand-in: the procedural atrium with Sponza's
+    materials at scale 0.01 plus the DamagedHelmet (application.cpp:
+    14-28's two-entity layout)."""
+    device = resolve_device(device)
+    scene = Scene("sponza")
+    atrium = _entity(scene, "sponza model", proc.build_atrium(
+        texture_dir=os.path.join(ASSETS, "Sponza/glTF")), scale=[0.01] * 3)
+    helmet = _entity(scene, "damaged helmet model",
+                     gltf.load_model(helmet_path()))
+    return _finish(scene, [atrium, helmet], config,
+                   camera_pos=[-7.0, 1.8, 0.0], camera_target=[0, 1.5, 0],
+                   device=device, **kw)
+
+
+def _terrain_model(**build_kw):
+    """The terrain preset's model: the heightmap of
+    ``SOC_TERRAIN_HEIGHTMAP`` (EXR or PNG, R channel) or a procedural
+    512^2 one, the albedo of ``SOC_TERRAIN_ALBEDO`` (EXR or an 8-bit
+    image) or the height/slope colouring; build_kw: build_terrain_model
+    overrides (height_scale, midpoint, scale, tess_level, ...)."""
     from .models import terrain as terrain_mod
-    hm = terrain_mod.procedural_heightmap(512)
-    return terrain_mod.build_terrain_model(hm,
-                                           terrain_mod.default_albedo(hm))
+    hm = terrain_mod.load_heightmap(os.environ.get("SOC_TERRAIN_HEIGHTMAP"),
+                                    n=512)
+    alb_path = os.environ.get("SOC_TERRAIN_ALBEDO")
+    if alb_path:
+        if alb_path.endswith(".exr"):
+            from .utils import exr
+            alb = exr.read_exr_rgba(alb_path)
+        else:
+            with open(alb_path, "rb") as f:
+                alb = decode_image(f.read()).astype(np.float32) / 255.0
+    else:
+        alb = terrain_mod.default_albedo(hm)
+    return terrain_mod.build_terrain_model(hm, alb, **build_kw)
 
 
 def build_terrain(config: RenderConfig, device=None, **kw) -> BuiltScene:
     """BASELINE config 4: terrain + (elided) shadow + atmosphere sky."""
     device = resolve_device(device)
     scene = Scene("terrain")
-    e = scene.create_entity("terrain")
-    e.add_component(TransformComponent())
-    mc = e.add_component(MeshComponent())
-    mc.model = terrain_model()
-    return _finish(scene, [mc.model], config,
-                   camera_pos=[20.0, 12.0, 20.0], camera_target=[50, 0, 50],
-                   device=device, **kw)
+    model = _entity(scene, "terrain", _terrain_model())
+    return _finish(scene, [model], config, camera_pos=[20.0, 12.0, 20.0],
+                   camera_target=[50, 0, 50], device=device, **kw)
+
+
+def build_full(config: RenderConfig, device=None, **kw) -> BuiltScene:
+    """BASELINE config 5: atrium + helmet + terrain at y = -8, animated
+    camera."""
+    device = resolve_device(device)
+    scene = Scene("full")
+    atrium = _entity(scene, "sponza model", proc.build_atrium(
+        texture_dir=os.path.join(ASSETS, "Sponza/glTF")), scale=[0.01] * 3)
+    helmet = _entity(scene, "damaged helmet model",
+                     gltf.load_model(helmet_path()))
+    terrain = _entity(scene, "terrain", _terrain_model(),
+                      position=[0.0, -8.0, 0.0])
+    return _finish(scene, [atrium, helmet, terrain], config,
+                   camera_pos=[-7.0, 1.8, 0.0], camera_target=[0, 1.5, 0],
+                   animate=True, device=device, **kw)
+
+
+PRESETS = {"helmet": build_helmet, "helmet_lifted": build_helmet_lifted,
+           "sponza": build_sponza, "terrain": build_terrain,
+           "full": build_full}
 
 
 def build(name: str, config: RenderConfig, device=None, **kw) -> BuiltScene:
-    """kw passes through to _finish (atlas_size, sun)."""
-    if name == "terrain":
-        return build_terrain(config, device=device, **kw)
-    if name in ("helmet", "helmet_lifted", "sponza", "full"):
-        raise NotImplementedError(
-            f"scene {name!r} needs glTF loading and image decoding, not "
-            f"ported yet (ROADMAP A10/A11)")
-    raise ValueError(name)
+    """The preset `name` (one of PRESETS); kw passes through to _finish
+    (atlas_size, sun)."""
+    if name not in PRESETS:
+        raise ValueError(name)
+    return PRESETS[name](config, device=device, **kw)

@@ -1,0 +1,2 @@
+"""Command-line tools of the port: ``render`` (the headless render CLI)
+and ``synth_assets`` (a synthetic asset tree for the glTF presets)."""

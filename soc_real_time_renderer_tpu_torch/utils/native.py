@@ -42,6 +42,10 @@ def load() -> ctypes.CDLL | None:
         lib.resize_bilinear_u8.argtypes = [u8p, ctypes.c_int, ctypes.c_int,
                                            u8p, ctypes.c_int, ctypes.c_int]
         lib.build_mip_chain_u8.argtypes = [u8p, ctypes.c_int, u8p]
+        lib.exr_unpredict.argtypes = [u8p, ctypes.c_int64]
+        for fn in (lib.resize_bilinear_u8, lib.build_mip_chain_u8,
+                   lib.exr_unpredict):
+            fn.restype = None
         _lib = lib
     except (OSError, subprocess.CalledProcessError):
         _lib = None
@@ -81,3 +85,15 @@ def build_mip_chain_u8(img: np.ndarray) -> np.ndarray:
     dst = np.empty((stride, 4), np.uint8)
     lib.build_mip_chain_u8(_ptr(img), size, _ptr(dst))
     return dst
+
+
+def exr_unpredict(data: bytes) -> bytes | None:
+    """OpenEXR's zip reconstruction (delta decode, then de-interleave) by
+    the native library; None without it (utils/exr.py then takes its
+    numpy version)."""
+    lib = load()
+    if lib is None:
+        return None
+    arr = np.frombuffer(data, np.uint8).copy()
+    lib.exr_unpredict(_ptr(arr), len(arr))
+    return arr.tobytes()

@@ -602,7 +602,8 @@ def test_passes_scene_on_the_card(dev):
     built = kit.build_port("atrium_passes", cfg, dev)
     g, mm, nm = built.frame_globals(0)
     hist = fm.RenderHistory.create(cfg, device=dev)
-    dense, _ = fm.render_frame(built.plan, built.batch, g, hist, mm, nm)
+    dense, _ = fm.render_frame(dataclasses.replace(built.plan, ssr_cap=0),
+                               built.batch, g, hist, mm, nm)
     n = int(dense.gbuffer.metallic_roughness[1].ge(ssr.METALLIC_MIN).sum())
     assert n > 0.01 * 256 * 128
     plan = dataclasses.replace(built.plan, ssr_cap=n + 100)
@@ -650,3 +651,66 @@ def test_perpixel_clouds_on_the_card(dev):
                              128, 64, full_width=256, full_height=128,
                              rows_per_chunk=7)
     assert torch.equal(a, out.clouds) and torch.equal(a, b)
+
+
+def test_decode_png_on_the_card_machine(dev, tmp_path):
+    """utils/png.py where the card is: the C++ unfilter builds with that
+    machine's g++ and equals the numpy one on every filter type; maps of
+    each colour type encode_png writes decode to their pixels, and to
+    PIL's RGBA where PIL imports there."""
+    from soc_real_time_renderer_tpu_torch.utils import png
+    lib = png.load()
+    assert lib is not None, "g++ builds csrc/png_unfilter.cpp"
+    rng = np.random.default_rng(0)
+    rows = rng.integers(0, 256, (31, 1 + 4 * 53)).astype(np.uint8)
+    rows[:, 0] = np.arange(31) % 5
+    a = png.unfilter_native(rows.tobytes(), 31, 4 * 53, 4, lib)
+    b = png.unfilter_numpy(rows.tobytes(), 31, 4 * 53, 4)
+    assert a.tobytes() == b.tobytes()
+    try:
+        import io
+        from PIL import Image
+    except ImportError:
+        Image = None
+    for c in (1, 2, 3, 4):
+        img = rng.integers(0, 256, (37, 23, c)).astype(np.uint8)
+        data = png.encode_png(img, filter_type=c)
+        got = png.decode_png(data)
+        rgba = {1: np.concatenate([img.repeat(3, 2), np.full_like(img, 255)],
+                                  2),
+                2: np.concatenate([img[..., :1].repeat(3, 2), img[..., 1:]],
+                                  2),
+                3: np.concatenate([img, np.full_like(img[..., :1], 255)], 2),
+                4: img}[c]
+        assert got.tobytes() == rgba.tobytes()
+        if Image is not None:
+            with Image.open(io.BytesIO(data)) as im:
+                assert np.asarray(im.convert("RGBA")).tobytes() \
+                    == got.tobytes()
+
+
+def test_preset_frame_kernel_path_matches_plain(dev, tmp_path, monkeypatch):
+    """Three frames of `helmet_lifted` from a small synthetic asset tree
+    (500-triangle helmet, 64^2 maps, 64^2 noise PNG) at 256x128 with a
+    512^2 shadow map: all six kernels launch on every frame (K6 fed from
+    Clouds/noise.png, K4 on the lifted helmet) and the colour equals the
+    plain path's within 1e-5."""
+    from soc_real_time_renderer_tpu_torch.tools import synth_assets
+    synth_assets.write_asset_tree(str(tmp_path), rings=10, segments=25,
+                                  helmet_map=64, sponza=False)
+    monkeypatch.setattr(scenes, "ASSETS", str(tmp_path))
+    built = scenes.build("helmet_lifted", RenderConfig(
+        width=256, height=128, shadow_resolution=512), device=dev,
+        atlas_size=64)
+    assert built.batch.cloud_noise is not None
+    hk = hp = fm.RenderHistory.create(built.plan.config, device=dev)
+    kb.reset_launches()
+    for f in range(3):
+        g, mm, nm = built.frame_globals(f)
+        ok, hk = fm.render_frame(built.plan, built.batch, g, hk, mm, nm)
+        op, hp = fm.render_frame(built.plan, built.batch, g, hp, mm, nm,
+                                 impl="plain")
+    torch.cuda.synchronize()
+    assert kb.launches == {k: 3 for k in kb.launches}
+    assert torch.isfinite(ok.color).all()
+    assert (ok.color - op.color).abs().max().item() < 1e-5

@@ -448,7 +448,8 @@ def test_atrium_passes_cap_and_switches():
         hist = pframe.RenderHistory.create(plan.config, device="cpu")
         return pframe.render_frame(plan, pb.batch, g, hist, mm, nm)[0]
 
-    dense = frame()
+    assert pb.plan.ssr_cap == 1024           # _finish: 5% of the screen
+    dense = frame(ssr_cap=0)
     assert int(dense.ssr_active) == -1 and int(dense.overflow) == 0
     full = frame(ssr_cap=8192)
     n = int(full.ssr_active)

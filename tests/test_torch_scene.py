@@ -94,7 +94,7 @@ def test_scene_update_and_transforms_match():
         assert a.tobytes() == b.tobytes()
 
 
-def test_build_atrium_is_byte_identical():
+def test_build_atrium_is_byte_identical(tmp_path):
     jm = jproc.build_atrium(texture_dir=None)
     pm = pproc.build_atrium(texture_dir=None)
     for name in ("positions", "normals", "uvs", "indices"):
@@ -109,8 +109,14 @@ def test_build_atrium_is_byte_identical():
             for j, p in zip(jm.materials, pm.materials)] \
         == [vars(p) for p in pm.materials]
     assert len(pm.materials) == 5 and pm.images == []
-    with pytest.raises(NotImplementedError, match="A10"):
-        pproc.build_atrium(texture_dir="assets/Sponza/glTF")
+    # a texture directory without Sponza.gltf or JPEGs: the same five
+    # flat materials in both (tests/test_torch_presets.py has the
+    # textured one)
+    jt = jproc.build_atrium(texture_dir=str(tmp_path))
+    pt = pproc.build_atrium(texture_dir=str(tmp_path))
+    assert pt.positions.tobytes() == pm.positions.tobytes()
+    assert [vars(m) for m in jt.materials] == [vars(m) for m in pt.materials]
+    assert pt.images == jt.images == []
 
 
 def _quad_and_atrium(pkg):
@@ -197,6 +203,28 @@ def test_finish_frame_inputs_match(finished):
                 assert torch.equal(a, b), fld.name
 
 
+def test_finish_sizes_ssr_cap_and_keeps_models():
+    """_finish sizes FramePlan.ssr_cap as the JAX package does (5% of the
+    screen, rounded up to 1,024, when enable_ssr; fault C17) and keeps
+    the packed models on the BuiltScene (fault C18)."""
+    for cfg in (dict(width=128, height=64, enable_ssr=True),
+                dict(width=320, height=192, enable_ssr=True),
+                dict(width=128, height=64)):
+        js, jmodels = _quad_and_atrium("jax")
+        ps, pmodels = _quad_and_atrium("port")
+        jb = jscenes._finish(js, jmodels, jcfg.RenderConfig(**cfg),
+                             atlas_size=64, **CAMERA)
+        pb = pscenes._finish(ps, pmodels, RenderConfig(**cfg), atlas_size=64,
+                             device="cpu", **CAMERA)
+        assert pb.plan.ssr_cap == jb.plan.ssr_cap, cfg
+        assert pb.plan.ssr_cap == (
+            -(-int(0.05 * cfg["width"] * cfg["height"]) // 1024) * 1024
+            if cfg.get("enable_ssr") else 0)
+        assert convert.plan_from_jax_plan(jb.plan) == pb.plan
+        assert len(pb._models) == len(pmodels) == 2
+        assert all(a is b for a, b in zip(pb._models, pmodels))
+
+
 def test_entry_points_refuse_without_a_card(monkeypatch):
     """scenes.build, build_terrain, _finish and RenderHistory.create run
     on the card by default; with no card they raise instead of running
@@ -216,8 +244,10 @@ def test_entry_points_refuse_without_a_card(monkeypatch):
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    """Every module of the port, chip_smoke.py and kernel_ab.py import
-    neither jax nor the JAX package."""
+    """Every module of the port (the asset path's png, image_io, exr, the
+    glTF loader, the render CLI and synth_assets among them),
+    chip_smoke.py and kernel_ab.py import neither jax nor the JAX
+    package."""
     code = (
         "import pkgutil, sys\n"
         "import soc_real_time_renderer_tpu_torch as p\n"
@@ -226,6 +256,11 @@ def test_port_and_chip_smoke_import_no_jax():
         "for n in names: __import__(n)\n"
         "import chip_smoke, kernel_ab\n"
         "assert len(names) > 20, names\n"
+        "new = ['utils.png', 'utils.image_io', 'utils.exr', 'models.gltf', "
+        "'tools.render', 'tools.synth_assets']\n"
+        "assert all(p.__name__ + '.' + n in names for n in new), names\n"
+        "import soc_real_time_renderer_tpu_torch.tools.render as r\n"
+        "r.parse_args(['--scene', 'full'])\n"
         "bad = [m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'soc_real_time_renderer_tpu' "
         "or m.startswith('soc_real_time_renderer_tpu.')]\n"
