@@ -56,6 +56,15 @@ per PNG filter type; Sponza's five materials as fifteen 1024^2 PNGs; a
   ``SOC_ASSETS`` at the tree: exit code 0, its PNG against the
   in-process frame (mean abs < 0.5 levels), every pass dumped; then
   ``--pair-cap 4096`` prints the ``PAIRS`` warning and exits 0.
+* ``viewer``: the interactive viewer (``ui/server.start_server`` with
+  ``frame.make_render_fn``) serving ``full`` from the tree, driven by
+  HTTP requests: fly-camera input, a settings override, a second helmet
+  (the full rebuild tier), the first helmet into the sun volume (the
+  cheap tier; K4 launches from then on), a moved sun, a resize and back,
+  a refused resize; each frame's launches, the rebuild tiers' seconds,
+  the medians of ``frame_ms`` and ``latency_ms`` from ``/metrics``, each
+  kernel against its plain version on the final state's inputs, and a
+  ``utils/metrics.GPUMetricPool`` table (``viewer_phase``).
 
 The atrium scenes are composed from ``Scene`` + ``scenes._finish``, as
 the JAX package composes its presets.  For each of the first three
@@ -101,6 +110,8 @@ PASS_FRAMES = 2        # frames of the atrium_passes / terrain_perpixel paths
 PRESET_FRAMES = 3      # frames of each glTF preset (the CLI renders as many)
 PRESETS = ("helmet", "helmet_lifted", "sponza", "full")   # "full" last:
 #                        its last frame is the CLI phase's reference
+VIEWER_INPUTS = 30     # fly-camera inputs of the viewer phase
+VIEWER_SAMPLES = 20    # /metrics readings (distinct frames) it takes
 ASSET_SEED = 0
 NOISE_SEED = 11
 METAL_SEED = 5
@@ -339,13 +350,14 @@ def skew(name, view, starts, recs, grid):
         f"heaviest bin is {top_live} with {int(live[top_live])}")
 
 
-def kernel_cases(name, built, dev):
+def kernel_cases(name, built, dev, min_lit=0.1):
     """Per kernel of the scene's path: (call(impl), compare(k, p) ->
     (max_abs_err, message, ok), (bytes, operations), library call or
     None, the kernel's launch alone or None where the wrapper runs no
     other device work), all on the frame's own inputs: a plain-path warm
     frame (frame 0) gives the G-buffer, history and texture-tap inputs,
-    frame 1's globals the rest."""
+    frame 1's globals the rest.  K4's map (or crop) must have at least
+    `min_lit` of its texels below the 1.0 clear, and some."""
     import torch
     from soc_real_time_renderer_tpu_torch.graph import frame as fm
     from soc_real_time_renderer_tpu_torch.ops import raster2, sky, ssao, \
@@ -417,8 +429,8 @@ def kernel_cases(name, built, dev):
             lit = (win < 1.0).float().mean().item()
             return e, (f"{n4} pairs, overflow 0, depth max abs {e:.3g} "
                        f"(== 0), texels < 1.0: {lit:.4f} of the "
-                       f"{'crop' if crop else 'map'} (>= 0.1)"), \
-                e == 0.0 and lit >= 0.1
+                       f"{'crop' if crop else 'map'} (>= {min_lit}, > 0)"), \
+                e == 0.0 and lit >= min_lit and lit > 0.0
 
         sp = sgrid.by * sgrid.bh * sgrid.bx * sgrid.bw
         cases["resolve_depth"] = (
@@ -1218,6 +1230,382 @@ def cli_phase(tree, ref_srgb, card):
     return sec
 
 
+def viewer_phase(dev, card, results):
+    """The interactive viewer as a user drives it: `full` from the asset
+    tree at scenes.ASSETS at WIDTH x HEIGHT (4096^2 shadow map) behind
+    ui/server.start_server with make_render_fn, and plain urllib
+    requests: the first JPEG; VIEWER_INPUTS fly-camera inputs; an SSAO
+    override; a second helmet (create, Transform, Mesh, position: the
+    full rebuild tier, +15,480 triangles); the first helmet to y = 32
+    (the cheap tier: the shadow proof fails, K4 launches from then on);
+    the sun moved (the cheap tier re-proves); a resize to 1280x736 and
+    back; a refused resize.  Each step waits, within stated seconds, for
+    the frame index to advance.  The launch counts are set to 0 before
+    the server starts and read after it stops; each frame's launches
+    are taken in the render thread around the frame.  Then the medians
+    of VIEWER_SAMPLES /metrics readings, each kernel against its plain
+    version on the final state's inputs, and a GPUMetricPool table of a
+    few passes.  Returns {"frame_ms", "latency_ms", "full_tier_s",
+    "cheap_tier_s"}."""
+    import io
+    import threading
+    import urllib.request
+    import torch
+    from PIL import Image
+    from soc_real_time_renderer_tpu_torch import scenes
+    from soc_real_time_renderer_tpu_torch.config import RenderConfig
+    from soc_real_time_renderer_tpu_torch.graph import frame as fm
+    from soc_real_time_renderer_tpu_torch.kernels import build as kb
+    from soc_real_time_renderer_tpu_torch.ops import gbuffer, ssao, taa, \
+        tonemap
+    from soc_real_time_renderer_tpu_torch.ui import server as srv
+    from soc_real_time_renderer_tpu_torch.utils import metrics
+    name = "viewer"
+    t0 = time.perf_counter()
+    built = scenes.build("full", RenderConfig(width=WIDTH, height=HEIGHT),
+                         device=dev)
+    t_build = time.perf_counter() - t0
+    T0 = built.batch.num_triangles
+    check(built.plan.shadow_statically_empty, "full: shadow proved empty")
+
+    # observation only: each frame's launches and each rebuild's tier and
+    # seconds, taken where the render loop runs them
+    per_frame = []             # (shadow elided, {kernel: launches})
+    real_make = fm.make_render_fn
+    # and the host seconds of the loop's three calls, (end time, seconds)
+    host_s = {"frame_globals": [], "render_fn": [], "proof checks": [],
+              "to_srgb_u8": []}
+
+    def timed(part, fn, *a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        host_s[part].append((time.perf_counter(), time.perf_counter() - t))
+        return out
+
+    def counted(plan, impl=None):
+        fn = real_make(plan, impl)
+
+        def render(*a):
+            before = dict(kb.launches)
+            out = timed("render_fn", fn, *a)
+            per_frame.append((plan.shadow_statically_empty,
+                              {k: kb.launches[k] - before[k]
+                               for k in before}))
+            return out
+        return render
+
+    rebuilds = []              # (tier, seconds)
+    real_rebuild = built.rebuild
+
+    def timed_rebuild():
+        b0 = built.batch
+        t = time.perf_counter()
+        real_rebuild()
+        torch.cuda.synchronize()
+        rebuilds.append(("full" if built.batch is not b0 else "cheap",
+                         time.perf_counter() - t))
+
+    built.rebuild = timed_rebuild
+    real_globals, real_srgb = built.frame_globals, srv.to_srgb_u8
+    real_checks = fm.check_sun_proof, fm.check_shadow_crop
+
+    def timed_globals(*a, **kw):       # the loop's; /schema's peek is not
+        return (real_globals(*a, **kw) if kw.get("peek")
+                else timed("frame_globals", real_globals, *a, **kw))
+
+    built.frame_globals = timed_globals
+    srv.to_srgb_u8 = lambda color: timed("to_srgb_u8", real_srgb, color)
+    # render_frame's two reads of the card (inside render_fn's seconds)
+    fm.check_sun_proof = lambda plan, g: timed(
+        "proof checks", real_checks[0], plan, g)
+    fm.check_shadow_crop = lambda plan, mm: timed(
+        "proof checks", real_checks[1], plan, mm)
+    fm.make_render_fn = counted
+    kb.reset_launches()
+    before = set(threading.enumerate())
+    server, state, panel = srv.start_server(
+        built, fm.make_render_fn(built.plan),
+        fm.RenderHistory.create(built.plan.config, device=dev), port=0,
+        host="127.0.0.1")
+    loop = [t for t in threading.enumerate() if t not in before]
+    check(len(loop) == 1, "start_server started one render thread")
+    loop = loop[0]
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    marks = []                 # (step, frames recorded when it ended)
+    step_s = {}
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=60) as r:
+            return r.read()
+
+    def post(path, body):
+        req = urllib.request.Request(base + path,
+                                     data=json.dumps(body).encode(),
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.read()
+
+    def until(cond, seconds, what):
+        t = time.perf_counter()
+        while not cond():
+            check(loop.is_alive(), f"{what}: the render thread is alive")
+            check(time.perf_counter() - t < seconds,
+                  f"{what} within {seconds} s")
+            time.sleep(0.005)
+
+    def settled():
+        return not (state.needs_rebuild or state.pending_resize
+                    or state.terrain_dirty)
+
+    def step(label, seconds, n=3):
+        """The edit applied and the frame index n frames further, within
+        `seconds` of the step's start."""
+        until(settled, seconds, f"{label}: the edit applied")
+        f0 = state.frame_index
+        until(lambda: state.frame_index >= f0 + n, seconds,
+              f"{label}: frame_index past {f0 + n}")
+        marks.append((label, len(per_frame)))
+        step_s[label] = time.perf_counter() - t_step
+
+    def jpeg_size():
+        jpg = get("/frame.jpg")
+        return (Image.open(io.BytesIO(jpg)).size
+                if jpg.startswith(b"\xff\xd8") else None)
+
+    def eid_of(tag):
+        nodes = json.loads(get("/schema"))["scene"]["nodes"]
+        return next(int(i) for i, n in nodes.items() if n["tag"] == tag)
+
+    samples = []
+    try:
+        # 1. the first JPEG
+        t_step = time.perf_counter()
+        until(lambda: jpeg_size() == (WIDTH, HEIGHT), 60.0,
+              "the first JPEG at full size")
+        step("1 first JPEG", 60.0)
+        # 2. fly camera
+        t_step = time.perf_counter()
+        p0 = built.camera_position.copy()
+        for i in range(VIEWER_INPUTS):
+            post("/input", {"forward": True, "dx": 4.0, "dy": 1.0})
+        moved = float(np.linalg.norm(built._fly.position - p0))
+        check(moved > 1.0 and not built.animate,
+              f"{VIEWER_INPUTS} inputs moved the fly camera {moved:.3f}")
+        step("2 fly camera", 30.0)
+        # 3. an SSAO override
+        t_step = time.perf_counter()
+        post("/set", {"section": "ssao settings", "name": "bias",
+                      "value": 0.125})
+        bias = [p["value"] for p in json.loads(get("/schema"))["settings"]
+                ["ssao settings"] if p["name"] == "bias"][0]
+        check(abs(bias - 0.125) < 1e-6, f"/schema shows ssao bias {bias}")
+        step("3 ssao bias", 30.0)
+        # 4. a second helmet: the full tier
+        t_step = time.perf_counter()
+        n_rb = len(rebuilds)
+        post("/scene", {"op": "create", "name": "viewer helmet"})
+        eid = eid_of("viewer helmet")
+        for op in ({"op": "add_component", "id": eid,
+                    "type": "TransformComponent"},
+                   {"op": "add_component", "id": eid,
+                    "type": "MeshComponent"},
+                   {"op": "set_property", "id": eid,
+                    "component": "TransformComponent", "prop": "position",
+                    "value": [1.2, 0.0, 0.0]}):
+            check(post("/scene", op) == b"{}", f"/scene {op}")
+        until(lambda: state.built.batch.num_triangles > T0, 120.0,
+              "the batch re-packed")
+        step("4 second helmet (full tier)", 120.0)
+        full_s = [s for tier, s in rebuilds[n_rb:] if tier == "full"]
+        check(len(full_s) == 1 and built.batch.num_triangles == T0 + 15_480,
+              f"one full-tier rebuild added 15,480 triangles: {T0} -> "
+              f"{built.batch.num_triangles}, {rebuilds[n_rb:]}")
+        # 5. the first helmet into the sun volume: the cheap tier
+        t_step = time.perf_counter()
+        n_rb = len(rebuilds)
+        batch = built.batch
+        check(post("/scene", {"op": "set_property",
+                              "id": eid_of("damaged helmet model"),
+                              "component": "TransformComponent",
+                              "prop": "position",
+                              "value": [0.0, 32.0, 0.0]}) == b"{}",
+              "the helmet moved")
+        until(lambda: not state.built.plan.shadow_statically_empty, 60.0,
+              "the shadow proof fails")
+        step("5 helmet to y = 32 (cheap tier)", 60.0)
+        cheap_s = [s for tier, s in rebuilds[n_rb:] if tier == "cheap"]
+        check(cheap_s and built.batch is batch
+              and all(t == "cheap" for t, _ in rebuilds[n_rb:]),
+              f"the cheap tier alone: {rebuilds[n_rb:]}")
+        k5 = marks[-2][1]              # frames before step 5
+        # 6. the sun moved: the cheap tier re-proves
+        t_step = time.perf_counter()
+        n_rb, f6 = len(rebuilds), state.frame_index
+        post("/set", {"section": "sun settings", "name": "position",
+                      "value": [-3.2, 44.0, -4.0]})
+        step("6 sun moved", 60.0, n=5)
+        check(len(rebuilds) > n_rb and rebuilds[-1][0] == "cheap"
+              and state.frame_index >= f6 + 5,
+              "the cheap tier re-proved and frames went on")
+        sun = [p["value"] for p in json.loads(get("/schema"))["settings"]
+               ["sun settings"] if p["name"] == "position"][0]
+        check(np.allclose(sun, [-3.2, 44.0, -4.0]), f"the sun at {sun}")
+        # 7. resize and back
+        t_step = time.perf_counter()
+        for w, h in ((1280, 736), (WIDTH, HEIGHT)):
+            post("/resize", {"width": w, "height": h})
+            until(lambda: jpeg_size() == (w, h), 60.0, f"a {w}x{h} JPEG")
+        step("7 resize 1280x736 and back", 60.0)
+        # 8. a refused resize
+        t_step = time.perf_counter()
+        check(b"error" in post("/resize", {"width": 100, "height": 64})
+              and state.pending_resize is None, "100x64 is refused")
+        step("8 resize 100x64 refused", 30.0)
+        # /metrics at WIDTH x HEIGHT, one reading per presented frame
+        t = t_window = time.perf_counter()
+        while len(samples) < VIEWER_SAMPLES:
+            check(loop.is_alive() and time.perf_counter() - t < 60.0,
+                  f"{VIEWER_SAMPLES} /metrics readings within 60 s")
+            m = json.loads(get("/metrics"))
+            if not samples or m["frame"] != samples[-1]["frame"]:
+                samples.append(m)
+            time.sleep(0.005)
+    finally:
+        state.stop = True
+        server.shutdown()
+        server.server_close()
+        loop.join(timeout=120)
+        fm.make_render_fn = real_make
+        srv.to_srgb_u8 = real_srgb
+        fm.check_sun_proof, fm.check_shadow_crop = real_checks
+        del built.frame_globals
+    check(not loop.is_alive(), "the render thread stopped")
+    torch.cuda.synchronize()
+    counts = dict(kb.launches)
+    for k in counts:
+        results[k][name] = {"launches": counts[k]}
+
+    # launches: every frame runs K1, K5, K2, K6, K3; K4 where the plan
+    # does not elide the shadow, i.e. from step 5 on
+    n = len(per_frame)
+    summed = {k: sum(d[k] for _, d in per_frame) for k in counts}
+    check(summed == counts, f"every launch came from a frame: {summed} "
+          f"vs {counts}")
+    check(all(d == {k: 0 if (k == "resolve_depth" and elided) else 1
+                    for k in counts} for elided, d in per_frame),
+          "each frame launched its path's kernels once")
+    k4_before = sum(d["resolve_depth"] for _, d in per_frame[:k5])
+    k4_after = sum(d["resolve_depth"] for _, d in per_frame[k5:])
+    check(k4_before == 0 and k4_after > 0,
+          f"K4: {k4_before} launches before step 5, {k4_after} after")
+    prev = 0
+    for label, end in marks:
+        sums = {k: sum(d[k] for _, d in per_frame[prev:end])
+                for k in counts}
+        log(f"[{name}] step {label}: {end - prev} frames, "
+            f"{step_s[label]:.2f} s, launches {sums}")
+        prev = end
+    fms = [s["frame_ms"] for s in samples]
+    lat = [s["latency_ms"] for s in samples]
+    check(all(s["overflow"] == 0 and s["tex_dirty"] == -1
+              for s in samples), "overflow 0, tex_dirty -1")
+    out = {"frame_ms": statistics.median(fms),
+           "latency_ms": statistics.median(lat),
+           "full_tier_s": full_s[0], "cheap_tier_s": min(cheap_s)}
+    log(f"[{name}] full {WIDTH}x{HEIGHT}, build {t_build:.1f} s, {n} frames "
+        f"in the loop, launches {counts}; rebuilds {rebuilds}; full tier "
+        f"{out['full_tier_s']:.2f} s (+15,480 triangles), cheap tier "
+        f"{out['cheap_tier_s']:.3f} s; /metrics over {len(samples)} "
+        f"frames at {WIDTH}x{HEIGHT}: frame_ms median {out['frame_ms']} "
+        f"(min {min(fms)}, max {max(fms)}), latency_ms median "
+        f"{out['latency_ms']} (min {min(lat)}, max {max(lat)}) {card}")
+    # where a loop iteration's host time went over the same window (the
+    # two proof checks of a frame summed, within render_fn); the rest of
+    # frame_ms is the JPEG encode and the loop's own Python
+    win = {k: [s for te, s in v if te >= t_window]
+           for k, v in host_s.items()}
+    win["proof checks"] = [a + b for a, b in zip(win["proof checks"][::2],
+                                                 win["proof checks"][1::2])]
+    parts = {k: statistics.median(v) * 1e3 for k, v in win.items()}
+    rest = out["frame_ms"] - sum(v for k, v in parts.items()
+                                 if k != "proof checks")
+    log(f"[{name}] the render loop's host ms over the /metrics window "
+        f"(medians): " + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+        + f"; frame_ms less the other three {rest:.2f} {card}")
+
+    # each kernel against its plain version on the final state's inputs
+    built = state.built
+    plan = built.plan
+    check(not plan.shadow_statically_empty and plan.config.width == WIDTH,
+          "the final state rasters the shadow at full size")
+    path_k, cases = kernel_cases(name, built, dev, min_lit=0.0)
+    check(sorted(path_k) == sorted(KERNELS), f"all six on the path: {path_k}")
+    for k, (call, cmp, _, _, _) in cases.items():
+        got, want = call("cuda"), call("plain")
+        torch.cuda.synchronize()
+        err, msg, ok = cmp(got, want)
+        log(f"[{name}] parity {k}: {msg}")
+        check(ok, f"{name} {k} parity")
+
+    # a few passes timed by utils/metrics (CUDA events, 8 calls each)
+    g, mm, nm = built.frame_globals(state.frame_index, peek=True)
+    hist = fm.RenderHistory.create(plan.config, device=dev)
+    batch = built.batch
+    vis, recs, smap, ovf = fm.raster_stage(plan, batch, g, mm, nm)
+    gbuf = gbuffer.resolve_gbuffer(
+        vis, recs, batch.atlas_packed, g.camera_prev.projection_view,
+        atlas_size=plan.atlas_size, layer_stride=plan.atlas_layer_stride,
+        n_levels=plan.atlas_n_levels, filter_mode=plan.texture_filter)
+    out0, _ = fm.render_frame(plan, batch, g, hist, mm, nm)
+    pool = metrics.GPUMetricPool()
+    for pass_name, fn in (
+            ("whole frame", lambda: fm.render_frame(plan, batch, g, hist, mm,
+                                                    nm)),
+            ("depth prepass + shadow (raster_stage: K1, K4)",
+             lambda: fm.raster_stage(plan, batch, g, mm, nm)),
+            ("g-buffer (K5)", lambda: gbuffer.resolve_gbuffer(
+                vis, recs, batch.atlas_packed, g.camera_prev.projection_view,
+                atlas_size=plan.atlas_size,
+                layer_stride=plan.atlas_layer_stride,
+                n_levels=plan.atlas_n_levels,
+                filter_mode=plan.texture_filter)),
+            ("ssao (K2)", lambda: ssao.ssao_generate(
+                vis.depth, gbuf.normal, g, plan.config.ssao_kernel_size)),
+            ("taa (K3)", lambda: taa.taa(
+                out0.hdr, vis.depth, gbuf.velocity, hist.previous_color,
+                hist.previous_velocity, g.frame_counter)),
+            ("tonemap", lambda: tonemap.tone_map(out0.hdr, hist.exposure,
+                                                 g))):
+        pool.get(pass_name).measure(fn, device=dev)
+    log(f"[{name}] GPUMetricPool (utils/metrics.py, ms a call, 8 calls "
+        f"between CUDA events) {card}: {pool.table()}; by category "
+        f"{ {c: round(v, 3) for c, v in pool.category_totals().items()} }")
+    # the loop's three pieces alone, one thread (median of 3): a frame's
+    # dispatch and its end, then the readback and encode
+    enc = {"render_frame dispatch": [], "render_frame to its end": [],
+           "to_srgb_u8": [], "JPEG": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fm.render_frame(plan, batch, g, hist, mm, nm)
+        enc["render_frame dispatch"].append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        enc["render_frame to its end"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        srgb = srv.to_srgb_u8(out0.color)
+        t1 = time.perf_counter()
+        Image.fromarray(srgb).save(io.BytesIO(), format="JPEG", quality=85)
+        enc["to_srgb_u8"].append(t1 - t)
+        enc["JPEG"].append(time.perf_counter() - t1)
+    log(f"[{name}] one {WIDTH}x{HEIGHT} frame alone, the loop stopped: "
+        + ", ".join(f"{k} {statistics.median(v) * 1e3:.2f} ms"
+                    for k, v in enc.items()) + f" {card}")
+    del built, state, vis, recs, gbuf, out0, hist
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1279,10 +1667,18 @@ def main():
         t0 = time.perf_counter()
         cli_phase(tree, srgb, card)
         seconds["cli"] = time.perf_counter() - t0
+        # the interactive viewer on `full`
+        t0 = time.perf_counter()
+        viewer = viewer_phase(dev, card, results)
+        seconds["viewer"] = time.perf_counter() - t0
     log(f"summary {card}: " + ", ".join(
         f"{n} kernel path {k:.2f} ms vs plain {p:.2f} ms"
         for n, (k, p) in frames.items()) + "; " + ", ".join(
         f"{n} {v:.2f} ms" for n, v in {**pass_ms, **preset_ms}.items())
+        + f"; viewer frame_ms {viewer['frame_ms']} latency_ms "
+        f"{viewer['latency_ms']} (medians), full tier "
+        f"{viewer['full_tier_s']:.2f} s, cheap tier "
+        f"{viewer['cheap_tier_s']:.3f} s"
         + "; seconds per phase " + ", ".join(
         f"{n} {v:.1f}" for n, v in seconds.items())
         + f"; total {time.perf_counter() - t_start:.0f} s")

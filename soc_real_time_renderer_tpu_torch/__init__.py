@@ -6,12 +6,16 @@ reference it is tested against.  Same layout and names, one counterpart
 per module:
 
   config.py   static RenderConfig + per-frame ShaderGlobals (tensors)
-  camera.py   perspective camera + TAA jitter
+  camera.py   perspective camera + TAA jitter; the viewer's fly camera
   scenes.py   scene presets -> BuiltScene (batch, plan, per-frame globals)
   models/     host asset pipeline: glTF loader, image decoding, terrain,
               procedural atrium, atlas packing, scene batch
-  utils/      PNG (no PIL), EXR, image dumps, native helpers, matrices
-  tools/      the headless render CLI; a synthetic asset tree
+  utils/      PNG (no PIL), EXR, image dumps, native helpers, matrices,
+              per-pass timing (CUDA events)
+  tools/      the headless render CLI, the interactive viewer; a
+              synthetic asset tree
+  ui/         the viewer: HTTP server + render loop, scene hierarchy
+              panel, settings widgets
   ops/        render passes; each ported Pallas kernel has a CUDA kernel
               (kernels/csrc) and a plain PyTorch version side by side
   graph/      frame assembly: render_frame()

@@ -321,6 +321,18 @@ def render_frame(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
                        overflow, impl=impl)
 
 
+def make_render_fn(plan: FramePlan, impl: str | None = None):
+    """(batch, g, history, model_mats, normal_mats) -> render_frame(plan,
+    ...).  A plain closure: nothing is compiled or memoised.  It exists
+    so that the viewer's render loop (ui/server.py) keeps the JAX loop's
+    structure, which makes a new render function for each new plan, and
+    so that tests can stub the render function there."""
+    def render(batch, g, history, model_mats, normal_mats):
+        return render_frame(plan, batch, g, history, model_mats,
+                            normal_mats, impl=impl)
+    return render
+
+
 def check_sun_proof(plan: FramePlan, g: ShaderGlobals):
     """Raise if `plan` elides the sun shadow pass but `g` carries a sun
     the emptiness proof was not run against."""

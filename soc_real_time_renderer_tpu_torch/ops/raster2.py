@@ -212,6 +212,10 @@ def build_pairs(setup: PlanarSetup, grid: BinGrid):
     def slot_keys(bx0g, by0g, wg, hg, n_slots):
         """(n_slots, N) bin keys (B = invalid)."""
         s = torch.arange(n_slots, dtype=i32, device=dev)[:, None]
+        # wg is 0 only for invalid triangles (an empty bbox on the right
+        # edge of a viewport narrower than its bin row), whose keys the
+        # callers mask; the CPU's integer division by 0 raises
+        wg = torch.clamp(wg, min=1)
         dx = s % wg[None, :]
         dy = torch.div(s, wg[None, :], rounding_mode="floor")
         ok = dy < hg[None, :]

@@ -2,8 +2,9 @@
 
 Counterpart of the JAX package's ``scene/components.py``
 (``components.{hpp,cpp}``): UUID, Tag, Relationship, Transform, Mesh,
-PointLight and SpotLight over a plain-Python registry.  The viewer's
-``ui_schema`` descriptors are not ported (the viewer is not).
+PointLight and SpotLight over a plain-Python registry.  The ImGui
+``draw()`` methods become ``ui_schema()`` descriptors, ``{property:
+(kind, value)}``, which the viewer's scene panel (:mod:`..ui`) serves.
 """
 from __future__ import annotations
 
@@ -73,11 +74,20 @@ class TransformComponent:
             return True
         return False
 
+    def ui_schema(self):
+        return {"position": ("vec3", self.position),
+                "rotation": ("vec3", self.rotation),
+                "scale": ("vec3", self.scale)}
+
 
 @dataclass
 class MeshComponent:
     """Holds a model (models.gltf.ModelData)."""
     model: object = None
+
+    def ui_schema(self):
+        n = 0 if self.model is None else len(self.model.triangles)
+        return {"triangles": ("u64", n)}
 
 
 @dataclass
@@ -85,6 +95,10 @@ class PointLightComponent:
     color: np.ndarray = field(
         default_factory=lambda: np.ones(3, np.float32))
     intensity: float = 16.0            # components.hpp:57
+
+    def ui_schema(self):
+        return {"color": ("color3", self.color),
+                "intensity": ("f32", self.intensity)}
 
 
 @dataclass
@@ -94,3 +108,9 @@ class SpotLightComponent:
     intensity: float = 16.0
     cut_off: float = 20.0              # degrees (cos taken at gather,
     outer_cut_off: float = 30.0        # scene.cpp:112-113)
+
+    def ui_schema(self):
+        return {"color": ("color3", self.color),
+                "intensity": ("f32", self.intensity),
+                "cut_off": ("f32", self.cut_off),
+                "outer_cut_off": ("f32", self.outer_cut_off)}

@@ -31,12 +31,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .camera import Camera3D, camera_matrices
+from .camera import Camera3D, ControlledCamera3D, camera_matrices
 from .config import RenderConfig, ShaderGlobals, SunInfo, resolve_device
 from .graph import frame as frame_mod
 from .models import gltf, proc
 from .models.scene_batch import SceneBatch, build_scene_batch
 from .models.texture import decode_image
+from .ops import raster2
 from .scene.components import MeshComponent, TransformComponent
 from .scene.scene import Scene
 from .utils import mathutil as mu
@@ -58,23 +59,146 @@ class BuiltScene:
     animate: bool = False
     sun: SunInfo | None = None    # None: the default sun
 
+    # FramePlan fields the viewer may set after the build, which a full
+    # rebuild keeps: of the JAX package's list, the one field the port's
+    # FramePlan has (ssr_cap is re-derived by _finish in both packages)
+    _PLAN_OVERRIDES = ("texture_filter",)
+
+    def apply_input(self, inp, dt: float) -> None:
+        """Fly-camera input (ControlledCamera3D) from the viewer.  The
+        first call starts the fly camera at camera_position, looking at
+        camera_target, and stops the preset's animation."""
+        if not hasattr(self, "_fly"):
+            self._fly = ControlledCamera3D(camera=self.camera)
+            self._fly.position = np.asarray(self.camera_position,
+                                            np.float32).copy()
+            rel = self.camera_target - self.camera_position
+            self._fly.rotation = np.array(
+                [np.arctan2(rel[2], rel[0]),
+                 -np.arcsin(rel[1] / max(np.linalg.norm(rel), 1e-6)), 0.0],
+                np.float32)
+            self.animate = False
+        self._fly.update(inp, dt)
+
+    def set_sun(self, position=None, angle_direction_deg=None) -> None:
+        """Live sun edit (the reference's sun-position control,
+        renderer.cpp:683-767): new sun matrices on the scene's device.
+        The shadow proof holds for the old sun until rebuild() re-proves
+        it (check_sun_proof rejects a frame in between)."""
+        kw = {}
+        if position is not None:
+            kw["position"] = tuple(float(v) for v in position)
+        if angle_direction_deg is not None:
+            kw["angle_direction_deg"] = tuple(
+                float(v) for v in angle_direction_deg)
+        self.sun = SunInfo.create(**kw, device=self.device)
+
+    def mesh_signature(self):
+        """Identity of the renderable mesh set: changes exactly when the
+        batch must be re-packed (a mesh entity added or removed, or a
+        model swapped)."""
+        return tuple((e.eid, id(e.get_component(MeshComponent).model))
+                     for e in self.scene.mesh_entities())
+
+    def rebuild(self) -> None:
+        """Re-derive the render state from the live scene; keeps the
+        camera, the fly state and _PLAN_OVERRIDES.  Two tiers:
+
+        * the same models (element by element, `is`): re-bound the light
+          scans to the live light counts and re-prove the shadow against
+          the live transforms and sun; the batch stays.  Its host copies
+          of the triangle stream are pulled once and kept, since a
+          device-to-host copy of every triangle at each edit would stall
+          the render loop;
+        * other models: _finish re-packs batch, atlas and plan.
+
+        Does nothing when no mesh entity is left (an empty batch has no
+        triangle stream)."""
+        models = [e.get_component(MeshComponent).model
+                  for e in self.scene.mesh_entities()]
+        if not models:
+            return
+        old = self.plan
+        prev = getattr(self, "_models", None)
+        same = (prev is not None and len(prev) == len(models)
+                and all(a is b for a, b in zip(prev, models)))
+        if same:
+            lights = self.scene.update(0.0)
+            cfg2 = old.config.replace(
+                max_point_lights=int(lights.point_count),
+                max_spot_lights=int(lights.spot_count))
+            mm, _ = self.scene.transform_matrices()
+            if getattr(self, "_proof_pos", None) is None:
+                self._proof_pos = self.batch.tri_pos.cpu().numpy()
+                self._proof_ent = self.batch.tri_entity.cpu().numpy()
+            self.plan = _with_proof(dataclasses.replace(old, config=cfg2),
+                                    self._proof_pos, self._proof_ent, mm,
+                                    self.sun)
+        else:
+            nb = _finish(self.scene, models, old.config,
+                         camera_pos=self.camera_position,
+                         camera_target=self.camera_target,
+                         animate=self.animate, atlas_size=old.atlas_size,
+                         sun=self.sun, device=self.device)
+            self.batch = nb.batch
+            self._proof_pos = self._proof_ent = None
+            self.plan = dataclasses.replace(
+                nb.plan, **{f: getattr(old, f) for f in self._PLAN_OVERRIDES})
+        self._models = list(models)
+
+    def resize(self, width: int, height: int) -> None:
+        """The reference's resize path (swapchain resize + framebuffer
+        recreation, renderer.cpp:815-881, + camera.resize,
+        application.cpp:96-100): the config's size, the main bin grid
+        re-capped for the live batch and the camera's projection; the
+        prev-camera roll restarts.  Batch, atlas, shadow grid, proof and
+        overrides stay.  The caller makes a new RenderHistory (and
+        render function) for the new size.
+
+        Width and height must be multiples of 32 and at least 64, else
+        ValueError: the JAX package's Pallas tile alignment, kept so that
+        the port's viewer refuses exactly what the reference's refuses.
+        The port's kernels need no such alignment: K2 and K3 take ragged
+        and odd sizes (tests/test_torch_cuda.py runs them so on the
+        card), K1 rounds the screen up to whole 64x32 bins and the frame
+        crops its visibility buffer to the viewport, and K4, K5 and K6
+        do not depend on the screen's size."""
+        width, height = int(width), int(height)
+        if width % 32 or height % 32 or width < 64 or height < 64:
+            raise ValueError(
+                f"resize: width/height must be multiples of 32 and "
+                f">= 64, got {width}x{height}")
+        cfg2 = self.plan.config.replace(width=width, height=height)
+        main = _cap_grid(raster2.default_grid(width, height),
+                         int(self.batch.num_triangles))
+        self.plan = dataclasses.replace(self.plan, config=cfg2,
+                                        main_grid=main)
+        self.camera.resize(width, height)
+        if hasattr(self, "_prev_cam"):
+            del self._prev_cam
+
     def frame_globals(self, frame_index: int, dt: float = 1.0 / 60.0,
                       peek: bool = False):
         """Per-frame host update (Application::update + Scene::update):
-        the camera (orbiting its target when `animate`), jitter, the
-        prev-camera roll, the scene's lights and transforms ->
-        (g, model_mats, normal_mats) on the scene's device.  peek=True
-        reads without advancing the prev-camera roll."""
-        pos = self.camera_position
-        if self.animate:
-            ang = 0.25 * frame_index * dt
-            c, s = np.cos(ang), np.sin(ang)
-            rel = self.camera_position - self.camera_target
-            pos = self.camera_target + np.array(
-                [c * rel[0] - s * rel[2], rel[1], s * rel[0] + c * rel[2]],
-                np.float32)
-        self.camera.view_mat = mu.look_at(pos, self.camera_target,
-                                          np.array([0., 1., 0.], np.float32))
+        the camera (the fly camera once apply_input ran, else orbiting
+        its target when `animate`), jitter, the prev-camera roll, the
+        scene's lights and transforms -> (g, model_mats, normal_mats) on
+        the scene's device.  peek=True reads without advancing the
+        prev-camera roll (the viewer's /schema must not zero a frame's
+        TAA reprojection velocity)."""
+        if hasattr(self, "_fly"):
+            pos = self._fly.position      # update() wrote camera.view_mat
+        else:
+            pos = self.camera_position
+            if self.animate:
+                ang = 0.25 * frame_index * dt
+                c, s = np.cos(ang), np.sin(ang)
+                rel = self.camera_position - self.camera_target
+                pos = self.camera_target + np.array(
+                    [c * rel[0] - s * rel[2], rel[1],
+                     s * rel[0] + c * rel[2]], np.float32)
+            self.camera.view_mat = mu.look_at(
+                pos, self.camera_target, np.array([0., 1., 0.], np.float32))
         cam = camera_matrices(self.camera, pos, frame_index,
                               self.plan.config.width,
                               self.plan.config.height, device=self.device)
@@ -164,6 +288,22 @@ def _cap_grid(grid, T: int):
     return dataclasses.replace(grid, pair_cap=want, med_cap=med_cap)
 
 
+def _with_proof(plan, pos, ent, model_mats, sun: SunInfo | None):
+    """`plan` with the sun-shadow proof (_prove_shadow) of the triangle
+    stream `pos`, `ent` (host arrays) under `model_mats` and `sun` (None:
+    the default sun)."""
+    sun_pv = (sun if sun is not None else SunInfo.create()
+              ).projection_view.cpu().numpy()
+    empty, proved, crop = _prove_shadow(
+        pos, ent, model_mats, sun_pv,
+        shadow_resolution=plan.config.shadow_resolution)
+    return dataclasses.replace(
+        plan, shadow_statically_empty=empty, proved_sun_pv=proved,
+        shadow_crop=crop,
+        proved_crop_mats=(tuple(float(v) for v in model_mats.ravel())
+                          if crop is not None else None))
+
+
 def _finish(scene: Scene, models, config: RenderConfig, camera_pos,
             camera_target, animate: bool = False, atlas_size: int = 1024,
             sun: SunInfo | None = None, device=None) -> BuiltScene:
@@ -189,16 +329,8 @@ def _finish(scene: Scene, models, config: RenderConfig, camera_pos,
     plan = dataclasses.replace(plan, main_grid=_cap_grid(plan.main_grid, T),
                                shadow_grid=_cap_grid(plan.shadow_grid, T))
     mm, nm = scene.transform_matrices()
-    sun_pv = (sun if sun is not None else SunInfo.create()
-              ).projection_view.cpu().numpy()
-    empty, proved, crop = _prove_shadow(
-        batch.tri_pos.cpu().numpy(), batch.tri_entity.cpu().numpy(), mm,
-        sun_pv, shadow_resolution=config.shadow_resolution)
-    plan = dataclasses.replace(
-        plan, shadow_statically_empty=empty, proved_sun_pv=proved,
-        shadow_crop=crop,
-        proved_crop_mats=(tuple(float(v) for v in mm.ravel())
-                          if crop is not None else None))
+    plan = _with_proof(plan, batch.tri_pos.cpu().numpy(),
+                       batch.tri_entity.cpu().numpy(), mm, sun)
     if config.enable_ssr:
         # the SSR march runs on (cap,)-shaped arrays: 5% of the screen,
         # rounded up to 1,024 (the JAX package's sizing); past it,

@@ -714,3 +714,77 @@ def test_preset_frame_kernel_path_matches_plain(dev, tmp_path, monkeypatch):
     assert kb.launches == {k: 3 for k in kb.launches}
     assert torch.isfinite(ok.color).all()
     assert (ok.color - op.color).abs().max().item() < 1e-5
+
+
+def test_viewer_on_the_card(dev, tmp_path, monkeypatch):
+    """The viewer's server on `helmet_lifted` from a small synthetic tree
+    at 128x64 (512^2 shadow map) with the real make_render_fn: JPEGs
+    arrive, each of the six kernels launches once in every frame, and a
+    resize to 160x96 brings frames of that size with a history on the
+    card."""
+    import io
+    import json
+    import threading
+    import time
+    import urllib.request
+
+    from PIL import Image
+
+    from soc_real_time_renderer_tpu_torch.ui import server as srv
+    monkeypatch.setattr(scenes, "ASSETS", kit.small_tree(tmp_path))
+    built = scenes.build("helmet_lifted", RenderConfig(
+        width=128, height=64, shadow_resolution=512), device=dev,
+        atlas_size=64)
+    per_frame = []
+    real = fm.make_render_fn
+
+    def counted(plan, impl=None):
+        fn = real(plan, impl)
+
+        def render(*a):
+            before = dict(kb.launches)
+            out = fn(*a)
+            per_frame.append({k: kb.launches[k] - before[k] for k in before})
+            return out
+        return render
+
+    monkeypatch.setattr(fm, "make_render_fn", counted)
+    before = set(threading.enumerate())
+    server, state, _ = srv.start_server(
+        built, fm.make_render_fn(built.plan),
+        fm.RenderHistory.create(built.plan.config, device=dev), port=0,
+        host="127.0.0.1")
+    loop = [t for t in threading.enumerate() if t not in before][0]
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def size():
+        with urllib.request.urlopen(base + "/frame.jpg", timeout=30) as r:
+            jpg = r.read()
+        return (Image.open(io.BytesIO(jpg)).size
+                if jpg.startswith(b"\xff\xd8") else None)
+
+    def wait(cond, seconds=120.0):
+        deadline = time.time() + seconds
+        while not cond():
+            assert time.time() < deadline and loop.is_alive()
+            time.sleep(0.05)
+
+    try:
+        wait(lambda: size() == (128, 64) and state.frame_index > 4)
+        req = urllib.request.Request(
+            base + "/resize", data=json.dumps(
+                {"width": 160, "height": 96}).encode(), method="POST")
+        urllib.request.urlopen(req, timeout=30).read()
+        wait(lambda: size() == (160, 96))
+        n = state.frame_index
+        wait(lambda: state.frame_index > n + 2)
+        assert state.history.previous_color.device.type == "cuda"
+        assert state.history.previous_color.shape == (3, 96, 160)
+    finally:
+        state.stop = True
+        server.shutdown()
+        server.server_close()
+        loop.join(timeout=120)
+    assert not loop.is_alive() and len(per_frame) > 6
+    assert all(d == {k: 1 for k in kb.launches} for d in per_frame)

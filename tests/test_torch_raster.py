@@ -118,3 +118,30 @@ def test_resolve_dispatch_refuses_cuda_on_cpu():
         clip.reshape(4, 3, 4).transpose(1, 2, 0)))
     with pytest.raises(ValueError):
         praster.rasterize(planar, _pgrid(JGRID), "none", impl="cuda")
+
+
+def test_binning_viewport_narrower_than_its_bin_row():
+    """A 96-px viewport with 32-px bins in groups of two has a bin row
+    128 px wide; a triangle right of the viewport gets the empty bbox
+    [96, 96) and a bin span of width 0.  The CPU's integer division by
+    that 0 raised (ROADMAP fault C20); the pairs now equal the JAX
+    package's build_pairs, and the raster its rasterize."""
+    jgrid = dataclasses.replace(JGRID, width=96)
+    verts = _soup(3, 48) + np.array([3.0, 0.0, 0.0], np.float32)
+    clip = make_clip(verts)
+    n = len(verts) // 3
+    planar = clip.reshape(n, 3, 4).transpose(1, 2, 0)
+    jsetup = jraster.triangle_setup_planar(jnp.asarray(planar), 96, 64,
+                                           "none")
+    psetup = praster.triangle_setup_planar(
+        torch.from_numpy(np.ascontiguousarray(planar)), 96, 64, "none")
+    x0, _, x1, _ = psetup.bbox
+    assert ((x0 == 96) & (x1 == 96)).any()       # off the right edge
+    js, jt, jo = jax.jit(lambda s: jraster.build_pairs(s, jgrid))(jsetup)
+    ps, pt, po = praster.build_pairs(psetup, _pgrid(jgrid))
+    np.testing.assert_array_equal(ps.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(pt.numpy(), np.asarray(jt))
+    assert int(po) == int(jo)
+    _, _, jvis, pvis = _both(verts, "none", jgrid)
+    assert pvis.tri_id.shape == (64, 96)
+    assert (np.asarray(jvis.tri_id) == pvis.tri_id.numpy()).mean() >= 0.999

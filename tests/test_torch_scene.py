@@ -245,7 +245,8 @@ def test_entry_points_refuse_without_a_card(monkeypatch):
 
 def test_port_and_chip_smoke_import_no_jax():
     """Every module of the port (the asset path's png, image_io, exr, the
-    glTF loader, the render CLI and synth_assets among them),
+    glTF loader, the render CLI and synth_assets, the viewer's ui/,
+    utils/metrics and tools/viewer among them),
     chip_smoke.py and kernel_ab.py import neither jax nor the JAX
     package."""
     code = (
@@ -257,7 +258,8 @@ def test_port_and_chip_smoke_import_no_jax():
         "import chip_smoke, kernel_ab\n"
         "assert len(names) > 20, names\n"
         "new = ['utils.png', 'utils.image_io', 'utils.exr', 'models.gltf', "
-        "'tools.render', 'tools.synth_assets']\n"
+        "'tools.render', 'tools.synth_assets', 'tools.viewer', "
+        "'utils.metrics', 'ui.server', 'ui.scene_panel', 'ui.widgets']\n"
         "assert all(p.__name__ + '.' + n in names for n in new), names\n"
         "import soc_real_time_renderer_tpu_torch.tools.render as r\n"
         "r.parse_args(['--scene', 'full'])\n"

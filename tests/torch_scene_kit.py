@@ -169,14 +169,41 @@ def small_atrium_port(metal_floor=False):
     return model
 
 
-def small_terrain(pkg):
-    """The reduced terrain: 64^2 heightmap, tess level 1."""
+def small_tree(root):
+    """The small synthetic asset tree at `root` (tools/synth_assets.py:
+    a 500-triangle helmet with five 64^2 maps, a 64^2 Clouds/noise.png,
+    no Sponza); returns the path."""
+    from soc_real_time_renderer_tpu_torch.tools import synth_assets
+    synth_assets.write_asset_tree(str(root), rings=10, segments=25,
+                                  helmet_map=64, sponza=False)
+    return str(root)
+
+
+def point_both_at(mp, tree):
+    """With monkeypatch `mp`: both packages' scenes.ASSETS at `tree`,
+    their terrain the reduced one (re-bake overrides honoured), the JAX
+    default model unloaded."""
+    from soc_real_time_renderer_tpu import scenes as jscenes
+    mp.setattr(jscenes, "ASSETS", tree)
+    mp.setattr(pscenes, "ASSETS", tree)
+    mp.setattr(jscenes, "_DEFAULT_MODEL", None)
+    mp.setattr(jscenes, "_terrain_model",
+               lambda **kw: small_terrain("jax", **kw))
+    mp.setattr(pscenes, "_terrain_model",
+               lambda **kw: small_terrain("port", **kw))
+
+
+def small_terrain(pkg, **build_kw):
+    """The reduced terrain: 64^2 heightmap, tess level 1; build_kw:
+    build_terrain_model overrides (the viewer's re-bake passes
+    height_scale, midpoint, scale)."""
     if pkg == "jax":
         from soc_real_time_renderer_tpu.models import terrain as mod
     else:
         mod = pterrain
     hm = mod.procedural_heightmap(64)
-    return mod.build_terrain_model(hm, mod.default_albedo(hm), tess_level=1)
+    return mod.build_terrain_model(hm, mod.default_albedo(hm),
+                                   **{"tess_level": 1, **build_kw})
 
 
 def entities(name, atrium, terrain=None, atrium_scale=0.01):
