@@ -32,6 +32,26 @@ Then the passes that are off by default, two frames each, same size:
   ``cloud_impl="perpixel"``: the exact cloud march at every half-res
   pixel, no LUT.  K1, K5, K2, K3 and not K6.
 
+Then ``batched``: B = 4 views of one scene in one step
+(``parallel/mesh.make_batched_render_fn``: a leading view axis through
+the frame, each kernel launched once for the four views), four distinct
+camera positions each, on two scenes at the same size:
+
+* ``atrium_lifted``: all six kernels, K4 rastering each view's sun view;
+* ``terrain``: the procedural sky LUT (plain PyTorch, a LUT per view),
+  the shadow elided, the sun proof checked over the batch (a batch with
+  one view under another sun is refused before anything launches).
+
+For each: two consecutive batched frames with launch counts (each
+kernel of the path once per batched frame, the others never); view i of
+both frames against ``render_frame`` of view i carrying its own history
+(max abs <= 1e-6, the reading printed); each kernel against its plain
+version on a batched frame's own inputs (recorded by spying on the
+wrappers during a plain-path batched frame), bit for bit; ms per batched
+frame against four single-view frames (CUDA events, median of 5,
+alternating); ``torch.cuda.max_memory_allocated`` of a batched frame at
+B = 1 and B = 4.
+
 Then the asset path, from a synthetic asset tree written into a
 temporary directory at the real assets' sizes
 (``soc_real_time_renderer_tpu_torch/tools/synth_assets.py``: a
@@ -111,6 +131,17 @@ PRESET_FRAMES = 3      # frames of each glTF preset (the CLI renders as many)
 PRESETS = ("helmet", "helmet_lifted", "sponza", "full")   # "full" last:
 #                        its last frame is the CLI phase's reference
 VIEWER_INPUTS = 30     # fly-camera inputs of the viewer phase
+# the batched phase's views: distinct camera positions per scene
+BATCH_POSITIONS = {
+    "atrium_lifted": ([-7.0, 33.8, 0.0], [-4.0, 35.0, 2.0],
+                      [-8.0, 34.5, -2.5], [-2.0, 34.0, -1.0]),
+    # near the preset camera: from [20, 18, 20] a medium triangle covers
+    # more bins than the static med_slots (overflow bit 4, in the single
+    # frame as in the batch)
+    "terrain": ([20.0, 12.0, 20.0], [21.0, 14.0, 19.0], [19.0, 16.0, 21.0],
+                [22.0, 13.0, 21.0]),
+}
+BATCH_FRAMES = 2
 VIEWER_SAMPLES = 20    # /metrics readings (distinct frames) it takes
 ASSET_SEED = 0
 NOISE_SEED = 11
@@ -1059,6 +1090,189 @@ def perpixel_phase(dev, card, results):
     return st["whole frame"]
 
 
+def recorded_inputs(fn):
+    """fn() with every kernel wrapper spied: {kernel: (wrapper, args,
+    kwargs without impl)} of each wrapper's first call."""
+    from soc_real_time_renderer_tpu_torch.ops import raster2, sky, ssao, \
+        taa, texsample
+    wrappers = {"resolve": (raster2, "resolve"),
+                "resolve_depth": (raster2, "resolve_depth"),
+                "texsample": (texsample, "sample_atlas"),
+                "ssao_taps": (ssao, "ssao_taps"),
+                "sky_lut": (sky, "render_sky_lut_noise"),
+                "taa_reproject": (taa, "reproject_history")}
+    seen, real = {}, {}
+    for k, (mod, attr) in wrappers.items():
+        real[k] = getattr(mod, attr)
+
+        def spy(*a, _k=k, **kw):
+            seen.setdefault(_k, (real[_k], a, {n: v for n, v in kw.items()
+                                               if n != "impl"}))
+            return real[_k](*a, **kw)
+
+        setattr(mod, attr, spy)
+    try:
+        fn()
+    finally:
+        for k, (mod, attr) in wrappers.items():
+            setattr(mod, attr, real[k])
+    return seen
+
+
+def batched_phase(name, dev, card, results):
+    """B = len(BATCH_POSITIONS[name]) views of `name` in one step: launch
+    counts over BATCH_FRAMES batched frames, each view against its
+    single-view frame, each kernel against its plain version on the
+    batched inputs, batched against single-view frame ms, peak memory at
+    B = 1 and B.  Returns (batched ms, single-view ms, peak MiB B = 1,
+    peak MiB B)."""
+    import dataclasses
+    import torch
+    from soc_real_time_renderer_tpu_torch.config import SunInfo
+    from soc_real_time_renderer_tpu_torch.graph import frame as fm
+    from soc_real_time_renderer_tpu_torch.kernels import build as kb
+    from soc_real_time_renderer_tpu_torch.parallel import mesh as pmesh
+    built = build_scene(name, dev)
+    plan, batch = built.plan, built.batch
+    path = path_of(plan, batch)
+    positions = BATCH_POSITIONS[name]
+    B = len(positions)
+    step = pmesh.make_batched_render_fn(plan)
+
+    def histories(n):
+        return pmesh.batched_history([fm.RenderHistory.create(
+            plan.config, device=dev) for _ in range(n)])
+
+    if name == "terrain":
+        check(plan.shadow_statically_empty and "sky_lut" not in path,
+              "terrain: the shadow elided, the procedural LUT")
+        gs, mm, nm = pmesh.view_globals(built, positions, 0)
+        gs[1] = dataclasses.replace(gs[1], sun=SunInfo.create(
+            angle_direction_deg=(12.0, 0.0, 0.0), device=dev))
+        kb.reset_launches()
+        try:
+            step(batch, pmesh.batched_globals(gs), histories(B), mm, nm)
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused and not any(kb.launches.values()),
+              "a batch with one view under another sun is refused before "
+              "any launch")
+    else:
+        check(not plan.shadow_statically_empty
+              and plan.shadow_crop is not None
+              and sorted(path) == sorted(KERNELS),
+              f"{name}: the shadow paid through its crop, all six kernels")
+
+    # BATCH_FRAMES consecutive batched frames, the launch counts around them
+    hb = histories(B)
+    frames, prev = [], None
+    kb.reset_launches()
+    for f in range(BATCH_FRAMES):
+        gs, mm, nm = pmesh.view_globals(built, positions, f, prev)
+        prev = [g.camera for g in gs]
+        hb_in = hb
+        colors, hb = step(batch, pmesh.batched_globals(gs), hb, mm, nm)
+        frames.append((colors, hb, gs, hb_in))
+    torch.cuda.synchronize()
+    counts = dict(kb.launches)
+    log(f"[batched {name}] {B} views, launches over {BATCH_FRAMES} batched "
+        f"frames: {counts}")
+    check(all(counts[k] == (BATCH_FRAMES if k in path else 0)
+              for k in counts),
+          f"each kernel of {path} launched once per batched frame of {B} "
+          f"views, no other")
+    for k in counts:
+        results[k][f"batched {name}"] = {"launches": counts[k]}
+    colors = frames[-1][0]
+    check(colors.shape == (B, 3, HEIGHT, WIDTH)
+          and torch.isfinite(colors).all().item(), "finite (B, 3, H, W)")
+    spread = min((colors[i] - colors[j]).abs().mean().item()
+                 for i in range(B) for j in range(i))
+    check(spread > 1e-3, f"the {B} views are distinct images ({spread:.4g})")
+
+    # view i of each batched frame against render_frame of view i
+    hs = [fm.RenderHistory.create(plan.config, device=dev)
+          for _ in range(B)]
+    worst = {"colour": 0.0, "history colour": 0.0, "exposure": 0.0}
+    overflow = []
+    for colors_f, hb_f, gs, _ in frames:
+        for i in range(B):
+            out, hs[i] = fm.render_frame(plan, batch, gs[i], hs[i], mm, nm)
+            overflow.append(int(out.overflow))
+            for key, (a, b) in {
+                    "colour": (out.color, colors_f[i]),
+                    "history colour": (hs[i].previous_color,
+                                       hb_f.previous_color[i]),
+                    "exposure": (hs[i].exposure, hb_f.exposure[i])}.items():
+                worst[key] = max(worst[key], (a.float() - b.float()).abs()
+                                 .max().item())
+    torch.cuda.synchronize()
+    log(f"[batched {name}] view i of {BATCH_FRAMES} batched frames against "
+        f"render_frame of view i, max abs: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in worst.items()) + " (<= 1e-6); "
+        f"overflow bits of each single frame {overflow}")
+    check(not any(overflow), "no view overflows the static caps")
+    check(max(worst.values()) <= 1e-6, "each view equals its single frame")
+
+    # each kernel against its plain version on the last frame's inputs
+    colors_l, _, gs_l, hb_l = frames[-1]
+    gb_l = pmesh.batched_globals(gs_l)
+    plain_step = pmesh.make_batched_render_fn(plan, impl="plain")
+    seen = recorded_inputs(lambda: plain_step(batch, gb_l, hb_l, mm, nm))
+    check(sorted(seen) == sorted(path), f"inputs recorded for {path}")
+    for k, (fn, a, kw) in seen.items():
+        got, want = fn(*a, impl="cuda", **kw), fn(*a, impl="plain", **kw)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max((x.float() - y.float()).abs().max().item()
+                  for x, y in zip(got, want))
+        same = all(torch.equal(x, y) for x, y in zip(got, want))
+        log(f"[batched {name}] parity {k}: {tuple(got[0].shape)}, max abs "
+            f"{err:.3g} (== 0), equal {same}")
+        check(same and err == 0.0, f"batched {name} {k} parity")
+    del seen
+
+    # batched frame against four single-view frames, alternating
+    def batched():
+        step(batch, gb_l, hb_l, mm, nm)
+
+    def singles():
+        for i in range(B):
+            fm.render_frame(plan, batch, gs_l[i], hs[i], mm, nm)
+
+    batched()
+    singles()
+    torch.cuda.synchronize()
+    ms = {"batched": [], "singles": []}
+    for _ in range(TIMED):
+        ms["batched"].append(cuda_ms(batched, 1))
+        ms["singles"].append(cuda_ms(singles, 1))
+    b_ms = statistics.median(ms["batched"])
+    s_ms = statistics.median(ms["singles"])
+
+    # peak device memory of one batched frame at B = 1 and at B
+    peak = {}
+    for n in (1, B):
+        gb_n = pmesh.batched_globals(gs_l[:n])
+        hb_n = histories(n)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        step(batch, gb_n, hb_n, mm, nm)
+        torch.cuda.synchronize()
+        peak[n] = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    log(f"[batched {name}] {WIDTH}x{HEIGHT}, {B} views: batched frame "
+        f"{b_ms:.2f} ms against {B} single-view frames {s_ms:.2f} ms "
+        f"({s_ms / B:.2f} ms each; median of {TIMED}, alternating); peak "
+        f"device memory of a batched frame (max_memory_allocated, the "
+        f"scene's own tensors included): B = 1 {peak[1]:.0f} MiB, B = {B} "
+        f"{peak[B]:.0f} MiB {card}")
+    del built, frames, colors, colors_l, hb, hb_l, gb_l
+    torch.cuda.empty_cache()
+    return b_ms, s_ms, peak[1], peak[B]
+
+
 def asset_phase(tree, card):
     """Writes the synthetic asset tree at the real assets' sizes
     (tools/synth_assets.py: a 15,480-triangle helmet with five 2048^2
@@ -1652,6 +1866,12 @@ def main():
         t0 = time.perf_counter()
         pass_ms[name] = phase(dev, card, results)
         seconds[name] = time.perf_counter() - t0
+    # B views in one step
+    batch_ms = {}
+    for name in ("atrium_lifted", "terrain"):
+        t0 = time.perf_counter()
+        batch_ms[name] = batched_phase(name, dev, card, results)
+        seconds[f"batched {name}"] = time.perf_counter() - t0
     # the asset path: a written asset tree, the four glTF presets, the CLI
     from soc_real_time_renderer_tpu_torch import scenes
     preset_ms = {}
@@ -1675,6 +1895,10 @@ def main():
         f"{n} kernel path {k:.2f} ms vs plain {p:.2f} ms"
         for n, (k, p) in frames.items()) + "; " + ", ".join(
         f"{n} {v:.2f} ms" for n, v in {**pass_ms, **preset_ms}.items())
+        + "; " + ", ".join(
+            f"batched {n} {b:.2f} ms vs {len(BATCH_POSITIONS[n])} singles "
+            f"{s:.2f} ms, peak {m1:.0f} / {mb:.0f} MiB"
+            for n, (b, s, m1, mb) in batch_ms.items())
         + f"; viewer frame_ms {viewer['frame_ms']} latency_ms "
         f"{viewer['latency_ms']} (medians), full tier "
         f"{viewer['full_tier_s']:.2f} s, cheap tier "

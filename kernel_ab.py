@@ -9,7 +9,10 @@ this, other.
     python3 kernel_ab.py \\
         --other build/other/soc_real_time_renderer_tpu_torch/kernels/csrc
 
-Without ``--other`` the other build is the checkout's own sources, which
+The other tree's launch functions must take this tree's arguments (the
+view count of the batched render included): a tree from before that
+does not load.  Without ``--other`` the other build is the checkout's
+own sources, which
 with ``--other-flags`` times a compile-time variant against the default
 (K4's region of 32x8 pixels against its default 32x16):
 

@@ -19,6 +19,8 @@ per module:
   ops/        render passes; each ported Pallas kernel has a CUDA kernel
               (kernels/csrc) and a plain PyTorch version side by side
   graph/      frame assembly: render_frame()
+  parallel/   B views of one scene in one step (a leading view axis;
+              each kernel launches once for the B views)
   kernels/    nvcc build + ctypes binding of the CUDA sources
   convert.py  moves the JAX package's objects (as numpy) onto a device
 

@@ -58,6 +58,38 @@ def tree_to(obj, device):
     return torch.from_numpy(np.array(obj, order="C")).to(device)
 
 
+def tree_map(fn, *objs):
+    """Dataclass trees of tensors -> the same tree with each leaf
+    fn(*leaves) (None stays None)."""
+    obj = objs[0]
+    if obj is None:
+        return None
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: tree_map(fn, *(getattr(o, f.name) for o in objs))
+            for f in dataclasses.fields(obj)})
+    return fn(*objs)
+
+
+def view_count(g) -> int | None:
+    """The number of views of ShaderGlobals `g`: None for one frame's
+    globals, B where every leaf carries a leading view axis (B, ...),
+    read off ``frame_counter``'s shape."""
+    return None if g.frame_counter.dim() == 0 else g.frame_counter.shape[0]
+
+
+def stack_views(trees):
+    """A list of B dataclass trees (ShaderGlobals, RenderHistory) -> one
+    tree whose leaves are stacked on a new leading view axis (B, ...)."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def select_view(tree, i: int):
+    """View `i` of a batched dataclass tree (every leaf indexed on its
+    leading view axis)."""
+    return tree_map(lambda x: x[i], tree)
+
+
 @dataclass(frozen=True)
 class CameraMatrices:
     """One camera matrix set (shared.inl:48-60)."""

@@ -81,6 +81,13 @@ def history_from_numpy(h, device="cpu") -> frame_mod.RenderHistory:
         exposure=to_tensor(h.exposure, device).to(torch.float32))
 
 
+# The JAX package's batched pytrees (parallel/mesh.batched_globals and a
+# stacked RenderHistory: every leaf (B, ...)) convert leaf by leaf alike,
+# into the port's batched globals and history (parallel/mesh.py).
+batched_globals_from_numpy = globals_from_numpy
+batched_history_from_numpy = history_from_numpy
+
+
 def plan_from_jax_plan(plan) -> frame_mod.FramePlan:
     """The port's FramePlan from the JAX one: same config and grids
     (the TPU record-format fields of BinGrid are dropped, the port

@@ -18,6 +18,13 @@ bracketed passes are off by default (``RenderConfig.enable_ssr``,
 ``composite_ssr``, ``enable_depth_of_field``,
 ``enable_volumetric_light``, ``cloud_impl="perpixel"``) and run as plain
 PyTorch.
+
+Views: ``render_frame`` also renders B views of one scene at once
+(``parallel/mesh.py``), given globals and history whose every leaf has a
+leading view axis.  The geometry's world transform is then made once,
+everything that reads the globals gains the view axis, each kernel
+launches once for the B views, and every output and history target is
+(B, ...).  The bracketed passes then run view by view.
 """
 from __future__ import annotations
 
@@ -27,7 +34,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..config import RenderConfig, ShaderGlobals, resolve_device
+from ..config import RenderConfig, ShaderGlobals, resolve_device, \
+    select_view
 from ..models.scene_batch import SceneBatch
 from ..ops import bloom as bloom_ops
 from ..ops import clouds as clouds_ops
@@ -48,10 +56,11 @@ from ..ops import tonemap as tonemap_ops
 @dataclass(frozen=True)
 class RenderHistory:
     """Cross-frame carry: resolved colour and velocity in bf16 (the
-    RGBA16F history target analog), auto-exposure state in f32."""
-    previous_color: torch.Tensor      # (3, H, W) bf16
-    previous_velocity: torch.Tensor   # (2, H, W) bf16
-    exposure: torch.Tensor            # () f32
+    RGBA16F history target analog), auto-exposure state in f32; with a
+    leading view axis (*V) for a batch of views."""
+    previous_color: torch.Tensor      # (*V, 3, H, W) bf16
+    previous_velocity: torch.Tensor   # (*V, 2, H, W) bf16
+    exposure: torch.Tensor            # (*V,) f32
 
     @staticmethod
     def create(config: RenderConfig, device=None):
@@ -103,20 +112,21 @@ class FramePlan:
 
 @dataclass(frozen=True)
 class FrameOutputs:
-    """All intermediate targets of one frame."""
-    color: torch.Tensor            # (3, H, W) final tonemapped [0,1]
-    hdr: torch.Tensor              # (3, H, W) pre-tonemap
+    """All intermediate targets of one frame (each with a leading view
+    axis *V when the frame renders a batch of views)."""
+    color: torch.Tensor            # (*V, 3, H, W) final tonemapped [0,1]
+    hdr: torch.Tensor              # (*V, 3, H, W) pre-tonemap
     gbuffer: gbuf_ops.GBuffer
-    shadow_map: torch.Tensor | None
-    ssao: torch.Tensor | None      # (H/2, W/2) blurred
-    clouds: torch.Tensor | None    # (3, H/2, W/2)
+    shadow_map: torch.Tensor | None  # (*V, S, S)
+    ssao: torch.Tensor | None      # (*V, H/2, W/2) blurred
+    clouds: torch.Tensor | None    # (*V, 3, H/2, W/2)
     bloom: torch.Tensor | None
     ssr: torch.Tensor | None
     hiz_min: list | None
     hiz_max: list | None
-    overflow: torch.Tensor         # () int32 raster2.OVERFLOW_* bitmask
-    tex_dirty: torch.Tensor        # () int32, -1: exact texture gather
-    ssr_active: torch.Tensor       # () int32, -1: SSR off
+    overflow: torch.Tensor         # (*V,) int32 raster2.OVERFLOW_* bits
+    tex_dirty: torch.Tensor        # (*V,) int32, -1: exact texture gather
+    ssr_active: torch.Tensor       # (*V,) int32, -1: SSR off
 
 
 def transform_triangles(batch: SceneBatch, model_mats, normal_mats):
@@ -144,21 +154,25 @@ def transform_triangles(batch: SceneBatch, model_mats, normal_mats):
 
 
 def _clip_of(world, view_proj):
-    """world (3, 3, T) -> clip (3 verts, 4, T) planar."""
+    """world (3, 3, T) -> clip (3 verts, 4, T) planar; a (B, 4, 4)
+    view_proj (one per view) gives (B, 3, 4, T)."""
+    m = view_proj[..., None]                       # (*V, 4, 4, 1)
     outs = []
     for v in range(3):
         p = world[v]
         outs.append(torch.stack([
-            view_proj[i, 0] * p[0] + view_proj[i, 1] * p[1]
-            + view_proj[i, 2] * p[2] + view_proj[i, 3] for i in range(4)]))
-    return torch.stack(outs)
+            m[..., i, 0, :] * p[0] + m[..., i, 1, :] * p[1]
+            + m[..., i, 2, :] * p[2] + m[..., i, 3, :] for i in range(4)],
+            dim=-2))
+    return torch.stack(outs, dim=-3)
 
 
 def raster_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
                  model_mats, normal_mats, impl: str | None = None):
     """Geometry half: transform, main-view raster (K1), the sun shadow
     view (back-face culled, depth only: K4) unless the build proved its
-    map empty, shading records."""
+    map empty, shading records.  Batched globals: the transform once,
+    the rest per view (each view's sun too), one K1 and one K4 launch."""
     cfg = plan.config
     world, wnrm = transform_triangles(batch, model_mats, normal_mats)
     clip = _clip_of(world, g.camera.projection_view)
@@ -184,6 +198,18 @@ def shade_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
     """Screen-space half of the frame."""
     cfg = plan.config
     dev = vis.depth.device
+    V = vis.depth.shape[:-2]
+
+    def each_view(fn, *arrays):
+        """fn(g, *arrays) of one view's globals and arrays, run view by
+        view over the batch and stacked (the passes not yet batched)."""
+        if not V:
+            return fn(g, *arrays)
+        outs = [fn(select_view(g, i), *(a[i] for a in arrays))
+                for i in range(V[0])]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.stack(o) for o in zip(*outs))
+        return torch.stack(outs)
 
     hiz_min = hiz_max = None
     if cfg.enable_hiz:
@@ -213,11 +239,11 @@ def shade_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
 
     # SSR: computed, composited only behind composite_ssr (below)
     ssr_img = None
-    ssr_active = torch.full((), -1, dtype=torch.int32, device=dev)
+    ssr_active = torch.full(V, -1, dtype=torch.int32, device=dev)
     if cfg.enable_ssr:
-        ssr_img, ssr_overflow, ssr_active = ssr_ops.ssr(
-            vis.depth, gbuf.albedo, gbuf.normal, gbuf.metallic_roughness, g,
-            compact_cap=plan.ssr_cap)
+        ssr_img, ssr_overflow, ssr_active = each_view(
+            lambda gv, *a: ssr_ops.ssr(*a, gv, compact_cap=plan.ssr_cap),
+            vis.depth, gbuf.albedo, gbuf.normal, gbuf.metallic_roughness)
         overflow = overflow | ssr_overflow
 
     clouds_full = None
@@ -243,8 +269,10 @@ def shade_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
                 "per-pixel march needs the noise texture.", stacklevel=2)
         if cfg.cloud_impl == "perpixel" and noise is not None:
             # the exact per-pixel march: no LUT is made
-            clouds_half = clouds_ops.render_clouds(g, vis.depth, noise, hw,
-                                                   hh, **quadrant)
+            clouds_half = each_view(
+                lambda gv, d: clouds_ops.render_clouds(gv, d, noise, hw, hh,
+                                                       **quadrant),
+                vis.depth)
         else:
             if cfg.cloud_noise_mode == "texture" and noise is not None:
                 lut = sky_ops.render_sky_lut_noise(g, noise, impl=impl)
@@ -266,15 +294,16 @@ def shade_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
         shadow_crop=plan.shadow_crop)
     if cfg.composite_ssr and ssr_img is not None:
         # the mix the reference comments out (composition.inl:213-216)
-        rough = gbuf.metallic_roughness[0]
-        metal = gbuf.metallic_roughness[1]
-        hdr = hdr + (ssr_img - hdr) * (metal * (1.0 - rough))[None]
+        rough = gbuf.metallic_roughness[..., 0, :, :]
+        metal = gbuf.metallic_roughness[..., 1, :, :]
+        hdr = hdr + (ssr_img - hdr) * (metal * (1.0 - rough)).unsqueeze(-3)
 
     # depth of field blurs the composed colour before the luminance
     # histogram and TAA, so it feeds the history once and does not
     # compound (renderer.cpp:1119-1153)
     if cfg.enable_depth_of_field:
-        hdr = dof_ops.depth_of_field(hdr, vis.depth, g)
+        hdr = each_view(lambda gv, c, d: dof_ops.depth_of_field(c, d, gv),
+                        hdr, vis.depth)
 
     if cfg.enable_auto_exposure:
         exposure = exposure_ops.auto_exposure(hdr, history.exposure, g)
@@ -301,7 +330,7 @@ def shade_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
         color=color, hdr=hdr, gbuffer=gbuf, shadow_map=shadow_map, ssao=ssao,
         clouds=clouds_half, bloom=bloom, ssr=ssr_img, hiz_min=hiz_min,
         hiz_max=hiz_max, overflow=overflow,
-        tex_dirty=torch.full((), -1, dtype=torch.int32, device=dev),
+        tex_dirty=torch.full(V, -1, dtype=torch.int32, device=dev),
         ssr_active=ssr_active)
     return outputs, new_history
 
@@ -312,7 +341,9 @@ def render_frame(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
                  ) -> tuple[FrameOutputs, RenderHistory]:
     """One frame.  impl: None runs each ported kernel on a card (the
     plain PyTorch versions on the CPU); "plain" forces the plain
-    versions (comparisons only); "cuda" demands the kernels."""
+    versions (comparisons only); "cuda" demands the kernels.  Globals
+    and history with a leading view axis render that batch of views
+    (see the module docstring; parallel/mesh.make_batched_render_fn)."""
     check_sun_proof(plan, g)
     check_shadow_crop(plan, model_mats)
     vis, records, shadow_map, overflow = raster_stage(
@@ -339,6 +370,7 @@ def check_sun_proof(plan: FramePlan, g: ShaderGlobals):
     if not plan.shadow_statically_empty or plan.proved_sun_pv is None:
         return
     proved = np.asarray(plan.proved_sun_pv, np.float32).reshape(4, 4)
+    # (4, 4) or (B, 4, 4): np.allclose broadcasts the proof to each view
     pv = g.sun.projection_view.detach().cpu().numpy()
     if not np.allclose(pv, proved, atol=1e-6):
         raise ValueError(

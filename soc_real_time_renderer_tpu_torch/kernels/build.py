@@ -8,6 +8,9 @@ first use.  It is rebuilt when a source is newer than the library.
 Every launch function takes raw device pointers and PyTorch's current
 stream, launches without synchronising and returns the
 ``cudaGetLastError`` code, which :func:`check` turns into an exception.
+Each kernel but K5 takes a view count: that many inputs and outputs lie
+back to back and one launch covers them all (one frame is 1 view; K5's
+views fold into its pixel axis).
 
 ``--fmad=false``: nvcc contracts ``a*b + c`` into FMA by default, which
 can move an edge-function value by an ulp and flip coverage on edge
@@ -50,19 +53,20 @@ build_seconds = None  # wall time of the last build (None: none ran)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # starts, recs, depth, tri_id, cap, num_bins, bx, bw, bh, out_w, stream
-    "resolve_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # starts, recs, depth, cap, num_bins, bx, bw, bh, out_w, stream
-    "resolve_depth_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # starts, recs, depth, tri_id, cap, num_bins, bx, bw, bh, out_w,
+    # views, stream
+    "resolve_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # starts, recs, depth, cap, num_bins, bx, bw, bh, out_w, views, stream
+    "resolve_depth_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # atlas, mid, uv, lod, out, P, rows, size, layer_stride, n_levels,
     # filter mode, stream
     "texsample_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # planes, depth, params, kern, out, h, w, H, W, k, stream
-    "ssao_taps_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # params, noise, out, lut_w, lut_h, stream
-    "sky_lut_launch": [_P, _P, _P, _I, _I, _P],
-    # history, velocity, out, C, H, W, stream
-    "taa_reproject_launch": [_P, _P, _P, _I, _I, _I, _P],
+    # planes, depth, params, kern, out, h, w, H, W, k, views, stream
+    "ssao_taps_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # params, noise, out, lut_w, lut_h, views, stream
+    "sky_lut_launch": [_P, _P, _P, _I, _I, _I, _P],
+    # history, velocity, out, C, H, W, views, stream
+    "taa_reproject_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

@@ -17,7 +17,10 @@
 // records `recs` (16, cap) float32, rows [adjugate 3x3 | z0..2 | w0..2 |
 // id as an exact float] (K4 reads rows 0-14).  Outputs `depth` f32 and,
 // for K1, `tri_id` i32, both (rows of bins * bh, out_w) with out_w = bins
-// per row * bw.
+// per row * bw.  Views: `views` such sets back to back, (views, num_bins
+// + 1) starts, (views, 16, cap) records, (views, rows, out_w) outputs,
+// resolved by one launch whose blockIdx.y is the view (the B views of
+// parallel/mesh.py; one frame is views = 1).
 //
 // The work.  What an exact resolve must do is small: of the (pair,
 // pixel) tests a bin resolve could make, only 0.5-1.8% fall inside a
@@ -184,13 +187,19 @@ template <bool kIds, int kTiles>
 __global__ void __launch_bounds__(kThreads)
 resolve_body(const int* __restrict__ starts, const float* __restrict__ recs,
              int cap, int vec, int bx, int bw, int bh, int parts_x,
-             int parts, int out_w, float* __restrict__ depth,
-             int* __restrict__ tri_id) {
+             int parts, int out_w, size_t out_view,
+             float* __restrict__ depth, int* __restrict__ tri_id) {
     constexpr int kR = kIds ? 16 : 15;
     constexpr int kRegionH = kBlockH * kTiles;
     __shared__ __align__(16) float s[2][kR][kWindow];
     __shared__ int kept[kWindow];             // window columns kept
     __shared__ int kept_by_warp[kThreads / 32];
+    // this block's view: its starts, records and output planes
+    const int num_bins = gridDim.x / parts;
+    starts += (size_t)blockIdx.y * (num_bins + 1);
+    recs += (size_t)blockIdx.y * 16 * cap;
+    depth += blockIdx.y * out_view;
+    if (kIds) tri_id += blockIdx.y * out_view;
     const int b = blockIdx.x / parts;
     const int part = blockIdx.x % parts;
     const int warp = threadIdx.x / 32;
@@ -342,20 +351,24 @@ resolve_body(const int* __restrict__ starts, const float* __restrict__ recs,
 template <bool kIds, int kTiles>
 int launch(const void* starts, const void* recs, void* depth, void* tri_id,
            int cap, int num_bins, int bx, int bw, int bh, int out_w,
-           void* stream) {
-    if (bw <= 0 || bh <= 0) return (int)cudaErrorInvalidValue;
-    if (num_bins <= 0) return 0;
+           int views, void* stream) {
+    if (bw <= 0 || bh <= 0 || bx <= 0 || views > 65535)
+        return (int)cudaErrorInvalidValue;
+    if (num_bins <= 0 || views <= 0) return 0;
     const int region_h = kBlockH * kTiles;
     const int parts_x = (bw + kBlockW - 1) / kBlockW;
     const int parts = parts_x * ((bh + region_h - 1) / region_h);
     if ((long long)num_bins * parts > 0x7fffffff) {
         return (int)cudaErrorInvalidValue;
     }
+    // a view's records start 16 * cap floats apart: aligned alike
     const int vec = cap % 4 == 0 && (uintptr_t)recs % 16 == 0;
+    const size_t out_view = (size_t)((num_bins + bx - 1) / bx) * bh * out_w;
     resolve_body<kIds, kTiles>
-        <<<num_bins * parts, kThreads, 0, (cudaStream_t)stream>>>(
+        <<<dim3(num_bins * parts, views), kThreads, 0,
+           (cudaStream_t)stream>>>(
             (const int*)starts, (const float*)recs, cap, vec, bx, bw, bh,
-            parts_x, parts, out_w, (float*)depth, (int*)tri_id);
+            parts_x, parts, out_w, out_view, (float*)depth, (int*)tri_id);
     return (int)cudaGetLastError();
 }
 
@@ -364,17 +377,18 @@ int launch(const void* starts, const void* recs, void* depth, void* tri_id,
 SOC_EXPORT int resolve_depth_launch(const void* starts, const void* recs,
                                     void* depth, int cap, int num_bins,
                                     int bx, int bw, int bh, int out_w,
-                                    void* stream) {
+                                    int views, void* stream) {
     return launch<false, SOC_K4_TILES>(starts, recs, depth, nullptr, cap,
-                                       num_bins, bx, bw, bh, out_w, stream);
+                                       num_bins, bx, bw, bh, out_w, views,
+                                       stream);
 }
 
 SOC_EXPORT int resolve_launch(const void* starts, const void* recs,
                               void* depth, void* tri_id, int cap,
                               int num_bins, int bx, int bw, int bh,
-                              int out_w, void* stream) {
+                              int out_w, int views, void* stream) {
     return launch<true, 1>(starts, recs, depth, tri_id, cap, num_bins, bx,
-                           bw, bh, out_w, stream);
+                           bw, bh, out_w, views, stream);
 }
 
 SOC_EXPORT const char* soc_error_string(int code) {

@@ -16,7 +16,9 @@
 // Inputs: `params` 16 f32 [sun_dir 3 | atmosphere origin 3 | camera x, z
 // | elapsed | cloud drift | sky light * 0.25 / pi 3 | pad], computed by
 // the wrapper with the plain version's own PyTorch operations; `noise`
-// (64, 64) f32.  Output (3, lut_h, lut_w) f32.
+// (64, 64) f32.  Output (3, lut_h, lut_w) f32.  Views: `views` parameter
+// rows and LUTs back to back, one launch, blockIdx.y the view (the noise
+// is shared).
 //
 // What held the first design back: one thread per texel in 128 blocks
 // put two warps on a scheduler, with nothing to hide the latency of a
@@ -211,6 +213,8 @@ sky_lut_kernel(const float* __restrict__ params,
     const int lane = threadIdx.x % 32;
     float* park = scratch[warp];
 
+    params += blockIdx.y * 16;
+    out += (size_t)blockIdx.y * 3 * lut_w * lut_h;
     const float sx = params[0], sy = params[1], sz = params[2];
     const float ox = params[3], oy = params[4], oz = params[5];
     const float cam_x = params[6], cam_z = params[7];
@@ -440,14 +444,17 @@ sky_lut_kernel(const float* __restrict__ params,
 }  // namespace
 
 SOC_EXPORT int sky_lut_launch(const void* params, const void* noise,
-                              void* out, int lut_w, int lut_h,
+                              void* out, int lut_w, int lut_h, int views,
                               void* stream) {
-    if (lut_w <= 0 || lut_h <= 0) return (int)cudaErrorInvalidValue;
+    if (lut_w <= 0 || lut_h <= 0 || views > 65535)
+        return (int)cudaErrorInvalidValue;
+    if (views <= 0) return 0;
     const long long texels = (long long)lut_w * lut_h;
     if (texels > 0x7fffffff) return (int)cudaErrorInvalidValue;
     const long long per_block = kWarps * kTexelsPerWarp;
     const int grid = (int)((texels + per_block - 1) / per_block);
-    sky_lut_kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
+    sky_lut_kernel<<<dim3(grid, views), kWarps * 32, 0,
+                     (cudaStream_t)stream>>>(
         (const float*)params, (const float*)noise, (float*)out, lut_w,
         lut_h);
     return (int)cudaGetLastError();

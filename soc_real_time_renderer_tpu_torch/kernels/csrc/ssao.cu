@@ -12,7 +12,9 @@
 // PyTorch, ops/ssao._preamble); `depth` (H, W) f32 full resolution;
 // `params` 34 f32 = [projection 4x4 | inverse projection 4x4 | radius |
 // bias]; `kern` (k, 3) f32 hemisphere vectors.  Output (h, w) f32 =
-// 1 - occlusion / k.
+// 1 - occlusion / k.  Views: `views` sets of planes, depth, parameters
+// and output back to back (a 34-float parameter row per view), one
+// launch, blockIdx.z the view; the kernel vectors are shared.
 //
 // Bound: operations, on this card the schedulers' instruction rate.  The 26-tap
 // instantiation is ~150 SASS instructions a tap: ~70 uncontracted f32
@@ -74,6 +76,11 @@ ssao_taps_kernel(const float* __restrict__ planes,
     __shared__ float s_kern[kMaxTaps * 3];
     const int k = kTaps > 0 ? kTaps : k_rt;
     const int tid = threadIdx.y * SOC_K2_BX + threadIdx.x;
+    const size_t hw_view = (size_t)h * w;
+    planes += blockIdx.z * 12 * hw_view;
+    depth += blockIdx.z * (size_t)H * W;
+    params += blockIdx.z * kParams;
+    out += blockIdx.z * hw_view;
     for (int i = tid; i < kParams; i += kThreads) s_par[i] = params[i];
     for (int i = tid; i < 3 * k; i += kThreads) s_kern[i] = kern[i];
     __syncthreads();
@@ -149,13 +156,14 @@ ssao_taps_kernel(const float* __restrict__ planes,
 SOC_EXPORT int ssao_taps_launch(const void* planes, const void* depth,
                                 const void* params, const void* kern,
                                 void* out, int h, int w, int H, int W,
-                                int k, void* stream) {
-    if (k <= 0 || k > kMaxTaps) return (int)cudaErrorInvalidValue;
-    if (h <= 0 || w <= 0) return 0;
+                                int k, int views, void* stream) {
+    if (k <= 0 || k > kMaxTaps || views > 65535)
+        return (int)cudaErrorInvalidValue;
+    if (h <= 0 || w <= 0 || views <= 0) return 0;
     cudaStream_t st = (cudaStream_t)stream;
     const dim3 block(SOC_K2_BX, SOC_K2_BY);
     const dim3 grid((w + SOC_K2_BX - 1) / SOC_K2_BX,
-                    (h + SOC_K2_BY - 1) / SOC_K2_BY);
+                    (h + SOC_K2_BY - 1) / SOC_K2_BY, views);
     const float* pl = (const float*)planes;
     const float* dp = (const float*)depth;
     const float* pa = (const float*)params;

@@ -9,7 +9,8 @@
 // its VMEM window and has no counterpart here.
 //
 // Inputs: `hist` (C, H, W) bf16, `vel` (2, H, W) f32 (the dilated
-// velocity).  Output (C, H, W) f32.
+// velocity).  Output (C, H, W) f32.  Views: `views` such sets back to
+// back ((views, C, H, W) history, ...), one launch, blockIdx.z the view.
 //
 // Design: one thread per pixel computes the tap position and weights
 // once and fetches the 4 corners of each of the C channels, so that each
@@ -42,6 +43,9 @@ __global__ void taa_reproject_kernel(const __nv_bfloat16* __restrict__ hist,
     const int y = blockIdx.y * blockDim.y + threadIdx.y;
     if (x >= W || y >= H) return;
     const size_t HW = (size_t)H * W;
+    hist += blockIdx.z * C * HW;
+    vel += blockIdx.z * 2 * HW;
+    out += blockIdx.z * C * HW;
     const size_t i = (size_t)y * W + x;
     const float u = ((float)x + 0.5f) / (float)W - vel[i];
     const float v = ((float)y + 0.5f) / (float)H - vel[HW + i];
@@ -71,10 +75,11 @@ __global__ void taa_reproject_kernel(const __nv_bfloat16* __restrict__ hist,
 
 SOC_EXPORT int taa_reproject_launch(const void* hist, const void* vel,
                                     void* out, int C, int H, int W,
-                                    void* stream) {
-    if (H <= 0 || W <= 0) return 0;
+                                    int views, void* stream) {
+    if (views > 65535) return (int)cudaErrorInvalidValue;
+    if (H <= 0 || W <= 0 || views <= 0) return 0;
     const dim3 block(32, 8);
-    const dim3 grid((W + 31) / 32, (H + 7) / 8);
+    const dim3 grid((W + 31) / 32, (H + 7) / 8, views);
     taa_reproject_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
         (const __nv_bfloat16*)hist, (const float*)vel, (float*)out, C, H, W);
     return (int)cudaGetLastError();

@@ -116,9 +116,13 @@ def upsample_tent_conv(src, dst_h, dst_w):
 
 
 def bloom(emissive, mip_count: int = 4):
-    """Full chain on the emissive target: mips 0..mip_count-1 (mip i is
-    (H >> i, W >> i)), additive tent upsample back into each level and
-    finally into emissive."""
+    """Full chain on the emissive target (*V, 3, H, W): mips
+    0..mip_count-1 (mip i is (H >> i, W >> i)), additive tent upsample
+    back into each level and finally into emissive.  Every filter works
+    plane by plane, so the views fold into the channel axis."""
+    if emissive.dim() > 3:
+        return bloom(emissive.reshape(-1, *emissive.shape[-2:]),
+                     mip_count).reshape(emissive.shape)
     H, W = emissive.shape[1:]
     mips = []
     cur = emissive

@@ -10,7 +10,11 @@ noise texture when given one (the plain version of kernel K6,
 reference's QUADRANT quirk), and the exact per-pixel march
 ``render_clouds`` (``RenderConfig.cloud_impl="perpixel"``).
 
-Vectors ride the LAST axis as in the JAX version.  The march's steps
+Vectors ride the LAST axis as in the JAX version.  With batched
+ShaderGlobals (a leading view axis, ``parallel/mesh.py``) the LUT and
+its lookup are made for every view at once: a per-view vector is
+shaped (B, 1, 1, 3) against the (lut_h, lut_w, 3) rays, the LUTs come
+out (B, 3, lut_h, lut_w).  The march's steps
 are independent except for the transmittance carry, so the 24 primary
 samples and their 24x10 sun-march samples are evaluated as one batch;
 every point gets the same operations in the same order as the JAX
@@ -23,6 +27,7 @@ import math
 import torch
 
 from . import sampling
+from ..utils import views
 
 CLOUD_SPEED = 0.02
 CLOUD_HEIGHT = 1600.0
@@ -119,7 +124,7 @@ def _atmospheric_scattering_top(sun_dir):
     dev = sun_dir.device
     total = _vec(RAYLEIGH, dev) + _vec(MIE, dev)
     od = 100000.0 / _vec(max(1.0 * 2.0 - 0.01, 0.01), dev)
-    odl = _particle_thickness(sun_dir[1])
+    odl = _particle_thickness(sun_dir[..., 1:2])
     scatter_view = total * od
     absorb_view = _absorb(total, od)
     scatter_light = total * odl
@@ -198,12 +203,14 @@ def _get_clouds(p, camera_pos, elapsed_time, noise_tex=None):
     """:235-262."""
     up = _vec([0.0, EARTH_RADIUS, 0.0], p.device)
     py = _norm(p + up) - EARTH_RADIUS
-    pxz = p[..., ::2] + camera_pos[::2]
+    pxz = p[..., ::2] + camera_pos[..., ::2]
     inside = (py >= CLOUD_MIN) & (py <= CLOUD_MAX)
 
     time = -CLOUD_SPEED * elapsed_time
     mv = torch.stack([time, torch.zeros_like(time), time], -1)
-    coord = torch.stack([pxz[..., 0], py, pxz[..., 1]], -1) * 0.001 + mv
+    # py is shared by the views where p is (the LUT's rays), pxz not
+    coord = torch.stack(torch.broadcast_tensors(pxz[..., 0], py,
+                                                pxz[..., 1]), -1) * 0.001 + mv
 
     noise = _get_3d_noise(coord, noise_tex) * 0.5
     noise = noise + _get_3d_noise(coord * 2.0 + mv, noise_tex) * 0.25
@@ -342,10 +349,22 @@ def _atmosphere(ray_dir, origin, sun_dir, elapsed_time,
 
 
 def sky_horizon(sun_dir):
-    """The horizon darkening max(min(|sx|, |sz|) + sy, 0) (:477)."""
+    """The horizon darkening max(min(|sx|, |sz|) + sy, 0) (:477) of
+    sun_dir (..., 3), shaped (..., 1)."""
     return torch.clamp(
-        torch.minimum(torch.abs(sun_dir[0]), torch.abs(sun_dir[2]))
-        + sun_dir[1], min=0.0)
+        torch.minimum(torch.abs(sun_dir[..., 0:1]),
+                      torch.abs(sun_dir[..., 2:3]))
+        + sun_dir[..., 1:2], min=0.0)
+
+
+def _lut_view(x, nv: int, vector: bool):
+    """A per-view leaf (*V[, 3]) shaped to broadcast against the LUT's
+    (lut_h, lut_w[, 3]) arrays: (*V, 1, 1[, 3])."""
+    if not nv:
+        return x
+    if vector:
+        return x.reshape(*x.shape[:-1], 1, 1, x.shape[-1])
+    return x.reshape(*x.shape, 1, 1)
 
 
 def render_sky_lut(g, lut_w: int = 256, lut_h: int = 128, noise_tex=None):
@@ -353,7 +372,8 @@ def render_sky_lut(g, lut_w: int = 256, lut_h: int = 128, noise_tex=None):
     (3, lut_h, lut_w): azimuth in [-pi, pi) across width, elevation in
     [-pi/2, pi/2] across height.  noise_tex: the (64, 64) tiled cloud
     noise (the exact texture branch, K6's plain version); None takes
-    procedural value noise."""
+    procedural value noise.  Batched globals give (B, 3, lut_h, lut_w),
+    a LUT per view."""
     dev = g.sun.direction.device
     az = ((torch.arange(lut_w, dtype=torch.float32, device=dev) + 0.5)
           / lut_w * 2.0 * math.pi - math.pi)
@@ -365,14 +385,18 @@ def render_sky_lut(g, lut_w: int = 256, lut_h: int = 128, noise_tex=None):
     ray = torch.stack([(ce * ca).expand(shape), se.expand(shape),
                        (ce * sa).expand(shape)], -1)
 
-    sun_dir = -g.sun.direction
-    origin = _vec([0.0, 6372e3, 0.0], dev) + g.camera.position
-    atmos = _atmosphere(ray, origin, sun_dir, g.elapsed_time)
+    nv = g.frame_counter.dim()
+    ray = ray.reshape((1,) * nv + ray.shape)      # the rays are shared
+    sun_dir = _lut_view(-g.sun.direction, nv, True)
+    cam = _lut_view(g.camera.position, nv, True)
+    elapsed = _lut_view(g.elapsed_time, nv, False)
+    origin = _vec([0.0, 6372e3, 0.0], dev) + cam
+    atmos = _atmosphere(ray, origin, sun_dir, elapsed)
     sky = _volumetric_clouds(ray, sun_dir, atmos,
-                             torch.full(shape, 0.5, device=dev),
+                             torch.full(ray.shape[:-1], 0.5, device=dev),
                              _vec([0.8, 0.8, 0.8], dev),
-                             g.camera.position, g.elapsed_time, noise_tex)
-    return (sky * sky_horizon(sun_dir)).permute(2, 0, 1)
+                             cam, elapsed, noise_tex)
+    return (sky * sky_horizon(sun_dir)).movedim(-1, -3)
 
 
 def _pixel_rays(g, width: int, height: int, fw, fh, dev):
@@ -407,18 +431,22 @@ def sky_from_lut(g, lut, depth_full, width: int, height: int,
     (render_clouds' ray construction, :445-455 quirks, and the QUADRANT
     quirk when full_width/full_height are given).  Returns
     (3, height, width) half-res sky colour; non-sky pixels take the
-    (0.2, 0.4, 1.0) clear."""
+    (0.2, 0.4, 1.0) clear.  Batched: g, lut (B, 3, lut_h, lut_w) and
+    depth_full (B, H, W) give (B, 3, height, width), each view looking
+    up its own LUT."""
     dev = depth_full.device
+    nv = g.frame_counter.dim()
     fw = width if full_width is None else full_width
     fh = height if full_height is None else full_height
     shape = (height, width)
-    px, py, dx, dy, dz = _pixel_rays(g, width, height, fw, fh, dev)
+    px, py, dx, dy, dz = _pixel_rays(views.planar(g, 2), width, height, fw,
+                                     fh, dev)
 
     az = torch.atan2(dz, dx)
     el = torch.asin(torch.clamp(dy, -1.0, 1.0))
     lu = (az + math.pi) / (2.0 * math.pi)
     lv = (el + math.pi / 2) / math.pi
-    lut_h, lut_w = lut.shape[1], lut.shape[2]
+    lut_h, lut_w = lut.shape[-2], lut.shape[-1]
     if dither:
         d16 = bayer16(px[None, :].expand(shape),
                       py[:, None].expand(shape)) - 0.5
@@ -426,14 +454,15 @@ def sky_from_lut(g, lut, depth_full, width: int, height: int,
         lv = lv + d16 / lut_h
     # azimuth wraps: sample a 1-column-padded copy (texel i at i + 1)
     lu = lu - torch.floor(lu)
-    lut_p = torch.cat([lut[:, :, -1:], lut, lut[:, :, :1]], dim=2)
+    lut_p = torch.cat([lut[..., -1:], lut, lut[..., :1]], dim=-1)
     lu_p = (lu * lut_w + 1.0) / (lut_w + 2.0)
-    sky = sampling.sample_screen(lut_p, torch.stack([lu_p, lv]))
+    sky = sampling.sample_screen(lut_p, torch.stack([lu_p, lv]),
+                                 views=nv > 0)
 
     d = sampling.sample_screen_separable(depth_full, px / (fw - 1.0),
                                          py / (fh - 1.0))
-    base = _vec([0.2, 0.4, 1.0], dev)[:, None, None]
-    return torch.where((d == 1.0)[None], sky, base)
+    base = _vec([0.2, 0.4, 1.0], dev).reshape(3, *(1,) * d.dim())
+    return views.from_planar(torch.where((d == 1.0)[None], sky, base), nv)
 
 
 def render_clouds(g, depth_full, noise_tex, width: int, height: int,

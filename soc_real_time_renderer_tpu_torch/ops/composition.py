@@ -17,6 +17,8 @@ import math
 import torch
 
 from . import sampling
+from ..config import select_view
+from ..utils import views
 from ..utils.vec import dot3, mat_vec3, normalize3
 
 DITHER_PATTERN = (  # composition.inl:104-108 (row = x%4, col = y%4)
@@ -73,35 +75,79 @@ def _light_terms(to_l, d2, vdir, normal):
 def _local_lights(g, albedo, normal, position, max_point: int = 128,
                   max_spot: int = 128):
     """Point + spot lights (composition.inl:124-160) over the first
-    max_point / max_spot slots, each masked by the live count."""
+    max_point / max_spot slots, each masked by the live count.  g: the
+    globals in planar shape (views.planar(g, 1)); albedo, normal and
+    position (3, *V, P)."""
     acc = torch.zeros_like(albedo)
     if max_point == 0 and max_spot == 0:
         return acc
     lt = g.lights
-    vdir = normalize3(g.camera.position[:, None] - position)
+    vdir = normalize3(g.camera.position - position)
 
     def to_light(lp):
-        to_l = lp[:, None] - position
+        to_l = lp - position
         return to_l, torch.clamp(dot3(to_l, to_l), min=1e-12)
 
+    count = lt.point_count
+    pos_, col_, inten_ = lt.point_position, lt.point_color, \
+        lt.point_intensity
     for i in range(max_point):
-        on = (lt.point_count > i).to(torch.float32)
-        to_l, d2 = to_light(lt.point_position[i])
+        on = (count > i).to(torch.float32)
+        to_l, d2 = to_light(pos_[i])
         _, lit = _light_terms(to_l, d2, vdir, normal)
-        s = lit / d2 * lt.point_intensity[i] * on
-        acc = acc + albedo * (lt.point_color[i][:, None] * s[None, :])
+        s = lit / d2 * inten_[i] * on
+        acc = acc + albedo * (col_[i] * s[None])
+    count = lt.spot_count
+    pos_, col_, inten_ = lt.spot_position, lt.spot_color, lt.spot_intensity
+    dir_, cut_, ocut_ = lt.spot_direction, lt.spot_cut_off, \
+        lt.spot_outer_cut_off
     for i in range(max_spot):
-        on = (lt.spot_count > i).to(torch.float32)
-        cut, ocut = lt.spot_cut_off[i], lt.spot_outer_cut_off[i]
-        to_l, d2 = to_light(lt.spot_position[i])
+        on = (count > i).to(torch.float32)
+        cut, ocut = cut_[i], ocut_[i]
+        to_l, d2 = to_light(pos_[i])
         ldir, lit = _light_terms(to_l, d2, vdir, normal)
-        sd = normalize3(-lt.spot_direction[i])
-        theta = dot3(ldir, sd[:, None])
+        sd = normalize3(-dir_[i])
+        theta = dot3(ldir, sd)
         eps = torch.where(cut - ocut != 0, cut - ocut, 1e-6)
         cone = torch.clamp((theta - ocut) / eps, 0.0, 1.0)
-        s = lit / d2 * lt.spot_intensity[i] * cone * on
-        acc = acc + albedo * (lt.spot_color[i][:, None] * s[None, :])
+        s = lit / d2 * inten_[i] * cone * on
+        acc = acc + albedo * (col_[i] * s[None])
     return acc
+
+
+def _volumetric(g, position, uv, d, shadow_map, empty_shadow_map: bool,
+                H: int, W: int):
+    """The volumetric light term of one view (composition.inl:174-196):
+    g one frame's globals, position (3, P), depth d (P,), shadow_map
+    (S, S) or None with empty_shadow_map.  Returns (P,)."""
+    spv = g.sun.projection_view
+    sp, _ = _project(spv, position)
+    cam4 = torch.cat([g.camera.position, torch.ones_like(
+        g.camera.position[:1])])
+    scp4 = spv @ cam4
+    scp = scp4[:3] / torch.where(scp4[3] != 0, scp4[3], 1.0)
+    V = sp - scp[:, None]
+    step_len = torch.sqrt(torch.clamp(dot3(V, V), min=1e-12)) / 2.0
+    step = normalize3(V) * step_len[None, :]
+    xi = (uv[0] * W).to(torch.int64) % 4
+    yi = (uv[1] * H).to(torch.int64) % 4
+    dither = sampling.constant(DITHER_PATTERN, d.device).reshape(-1)[
+        xi * 4 + yi]
+    accum = torch.zeros_like(d)
+    for i in range(2):  # NUM_STEPS_INT = 2
+        pstep = scp[:, None] + step * float(i) + dither[None, :] * step
+        if empty_shadow_map:
+            # comparison-sample of the all-1.0 map (border 1.0 too):
+            # the bilinear blend of equal tests is the test itself
+            accum = accum + (pstep[2] < 1.0).to(torch.float32)
+        else:
+            accum = accum + sampling.sample_shadow_cmp(
+                shadow_map,
+                torch.stack([pstep[0] * 0.5 + 0.5, pstep[1] * 0.5 + 0.5]),
+                pstep[2])
+    vdir = normalize3(position - g.camera.position[:, None])
+    return (accum / 2.0) * _henyey_greenstein(
+        dot3(vdir, -g.sun.direction[:, None]))
 
 
 def compose(g, depth, albedo, emissive, normal, ssao, shadow_map, clouds,
@@ -120,84 +166,72 @@ def compose(g, depth, albedo, emissive, normal, ssao, shadow_map, clouds,
     crop at the full-map texel coordinates shifted by the integer
     origin, and clamps at the crop edge land on the proved 1.0 ring, so
     the result is bit-identical to the full-map tap.  Returns (3, H, W)
-    HDR colour."""
-    H, W = depth.shape
+    HDR colour.  With batched globals every array carries a leading view
+    axis (B, ...): each view has its own sun, lights and shadow map; the
+    volumetric term is then taken view by view."""
+    H, W = depth.shape[-2:]
+    V = depth.shape[:-2]
+    nv = len(V)
     uv = sampling.grid_uv(H, W, depth.device).reshape(2, -1)
+    gp = views.planar(g, 1)
 
-    d = depth.reshape(-1)
-    position = world_from_depth(uv, d, g.camera.inv_projection,
-                                g.camera.inv_view)          # (3, P)
-    alb = albedo.reshape(3, -1)
-    emi = emissive.reshape(3, -1) * g.emissive_bloom_strength
-    nrm = normal.reshape(3, -1)
-    occ = torch.pow(torch.clamp(ssao.reshape(-1), min=0.0),
-                    g.ambient_occlussion_strength)
+    def flat(img):                                  # -> (3, *V, P)
+        return views.to_planar(img, nv).reshape(3, *V, -1)
+
+    d = depth.reshape(*V, -1)
+    position = world_from_depth(uv, d, gp.camera.inv_projection,
+                                gp.camera.inv_view)      # (3, *V, P)
+    alb = flat(albedo)
+    emi = flat(emissive) * gp.emissive_bloom_strength
+    nrm = flat(normal)
+    occ = torch.pow(torch.clamp(ssao.reshape(*V, -1), min=0.0),
+                    gp.ambient_occlussion_strength)
 
     # --- sun shadow (composition.inl:164-173)
     if enable_shadow and (shadow_map is not None or empty_shadow_map):
-        sp, _ = _project(g.sun.projection_view, position)
+        sp, _ = _project(gp.sun.projection_view, position)
         if empty_shadow_map:
             sdepth = 1.0            # the all-1.0 map, sampled bilinearly
         elif shadow_crop is not None:
             S = shadow_map.shape[-1]
             x0, y0, cw, ch = shadow_crop
-            sub = shadow_map[y0:y0 + ch, x0:x0 + cw]
+            sub = shadow_map[..., y0:y0 + ch, x0:x0 + cw]
             xy = torch.stack([(sp[0] * 0.5 + 0.5) * S - 0.5 - x0,
                               (sp[1] * 0.5 + 0.5) * S - 0.5 - y0])
-            sdepth = sampling.sample_screen(sub, xy, texel_coords=True)
+            sdepth = sampling.sample_screen(sub, xy, texel_coords=True,
+                                            views=nv > 0)
         else:
             suv = torch.stack([sp[0] * 0.5 + 0.5, sp[1] * 0.5 + 0.5])
-            sdepth = sampling.sample_screen(shadow_map, suv)
+            sdepth = sampling.sample_screen(shadow_map, suv, views=nv > 0)
         sun_shadow = torch.clamp(
-            torch.exp(g.sun.exponential_factor * (sp[2] - sdepth))
-            ** g.sun.darkening_factor, 0.0, 1.0)
+            torch.exp(gp.sun.exponential_factor * (sp[2] - sdepth))
+            ** gp.sun.darkening_factor, 0.0, 1.0)
     else:
         sun_shadow = torch.ones_like(d)
 
-    direct_s = torch.clamp(dot3(nrm, -g.sun.direction[:, None]), min=0.0) \
+    direct_s = torch.clamp(dot3(nrm, -gp.sun.direction), min=0.0) \
         * sun_shadow
-    direct = direct_s[None, :].expand_as(alb)
-    direct = direct + _local_lights(g, alb, nrm, position, max_point_lights,
+    direct = direct_s[None].expand_as(alb)
+    direct = direct + _local_lights(gp, alb, nrm, position, max_point_lights,
                                     max_spot_lights)
 
     # --- volumetric light (computed-then-zeroed in the reference)
     volumetric = 0.0
     if enable_volumetric and (shadow_map is not None or empty_shadow_map):
-        spv = g.sun.projection_view
-        sp, _ = _project(spv, position)
-        cam4 = torch.cat([g.camera.position, torch.ones_like(
-            g.camera.position[:1])])
-        scp4 = spv @ cam4
-        scp = scp4[:3] / torch.where(scp4[3] != 0, scp4[3], 1.0)
-        V = sp - scp[:, None]
-        step_len = torch.sqrt(torch.clamp(dot3(V, V), min=1e-12)) / 2.0
-        step = normalize3(V) * step_len[None, :]
-        xi = (uv[0] * W).to(torch.int64) % 4
-        yi = (uv[1] * H).to(torch.int64) % 4
-        dither = sampling.constant(DITHER_PATTERN, d.device).reshape(-1)[
-            xi * 4 + yi]
-        accum = torch.zeros_like(d)
-        for i in range(2):  # NUM_STEPS_INT = 2
-            pstep = scp[:, None] + step * float(i) + dither[None, :] * step
-            if empty_shadow_map:
-                # comparison-sample of the all-1.0 map (border 1.0 too):
-                # the bilinear blend of equal tests is the test itself
-                accum = accum + (pstep[2] < 1.0).to(torch.float32)
-            else:
-                accum = accum + sampling.sample_shadow_cmp(
-                    shadow_map,
-                    torch.stack([pstep[0] * 0.5 + 0.5, pstep[1] * 0.5 + 0.5]),
-                    pstep[2])
-        vdir = normalize3(position - g.camera.position[:, None])
-        vol = (accum / 2.0) * _henyey_greenstein(
-            dot3(vdir, -g.sun.direction[:, None]))
-        volumetric = vol[None, :]
+        if nv:
+            vol = torch.stack([_volumetric(
+                select_view(g, i), position[:, i], uv, d[i],
+                None if shadow_map is None else shadow_map[i],
+                empty_shadow_map, H, W) for i in range(V[0])])
+        else:
+            vol = _volumetric(g, position, uv, d, shadow_map,
+                              empty_shadow_map, H, W)
+        volumetric = vol[None]
 
-    color = ((direct + g.ambient[:, None]) * alb * occ[None, :]
+    color = ((direct + gp.ambient) * alb * occ[None]
              + volumetric + emi)
 
     if clouds is not None:
-        sky = clouds.reshape(3, -1)
-        color = torch.where((d == 1.0)[None, :], sky, color)
+        color = torch.where((d == 1.0)[None], flat(clouds), color)
 
-    return color.reshape(3, H, W)
+    return views.from_planar(color.reshape(3, *V, H, W), nv)

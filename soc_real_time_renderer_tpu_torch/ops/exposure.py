@@ -3,7 +3,9 @@
 luminance < 1e-3 in bin 0), weighted mean over the non-black bins,
 ``target = log2(target_luminance / 2^mean)``, exponential smoothing
 ``alpha = 1 - exp(-dt * speed)``.  The histogram is an integer
-``bincount``, so it is deterministic on any device."""
+``bincount``, so it is deterministic on any device.  With a leading view
+axis (hdr (B, 3, H, W), exposure and globals (B,)) each view has its
+own histogram and adapts on its own."""
 from __future__ import annotations
 
 import torch
@@ -14,23 +16,32 @@ LUMA = (0.2126, 0.7152, 0.0722)
 
 
 def luminance_histogram(hdr, log_min, log_max):
-    """hdr: (3, H, W) -> (256,) int64 histogram."""
-    lum = (LUMA[0] * hdr[0] + LUMA[1] * hdr[1] + LUMA[2] * hdr[2]).reshape(-1)
+    """hdr: (*V, 3, H, W) -> (*V, 256) int64 histogram, log_min and
+    log_max (*V,)."""
+    V = hdr.shape[:-3]
+    lum = (LUMA[0] * hdr[..., 0, :, :] + LUMA[1] * hdr[..., 1, :, :]
+           + LUMA[2] * hdr[..., 2, :, :]).reshape(*V, -1)
     log_l = torch.log2(torch.clamp(lum, min=1e-30))
     n = AUTO_EXPOSURE_BIN_COUNT
+    log_min = log_min.reshape(*V, 1)
+    log_max = log_max.reshape(*V, 1)
     mapped = (log_l - log_min) / (log_max - log_min) * (n - 2) + 1.0
     idx = torch.clamp(torch.nan_to_num(mapped, nan=0.0).clamp(-1.0, n)
                       .to(torch.int64), 0, n - 1)
     idx = torch.where(lum < 1e-3, 0, idx)
-    return torch.bincount(idx, minlength=n)
+    if V:       # view b counts into bins [256 b, 256 (b + 1))
+        idx = idx + torch.arange(V[0], device=idx.device)[:, None] * n
+    return torch.bincount(idx.reshape(-1),
+                          minlength=n * lum.shape[:-1].numel()).reshape(*V, n)
 
 
 def resolve_exposure(hist, prev_exposure, g, num_pixels: int):
-    """hist: (256,) -> new smoothed exposure (0-d f32 tensor)."""
+    """hist: (*V, 256) -> new smoothed exposure (*V,) f32 (0-d for one
+    view)."""
     n = AUTO_EXPOSURE_BIN_COUNT
     bins = torch.arange(n, dtype=torch.float32, device=hist.device)
-    weighted = torch.sum(hist.to(torch.float32) * bins)
-    black = hist[0].to(torch.float32)
+    weighted = torch.sum(hist.to(torch.float32) * bins, dim=-1)
+    black = hist[..., 0].to(torch.float32)
     mean_bin = weighted / torch.clamp(float(num_pixels) - black, min=1.0)
     log2_mean = ((mean_bin - 1.0) / (n - 1.0)
                  * (g.log_max_luminance - g.log_min_luminance)
@@ -44,5 +55,5 @@ def resolve_exposure(hist, prev_exposure, g, num_pixels: int):
 def auto_exposure(hdr, prev_exposure, g):
     """Histogram + resolve: returns the new exposure scalar."""
     hist = luminance_histogram(hdr, g.log_min_luminance, g.log_max_luminance)
-    H, W = hdr.shape[1:]
+    H, W = hdr.shape[-2:]
     return resolve_exposure(hist, prev_exposure, g, H * W)

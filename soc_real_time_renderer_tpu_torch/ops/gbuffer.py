@@ -18,7 +18,9 @@ from dataclasses import dataclass
 
 import torch
 
+from ..utils import views
 from ..utils.vec import cross3, normalize3
+from . import sampling
 from .raster2 import PlanarSetup, VisibilityBuffer
 
 SKY_CLEAR = (0.2, 0.4, 1.0)  # g_buffer_generation.inl:80
@@ -26,30 +28,38 @@ SKY_CLEAR = (0.2, 0.4, 1.0)  # g_buffer_generation.inl:80
 
 @dataclass(frozen=True)
 class GBuffer:
-    """The reference's 5 MRT targets, planar."""
-    albedo: torch.Tensor               # (3, H, W)
-    emissive: torch.Tensor             # (3, H, W)
-    normal: torch.Tensor               # (3, H, W)
-    metallic_roughness: torch.Tensor   # (2, H, W): R=roughness, G=metallic
-    velocity: torch.Tensor             # (2, H, W) uv-space
-    depth: torch.Tensor                # (H, W)
+    """The reference's 5 MRT targets, planar (with a leading view axis
+    *V when the frame renders several views)."""
+    albedo: torch.Tensor               # (*V, 3, H, W)
+    emissive: torch.Tensor             # (*V, 3, H, W)
+    normal: torch.Tensor               # (*V, 3, H, W)
+    metallic_roughness: torch.Tensor   # (*V, 2, H, W): R=rough, G=metal
+    velocity: torch.Tensor             # (*V, 2, H, W) uv-space
+    depth: torch.Tensor                # (*V, H, W)
 
 
 def build_shading_records(setup: PlanarSetup, world_pos, world_nrm,
                           tri_uv, static_rows):
-    """(40, T+1) f32 per-triangle shading records [adj 9 | wpos 9 |
+    """(40, *V, T+1) f32 per-triangle shading records [adj 9 | wpos 9 |
     wnrm 9 | uv 6 | material_id, has_normal, has_mr, has_emissive,
-    is_terrain | 2 pad]; column T is the sentinel."""
-    T = setup.adj.shape[1]
+    is_terrain | 2 pad]; column T is the sentinel.  The setup's adjugate
+    rows are per view (*V); the rest is the scene's, shared."""
+    T = setup.adj.shape[-1]
+    V = setup.adj.shape[1:-1]
+
+    def shared(x, n):
+        return x.reshape(n, *(1,) * len(V), T).expand(n, *V, T)
+
     rec = torch.cat([
         setup.adj,
-        world_pos.reshape(9, T),
-        world_nrm.reshape(9, T),
-        tri_uv.reshape(6, T),
-        static_rows,
-        torch.zeros((2, T), dtype=torch.float32, device=setup.adj.device),
+        shared(world_pos, 9),
+        shared(world_nrm, 9),
+        shared(tri_uv, 6),
+        shared(static_rows, 5),
+        torch.zeros((2, *V, T), dtype=torch.float32,
+                    device=setup.adj.device),
     ], dim=0)
-    return torch.cat([rec, torch.zeros_like(rec[:, :1])], dim=1)
+    return torch.cat([rec, torch.zeros_like(rec[..., :1])], dim=-1)
 
 
 def _srgb_to_linear(x):
@@ -114,12 +124,16 @@ def resolve_gbuffer(vis: VisibilityBuffer, shading_records, atlas,
                     n_levels: int, filter_mode: str = "bilinear",
                     impl: str | None = None) -> GBuffer:
     """Shade the visibility buffer into the 5-target G-buffer.  The
-    material tap is texsample.sample_atlas (K5), dispatched by `impl`."""
-    H, W = vis.depth.shape
+    material tap is texsample.sample_atlas (K5), dispatched by `impl`.
+    With a leading view axis (vis (B, H, W), records (40, B, T+1),
+    prev_view_proj (B, 4, 4)) every target gains it, and the taps of all
+    views go through one K5 call (the views fold into its pixel axis)."""
+    H, W = vis.depth.shape[-2:]
+    V = vis.depth.shape[:-2]
     dev = vis.depth.device
-    T = shading_records.shape[1] - 1
+    T = shading_records.shape[-1] - 1
 
-    tri = vis.tri_id.reshape(-1)
+    tri = vis.tri_id.reshape(*V, -1)
     miss = tri < 0
     t = torch.where(miss, T, tri).long()
 
@@ -128,7 +142,9 @@ def resolve_gbuffer(vis: VisibilityBuffer, shading_records, atlas,
     px = px.expand(H, W).reshape(-1)
     py = py.expand(H, W).reshape(-1)
 
-    rec = shading_records[:, t]                                 # (40, P)
+    rec = torch.gather(shading_records, -1,
+                       t[None].expand(shading_records.shape[0], *t.shape))
+    #                                                   (40, *V, P)
 
     # edge values + derivatives (de/dx = adj col 0, de/dy = col 1)
     e = torch.stack([rec[0] * px + rec[1] * py + rec[2],
@@ -177,9 +193,11 @@ def resolve_gbuffer(vis: VisibilityBuffer, shading_records, atlas,
     lod = 0.5 * torch.log2(torch.clamp(lod_sq, min=1e-12))
 
     from .texsample import sample_atlas
-    tex = sample_atlas(atlas, mid, uv, lod, size=atlas_size,
+    tex = sample_atlas(atlas, mid.reshape(-1), uv.reshape(2, -1),
+                       lod.reshape(-1), size=atlas_size,
                        layer_stride=layer_stride, n_levels=n_levels,
-                       filter_mode=filter_mode, impl=impl)      # (11, P)
+                       filter_mode=filter_mode, impl=impl).reshape(
+                           11, *mid.shape)                # (11, *V, P)
     albedo_t = _srgb_to_linear(tex[0:3])
     normal_t = tex[3:6]
     mr_gb = tex[6:8]
@@ -200,7 +218,7 @@ def resolve_gbuffer(vis: VisibilityBuffer, shading_records, atlas,
     normal = normalize3(tn) * is_ter + normal * (1.0 - is_ter)
 
     # velocity (inl:226-229)
-    m = prev_view_proj
+    m = views.mat(prev_view_proj, 1)
     cur_u = px / W
     cur_v = py / H
     pc_x = m[0, 0] * pos[0] + m[0, 1] * pos[1] + m[0, 2] * pos[2] + m[0, 3]
@@ -213,7 +231,7 @@ def resolve_gbuffer(vis: VisibilityBuffer, shading_records, atlas,
     velocity = torch.stack([vel_u, vel_v]) * not_ter
 
     live = (~miss).to(torch.float32)
-    sky = torch.tensor(SKY_CLEAR, dtype=torch.float32, device=dev)[:, None]
+    sky = sampling.constant(SKY_CLEAR, dev).reshape(3, *(1,) * live.dim())
     albedo = albedo * live + sky * (1.0 - live)
     emissive = emissive * live
     normal = normal * live
@@ -221,7 +239,7 @@ def resolve_gbuffer(vis: VisibilityBuffer, shading_records, atlas,
     velocity = velocity * live
 
     def plane(x):
-        return x.reshape(x.shape[0], H, W)
+        return views.from_planar(x.reshape(x.shape[0], *V, H, W), len(V))
 
     return GBuffer(albedo=plane(albedo), emissive=plane(emissive),
                    normal=plane(normal), metallic_roughness=plane(mr),

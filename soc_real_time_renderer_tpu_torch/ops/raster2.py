@@ -17,6 +17,13 @@ layout only:
    covering record of its bin, ties to the lower id, clear 1.0 / -1.
    The shadow view's depth-only resolve (:func:`resolve_depth`) is
    kernel K4 in the same source, :func:`resolve_depth_plain` on the CPU.
+
+Views: every step takes an optional leading view axis (B views of one
+scene, ``parallel/mesh.py``).  Clip positions (B, 3, 4, T) give a setup
+whose rows are (k, B, T), per-view pair streams (B, S) sorted along
+their last axis (each view's stream is its single-view stream), starts
+(B, bins + 1), records (B, 16, cap) and one resolve launch for the B
+views, (B, H, W) out.
 """
 from __future__ import annotations
 
@@ -44,23 +51,27 @@ def _cdiv(a, b):
 
 @dataclass(frozen=True)
 class VisibilityBuffer:
-    depth: torch.Tensor          # (H, W) f32 in [0, 1]; 1.0 where no hit
-    tri_id: torch.Tensor | None  # (H, W) int32; -1 where no hit
-    overflow: torch.Tensor       # () int32 OVERFLOW_* bitmask
+    depth: torch.Tensor          # (*V, H, W) f32 in [0, 1]; 1.0: no hit
+    tri_id: torch.Tensor | None  # (*V, H, W) int32; -1 where no hit
+    overflow: torch.Tensor       # (*V,) int32 OVERFLOW_* bitmask
 
 
 @dataclass(frozen=True)
 class PlanarSetup:
-    adj: torch.Tensor     # (9, T) adjugate rows * facing sign
-    zs: torch.Tensor      # (3, T) per-vertex clip z
-    ws: torch.Tensor      # (3, T) per-vertex clip w
-    bbox: torch.Tensor    # (4, T): x0, y0, x1, y1 (px, x1/y1 exclusive)
-    valid: torch.Tensor   # (T,) bool
+    """Rows first, then the view axis if any (*V), then triangles."""
+    adj: torch.Tensor     # (9, *V, T) adjugate rows * facing sign
+    zs: torch.Tensor      # (3, *V, T) per-vertex clip z
+    ws: torch.Tensor      # (3, *V, T) per-vertex clip w
+    bbox: torch.Tensor    # (4, *V, T): x0, y0, x1, y1 (px, x1/y1 excl.)
+    valid: torch.Tensor   # (*V, T) bool
 
 
 def triangle_setup_planar(clip, width, height, cull: str = "front"
                           ) -> PlanarSetup:
-    """clip: (3 verts, 4 comps, T) planar clip positions."""
+    """clip: (3 verts, 4 comps, T) planar clip positions, or (B, 3, 4, T)
+    for B views."""
+    if clip.dim() == 4:
+        clip = clip.permute(1, 2, 0, 3)          # (3, 4, B, T)
     w = clip[:, 3]
     X = (clip[:, 0] * 0.5 + 0.5 * w) * width
     Y = (clip[:, 1] * 0.5 + 0.5 * w) * height
@@ -82,7 +93,7 @@ def triangle_setup_planar(clip, width, height, cull: str = "front"
     else:
         keep = det != 0
         s = torch.sign(det)
-    adj = torch.stack(r0 + r1 + r2) * s[None, :]
+    adj = torch.stack(r0 + r1 + r2) * s[None]
 
     # exact screen bbox across the near plane: projected vertices with
     # w > eps plus the projections of edge crossings of the w = eps plane
@@ -177,19 +188,23 @@ def default_grid(width, height, kind="main"):
 
 
 def build_records(setup: PlanarSetup) -> torch.Tensor:
-    """(16, T+1) f32 [adj 9 | z 3 | w 3 | id as an exact float value];
-    column T is an always-miss sentinel."""
-    T = setup.adj.shape[1]
+    """(*V, 16, T+1) f32 [adj 9 | z 3 | w 3 | id as an exact float
+    value]; column T is an always-miss sentinel."""
+    T = setup.adj.shape[-1]
     ids = torch.arange(T, dtype=torch.float32, device=setup.adj.device)
-    rec = torch.cat([setup.adj, setup.zs, setup.ws, ids[None]], dim=0)
-    return torch.cat([rec, torch.zeros_like(rec[:, :1])], dim=1)
+    rec = torch.cat([setup.adj, setup.zs, setup.ws,
+                     ids.expand(1, *setup.adj.shape[1:])], dim=0)
+    rec = torch.cat([rec, torch.zeros_like(rec[..., :1])], dim=-1)
+    return rec.movedim(0, -2)
 
 
 def build_pairs(setup: PlanarSetup, grid: BinGrid):
-    """Returns (starts (B+1,) i32 clamped to pair_cap, sorted_tids (S,)
-    i32, overflow () i32) with S = n_small*T + med_cap*med_slots."""
+    """Returns (starts (*V, B+1) i32 clamped to pair_cap, sorted_tids
+    (*V, S) i32, overflow (*V,) i32) with S = n_small*T +
+    med_cap*med_slots, each view's stream sorted on its own."""
     dev = setup.adj.device
-    T = setup.adj.shape[1]
+    T = setup.adj.shape[-1]
+    V = setup.valid.shape[:-1]
     bw, bh = grid.bw, grid.bh
     BX, BY, B = grid.bx, grid.by, grid.num_bins
     i32 = torch.int32
@@ -210,8 +225,9 @@ def build_pairs(setup: PlanarSetup, grid: BinGrid):
     valid = setup.valid
 
     def slot_keys(bx0g, by0g, wg, hg, n_slots):
-        """(n_slots, N) bin keys (B = invalid)."""
-        s = torch.arange(n_slots, dtype=i32, device=dev)[:, None]
+        """(n_slots, *V, N) bin keys (B = invalid)."""
+        s = torch.arange(n_slots, dtype=i32, device=dev).reshape(
+            (n_slots,) + (1,) * wg.dim())
         # wg is 0 only for invalid triangles (an empty bbox on the right
         # edge of a viewport narrower than its bin row), whose keys the
         # callers mask; the CPU's integer division by 0 raises
@@ -229,40 +245,49 @@ def build_pairs(setup: PlanarSetup, grid: BinGrid):
     zmin = torch.where(w_ok, torch.clamp(zndc.amin(dim=0), 0.0, 1.0), 0.0)
     zq = (zmin * (ZQ - 1)).to(i32)
 
-    ns = grid.n_small
+    ns, mc, ms = grid.n_small, grid.med_cap, grid.med_slots
     tri_ids = torch.arange(T, dtype=i32, device=dev)
     small = valid & (nb <= ns)
-    k_small = torch.where(small[None, :],
-                          slot_keys(bx0, by0, w, h, ns) * ZQ + zq[None, :],
+    k_small = torch.where(small[None],
+                          slot_keys(bx0, by0, w, h, ns) * ZQ + zq[None],
                           B * ZQ)
 
     med = valid & (nb > ns)
-    # the first med_cap medium triangles in id order, padded with T
-    med_all = torch.nonzero(med)[:, 0].to(i32)[:grid.med_cap]
-    med_ids = torch.full((grid.med_cap,), T, dtype=i32, device=dev)
-    med_ids[:med_all.shape[0]] = med_all
+    # the first med_cap medium triangles of each view in id order, padded
+    # with T: triangle t goes to slot (medium triangles before it), the
+    # others to a spare slot med_cap that is dropped
+    rank = torch.cumsum(med.to(i32), dim=-1) - 1
+    slot = torch.where(med & (rank < mc), rank, mc).long()
+    med_ids = torch.full((*V, mc + 1), T, dtype=i32, device=dev)
+    med_ids = med_ids.scatter(-1, slot, tri_ids.expand(*V, T))[..., :mc]
     mi = torch.clamp(med_ids, max=T - 1).long()
-    m_ok = (med_ids < T)[None, :]
-    k_med = slot_keys(bx0[mi], by0[mi], w[mi], h[mi], grid.med_slots)
-    k_med = torch.where(m_ok, k_med * ZQ + zq[mi][None, :], B * ZQ)
+    m_ok = (med_ids < T)[None]
 
-    keys = torch.cat([k_small.reshape(-1), k_med.reshape(-1)])
-    tids = torch.cat([tri_ids[None, :].expand(ns, T).reshape(-1),
-                      med_ids[None, :].expand(grid.med_slots,
-                                              grid.med_cap).reshape(-1)])
-    sk, order = torch.sort(keys, stable=True)
-    st = tids[order]
-    starts = torch.searchsorted(
-        sk, torch.arange(B + 1, dtype=i32, device=dev) * ZQ)
-    total_pairs = starts[B]
+    def at_med(x):
+        return torch.gather(x, -1, mi)
+
+    k_med = slot_keys(at_med(bx0), at_med(by0), at_med(w), at_med(h), ms)
+    k_med = torch.where(m_ok, k_med * ZQ + at_med(zq)[None], B * ZQ)
+
+    # per view: the small keys slot-major, then the medium ones
+    keys = torch.cat([k_small.movedim(0, -2).reshape(*V, ns * T),
+                      k_med.movedim(0, -2).reshape(*V, ms * mc)], dim=-1)
+    tids = torch.cat([tri_ids.expand(*V, ns, T).reshape(*V, ns * T),
+                      med_ids.unsqueeze(-2).expand(*V, ms, mc)
+                      .reshape(*V, ms * mc)], dim=-1)
+    sk, order = torch.sort(keys, dim=-1, stable=True)
+    st = torch.gather(tids, -1, order)
+    edges = torch.arange(B + 1, dtype=i32, device=dev) * ZQ
+    starts = torch.searchsorted(sk, edges.expand(*V, B + 1).contiguous())
+    total_pairs = starts[..., B]
     starts = torch.clamp(starts, max=grid.pair_cap).to(i32)
 
-    med_count = med.to(i32).sum()
+    med_count = med.to(i32).sum(dim=-1)
     zero = torch.zeros((), dtype=i32, device=dev)
     overflow = (torch.where(total_pairs > grid.pair_cap, OVERFLOW_PAIRS, zero)
                 | torch.where(med_count > grid.med_cap, OVERFLOW_MED_CAP,
                               zero)
-                | torch.where((med & (nb > grid.med_slots)).any(),
+                | torch.where((med & (nb > grid.med_slots)).any(dim=-1),
                               OVERFLOW_MED_SLOTS, zero))
     return starts, st, overflow.to(i32)
 
@@ -282,11 +307,25 @@ def _eval_records(rec, px, py):
     return cov, z
 
 
+def _per_view(fn, starts, recs, *args):
+    """fn over the leading view axis of (starts, recs), outputs stacked
+    (the plain versions resolve one view at a time)."""
+    if starts.dim() == 1:
+        return fn(starts, recs, *args)
+    outs = [fn(s, r, *args) for s, r in zip(starts, recs)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return torch.stack(outs)
+
+
 def resolve_plain(starts, recs, grid: BinGrid, pair_chunk: int = 4096):
     """K1's reference in plain PyTorch: every (pair, bin-pixel) test,
     chunked over pairs, reduced with scatter_reduce("amin") — first the
     min z per pixel, then the min id among the covering records at that
-    z.  Returns (depth, tri_id) padded to the bin grid."""
+    z.  Returns (depth, tri_id) padded to the bin grid; with a leading
+    view axis on starts and recs, view by view, (B, Hp, Wp) each."""
+    if starts.dim() > 1:
+        return _per_view(resolve_plain, starts, recs, grid, pair_chunk)
     dev = recs.device
     bw, bh, BX = grid.bw, grid.bh, grid.bx
     Hp, Wp = grid.by * bh, BX * bw
@@ -321,27 +360,39 @@ def resolve_plain(starts, recs, grid: BinGrid, pair_chunk: int = 4096):
     return depth, tri_id
 
 
+def _check_resolve_inputs(what, starts, recs, grid):
+    """The view count of K1's / K4's inputs, after checking them: starts
+    (*V, bins + 1) int32, recs (*V, 16, cap) float32."""
+    if starts.dtype != torch.int32 or recs.dtype != torch.float32:
+        raise TypeError(f"{what} takes int32 starts and float32 records")
+    if (starts.shape[-1] != grid.num_bins + 1 or recs.dim() < 2
+            or recs.shape[-2] != 16 or starts.dim() > 2
+            or starts.shape[:-1] != recs.shape[:-2]):
+        raise ValueError(f"starts {tuple(starts.shape)} / records "
+                         f"{tuple(recs.shape)} do not match the grid")
+    return starts.shape[0] if starts.dim() == 2 else 1
+
+
 def resolve(starts, recs, grid: BinGrid, impl: str | None = None):
     """K1 dispatch: bin resolve -> (depth, tri_id) padded to the bin
     grid.  CUDA tensors launch the kernel, CPU tensors (or impl="plain")
-    take resolve_plain."""
+    take resolve_plain.  starts (*V, bins + 1), recs (*V, 16, cap): with
+    a view axis one launch resolves every view, (B, Hp, Wp) out."""
     if kb.choose(impl, starts, recs) == "plain":
         return resolve_plain(starts, recs, grid)
     lib = kb.library()
-    if starts.dtype != torch.int32 or recs.dtype != torch.float32:
-        raise TypeError("resolve takes int32 starts and float32 records")
-    if starts.shape != (grid.num_bins + 1,) or recs.shape[0] != 16:
-        raise ValueError(f"starts {tuple(starts.shape)} / records "
-                         f"{tuple(recs.shape)} do not match the grid")
+    views = _check_resolve_inputs("resolve", starts, recs, grid)
     starts = starts.contiguous()
     recs = recs.contiguous()
     Hp, Wp = grid.by * grid.bh, grid.bx * grid.bw
-    depth = torch.empty((Hp, Wp), dtype=torch.float32, device=recs.device)
-    tri_id = torch.empty((Hp, Wp), dtype=torch.int32, device=recs.device)
+    shape = (*starts.shape[:-1], Hp, Wp)
+    depth = torch.empty(shape, dtype=torch.float32, device=recs.device)
+    tri_id = torch.empty(shape, dtype=torch.int32, device=recs.device)
     code = lib.resolve_launch(starts.data_ptr(), recs.data_ptr(),
                               depth.data_ptr(), tri_id.data_ptr(),
-                              recs.shape[1], grid.num_bins, grid.bx,
-                              grid.bw, grid.bh, Wp, kb.stream_ptr(recs))
+                              recs.shape[-1], grid.num_bins, grid.bx,
+                              grid.bw, grid.bh, Wp, views,
+                              kb.stream_ptr(recs))
     kb.launches["resolve"] += 1
     kb.check(code, "resolve")
     return depth, tri_id
@@ -354,7 +405,11 @@ def resolve_depth_plain(starts, recs, grid: BinGrid,
     its bin, 1.0 where none covers.  Pairs go in chunks of
     pixels_per_chunk // (bin pixels) (1,024 pairs of a 128x128 bin), so
     one chunk's temporaries stay near 1 GB at the 4096^2 shadow map.
-    Returns depth padded to the bin grid."""
+    Returns depth padded to the bin grid (view by view with a leading
+    view axis)."""
+    if starts.dim() > 1:
+        return _per_view(resolve_depth_plain, starts, recs, grid,
+                         pixels_per_chunk)
     dev = recs.device
     bw, bh, BX = grid.bw, grid.bh, grid.bx
     Hp, Wp = grid.by * bh, BX * bw
@@ -382,61 +437,59 @@ def resolve_depth(starts, recs, grid: BinGrid, impl: str | None = None):
     """K4 dispatch: depth-only bin resolve -> depth padded to the bin
     grid.  CUDA tensors launch the kernel (``resolve.cu``: K1's body
     without the id row, any bin size), CPU tensors (or impl="plain") take
-    resolve_depth_plain."""
+    resolve_depth_plain.  Views as in :func:`resolve`: one launch."""
     if kb.choose(impl, starts, recs) == "plain":
         return resolve_depth_plain(starts, recs, grid)
     lib = kb.library()
-    if starts.dtype != torch.int32 or recs.dtype != torch.float32:
-        raise TypeError("resolve_depth takes int32 starts and float32 "
-                        "records")
-    if starts.shape != (grid.num_bins + 1,) or recs.shape[0] != 16:
-        raise ValueError(f"starts {tuple(starts.shape)} / records "
-                         f"{tuple(recs.shape)} do not match the grid")
+    views = _check_resolve_inputs("resolve_depth", starts, recs, grid)
     starts = starts.contiguous()
     recs = recs.contiguous()
     Hp, Wp = grid.by * grid.bh, grid.bx * grid.bw
-    depth = torch.empty((Hp, Wp), dtype=torch.float32, device=recs.device)
+    depth = torch.empty((*starts.shape[:-1], Hp, Wp), dtype=torch.float32,
+                        device=recs.device)
     code = lib.resolve_depth_launch(starts.data_ptr(), recs.data_ptr(),
-                                    depth.data_ptr(), recs.shape[1],
+                                    depth.data_ptr(), recs.shape[-1],
                                     grid.num_bins, grid.bx, grid.bw,
-                                    grid.bh, Wp, kb.stream_ptr(recs))
+                                    grid.bh, Wp, views, kb.stream_ptr(recs))
     kb.launches["resolve_depth"] += 1
     kb.check(code, "resolve_depth")
     return depth
 
 
 def gather_records(setup: PlanarSetup, grid: BinGrid):
-    """Bin + sort + gather: (starts, bin-ordered records (16, cap),
+    """Bin + sort + gather: (starts, bin-ordered records (*V, 16, cap),
     overflow, cropped grid) exactly as the JAX rasterize prepares the
     resolve's inputs (the record array spans a chunk multiple, at most
     pair_cap columns)."""
-    T = setup.adj.shape[1]
+    T = setup.adj.shape[-1]
     starts, sorted_tids, overflow = build_pairs(setup, grid)
     records = build_records(setup)
-    S = sorted_tids.shape[0]
+    S = sorted_tids.shape[-1]
     cap = min(grid.pair_cap, _cdiv(S, grid.chunk) * grid.chunk)
-    cols = torch.clamp(sorted_tids[:min(S, cap)], max=T).long()
-    recs = records[:, cols]
-    if recs.shape[1] < cap:
-        recs = torch.cat([recs, recs.new_zeros((16, cap - recs.shape[1]))],
-                         dim=1)
+    cols = torch.clamp(sorted_tids[..., :min(S, cap)], max=T).long()
+    recs = torch.gather(records, -1,
+                        cols.unsqueeze(-2).expand(*cols.shape[:-1], 16, -1))
+    if recs.shape[-1] < cap:
+        recs = torch.cat([recs, recs.new_zeros(
+            (*recs.shape[:-1], cap - recs.shape[-1]))], dim=-1)
     return starts, recs, overflow, dataclasses.replace(grid, pair_cap=cap)
 
 
 def rasterize(clip, grid: BinGrid, cull: str = "front",
               impl: str | None = None, depth_only: bool = False
               ) -> tuple[VisibilityBuffer, PlanarSetup]:
-    """Full raster: clip (3 verts, 4 comps, T) planar clip positions ->
-    visibility buffer cropped to the viewport.  depth_only: the shadow
-    view's id-free resolve (K4); the buffer's tri_id is None."""
+    """Full raster: clip (3 verts, 4 comps, T) planar clip positions (or
+    (B, 3, 4, T), B views in one resolve launch) -> visibility buffer
+    cropped to the viewport.  depth_only: the shadow view's id-free
+    resolve (K4); the buffer's tri_id is None."""
     vh, vw = grid.height, grid.width
     setup = triangle_setup_planar(clip, grid.width, grid.height, cull)
     starts, recs, overflow, rgrid = gather_records(setup, grid)
     if depth_only:
         depth = resolve_depth(starts, recs, rgrid, impl=impl)
-        return VisibilityBuffer(depth=depth[:vh, :vw], tri_id=None,
+        return VisibilityBuffer(depth=depth[..., :vh, :vw], tri_id=None,
                                 overflow=overflow), setup
     depth, tid = resolve(starts, recs, rgrid, impl=impl)
-    vis = VisibilityBuffer(depth=depth[:vh, :vw], tri_id=tid[:vh, :vw],
-                           overflow=overflow)
+    vis = VisibilityBuffer(depth=depth[..., :vh, :vw],
+                           tri_id=tid[..., :vh, :vw], overflow=overflow)
     return vis, setup

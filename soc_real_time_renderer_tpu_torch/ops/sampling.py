@@ -76,19 +76,29 @@ def _lerp2(c00, c10, c01, c11, fx, fy):
 
 
 def sample_screen(img, uv, texel_coords: bool = False,
-                  method: str = "linear"):
+                  method: str = "linear", views: bool = False):
     """Bilinear (method="nearest": nearest-texel) sample of a planar
     image at planar uv, clamp-to-edge.
 
     img: (C, H, W) or (H, W); uv: (2, ...).  Returns (C, ...) / (...).
     texel_coords: uv already holds the texel coordinates (x, y) that
     u*W - 0.5, v*H - 0.5 would give (the shadow-map crop taps, whose
-    full-map coordinates are shifted by the integer crop origin)."""
-    squeeze = img.dim() == 2
+    full-map coordinates are shifted by the integer crop origin).
+    views: img carries a leading view axis, (B, C, H, W) or (B, H, W),
+    and uv is (2, B, ...): view b's points tap view b's image.  Returns
+    (C, B, ...) / (B, ...)."""
+    squeeze = img.dim() == (3 if views else 2)
     if squeeze:
-        img = img[None]
-    C, H, W = img.shape
-    flat = img.reshape(C, H * W)
+        img = img.unsqueeze(-3)
+    base = 0
+    if views:
+        B, C, H, W = img.shape
+        flat = img.transpose(0, 1).reshape(C, B * H * W)
+        base = (torch.arange(B, device=img.device) * (H * W)).reshape(
+            (B,) + (1,) * (uv.dim() - 2))
+    else:
+        C, H, W = img.shape
+        flat = img.reshape(C, H * W)
     if texel_coords:
         x, y = uv[0], uv[1]
     else:
@@ -97,7 +107,7 @@ def sample_screen(img, uv, texel_coords: bool = False,
     if method == "nearest":
         xi = index_of(torch.round(x), W)
         yi = index_of(torch.round(y), H)
-        out = flat[:, (yi * W + xi).long()]
+        out = flat[:, (yi * W + xi).long() + base]
         return out[0] if squeeze else out
     x0i = index_of(torch.floor(x), W)
     y0i = index_of(torch.floor(y), H)
@@ -105,52 +115,42 @@ def sample_screen(img, uv, texel_coords: bool = False,
     y1i = torch.clamp(y0i + 1, max=H - 1)
     fx = torch.clamp(x - x0i, 0.0, 1.0)
     fy = torch.clamp(y - y0i, 0.0, 1.0)
-    r0 = (y0i * W).long()
-    r1 = (y1i * W).long()
+    r0 = (y0i * W).long() + base
+    r1 = (y1i * W).long() + base
     out = _lerp2(flat[:, r0 + x0i], flat[:, r0 + x1i],
                  flat[:, r1 + x0i], flat[:, r1 + x1i], fx, fy)
     return out[0] if squeeze else out
 
 
 def sample_screen_separable(img, u, v):
-    """Bilinear clamp-to-edge sample at the outer product of 1-D u
-    (length W') and 1-D v (length H'); same result as sample_screen on
-    the meshgrid (x lerp first, then y)."""
-    squeeze = img.dim() == 2
-    if squeeze:
-        img = img[None]
-    C, H, W = img.shape
+    """Bilinear clamp-to-edge sample of (..., H, W) at the outer product
+    of 1-D u (length W') and 1-D v (length H'); same result as
+    sample_screen on the meshgrid (x lerp first, then y).  Returns
+    (..., H', W')."""
+    H, W = img.shape[-2:]
     x = u * W - 0.5
     y = v * H - 0.5
     x0i = index_of(torch.floor(x), W)
     y0i = index_of(torch.floor(y), H)
     x1i = torch.clamp(x0i + 1, max=W - 1)
     y1i = torch.clamp(y0i + 1, max=H - 1)
-    fx = torch.clamp(x - x0i, 0.0, 1.0)[None, None, :]
-    fy = torch.clamp(y - y0i, 0.0, 1.0)[None, :, None]
-    ax = (img[:, :, x0i.long()] * (1 - fx)
-          + img[:, :, x1i.long()] * fx)                      # (C, H, W')
-    out = ax[:, y0i.long()] * (1 - fy) + ax[:, y1i.long()] * fy
-    return out[0] if squeeze else out
+    fx = torch.clamp(x - x0i, 0.0, 1.0)
+    fy = torch.clamp(y - y0i, 0.0, 1.0)[:, None]
+    ax = (img[..., x0i.long()] * (1 - fx)
+          + img[..., x1i.long()] * fx)                     # (..., H, W')
+    return ax[..., y0i.long(), :] * (1 - fy) + ax[..., y1i.long(), :] * fy
 
 
 def resize_half(img):
-    """(C, H, W) -> (C, H/2, W/2) by 2x2 mean."""
-    squeeze = img.dim() == 2
-    if squeeze:
-        img = img[None]
-    C, H, W = img.shape
-    out = img[:, :H // 2 * 2, :W // 2 * 2].reshape(
-        C, H // 2, 2, W // 2, 2).mean(dim=(2, 4))
-    return out[0] if squeeze else out
+    """(..., H, W) -> (..., H/2, W/2) by 2x2 mean."""
+    H, W = img.shape[-2:]
+    return img[..., :H // 2 * 2, :W // 2 * 2].reshape(
+        *img.shape[:-2], H // 2, 2, W // 2, 2).mean(dim=(-3, -1))
 
 
 def upsample_bilinear(img, oh, ow):
-    """(C, h, w) -> (C, oh, ow) separable bilinear, clamp-to-edge."""
-    squeeze = img.dim() == 2
-    if squeeze:
-        img = img[None]
-    C, H, W = img.shape
+    """(..., h, w) -> (..., oh, ow) separable bilinear, clamp-to-edge."""
+    H, W = img.shape[-2:]
     dev = img.device
     ys = (torch.arange(oh, dtype=torch.float32, device=dev) + 0.5) * H / oh \
         - 0.5
@@ -160,19 +160,21 @@ def upsample_bilinear(img, oh, ow):
     x0 = torch.clamp(torch.floor(xs).to(torch.int64), 0, W - 1)
     y1 = torch.clamp(y0 + 1, 0, H - 1)
     x1 = torch.clamp(x0 + 1, 0, W - 1)
-    fy = torch.clamp(ys - y0, 0.0, 1.0)[None, :, None]
-    fx = torch.clamp(xs - x0, 0.0, 1.0)[None, None, :]
-    r0 = img[:, y0]
-    r1 = img[:, y1]
-    a = r0[:, :, x0] * (1 - fx) + r0[:, :, x1] * fx
-    b = r1[:, :, x0] * (1 - fx) + r1[:, :, x1] * fx
-    out = a * (1 - fy) + b * fy
-    return out[0] if squeeze else out
+    fy = torch.clamp(ys - y0, 0.0, 1.0)[:, None]
+    fx = torch.clamp(xs - x0, 0.0, 1.0)
+    r0 = img[..., y0, :]
+    r1 = img[..., y1, :]
+    a = r0[..., x0] * (1 - fx) + r0[..., x1] * fx
+    b = r1[..., x0] * (1 - fx) + r1[..., x1] * fx
+    return a * (1 - fy) + b * fy
 
 
 def edge_pad(img, lo_y, hi_y, lo_x, hi_x):
-    """Edge-replicating pad of the last two axes of (C, H, W)."""
-    return F.pad(img[None], (lo_x, hi_x, lo_y, hi_y), mode="replicate")[0]
+    """Edge-replicating pad of the last two axes of (..., H, W)."""
+    H, W = img.shape[-2:]
+    out = F.pad(img.reshape(1, -1, H, W), (lo_x, hi_x, lo_y, hi_y),
+                mode="replicate")
+    return out.reshape(*img.shape[:-2], *out.shape[-2:])
 
 
 def sample_shadow_cmp(shadow, uv, ref, border: float = 1.0):

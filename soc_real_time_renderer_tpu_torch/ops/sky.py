@@ -21,41 +21,48 @@ NOISE_N = 64
 
 
 def sky_params(g):
-    """The per-frame scalars of the sky march, (16,) f32 on g's device:
-    [sun_dir 3 | atmosphere origin 3 | camera x, z | elapsed time |
-    cloud drift -0.02 * elapsed | sky light 3 | pad 3], each computed by
-    the same PyTorch operations as the plain version's."""
+    """The per-frame scalars of the sky march, (16,) f32 on g's device
+    ((B, 16), a row per view, for batched globals): [sun_dir 3 |
+    atmosphere origin 3 | camera x, z | elapsed time | cloud drift
+    -0.02 * elapsed | sky light 3 | pad 3], each computed by the same
+    PyTorch operations as the plain version's."""
     sun_dir = -g.sun.direction
     dev = sun_dir.device
+    V = sun_dir.shape[:-1]
     origin = clouds._vec([0.0, 6372e3, 0.0], dev) + g.camera.position
     drift = -clouds.CLOUD_SPEED * g.elapsed_time
     cam = g.camera.position
     return torch.cat([
-        sun_dir, origin, cam[0:1], cam[2:3], g.elapsed_time.reshape(1),
-        drift.reshape(1), clouds.sky_light_term(sun_dir),
-        torch.zeros(3, dtype=torch.float32, device=dev)]).to(torch.float32)
+        sun_dir, origin, cam[..., 0:1], cam[..., 2:3],
+        g.elapsed_time.reshape(*V, 1), drift.reshape(*V, 1),
+        clouds.sky_light_term(sun_dir),
+        torch.zeros((*V, 3), dtype=torch.float32, device=dev)],
+        dim=-1).to(torch.float32)
 
 
 def launch_sky_lut(params, noise_tex, lut_w: int = 256, lut_h: int = 128):
     """K6's launch: the sky LUT (3, lut_h, lut_w) of the parameter block
     `params` (sky_params) over the (64, 64) cloud noise, before the
-    horizon factor.  CUDA tensors only."""
+    horizon factor; (B, 16) parameters give the B views' LUTs (B, 3,
+    lut_h, lut_w) from one launch.  CUDA tensors only."""
     kb.choose("cuda", params, noise_tex)
     lib = kb.library()
     if noise_tex.shape != (NOISE_N, NOISE_N) \
             or noise_tex.dtype != torch.float32:
         raise ValueError(f"noise_tex {tuple(noise_tex.shape)} "
                          f"{noise_tex.dtype}: want (64, 64) float32")
-    if params.shape != (16,) or params.dtype != torch.float32:
+    if params.shape[-1:] != (16,) or params.dim() > 2 \
+            or params.dtype != torch.float32:
         raise ValueError(f"params {tuple(params.shape)} {params.dtype}: "
-                         f"want (16,) float32")
+                         f"want (16,) or (B, 16) float32")
     noise_tex = noise_tex.contiguous()
     params = params.contiguous()
-    out = torch.empty((3, lut_h, lut_w), dtype=torch.float32,
+    V = params.shape[:-1]
+    out = torch.empty((*V, 3, lut_h, lut_w), dtype=torch.float32,
                       device=noise_tex.device)
     code = lib.sky_lut_launch(params.data_ptr(), noise_tex.data_ptr(),
                               out.data_ptr(), lut_w, lut_h,
-                              kb.stream_ptr(noise_tex))
+                              V[0] if V else 1, kb.stream_ptr(noise_tex))
     kb.launches["sky_lut"] += 1
     kb.check(code, "sky_lut")
     return out
@@ -64,9 +71,11 @@ def launch_sky_lut(params, noise_tex, lut_w: int = 256, lut_h: int = 128):
 def render_sky_lut_noise(g, noise_tex, lut_w: int = 256, lut_h: int = 128,
                          impl: str | None = None):
     """K6 dispatch: the sky LUT (3, lut_h, lut_w) over the (64, 64) cloud
-    noise, horizon factor applied.  CUDA tensors launch the kernel, CPU
-    tensors (or impl="plain") take clouds.render_sky_lut."""
+    noise, horizon factor applied; (B, 3, lut_h, lut_w) from one launch
+    for batched globals.  CUDA tensors launch the kernel, CPU tensors (or
+    impl="plain") take clouds.render_sky_lut."""
     if kb.choose(impl, noise_tex, g.sun.direction) == "plain":
         return clouds.render_sky_lut(g, lut_w, lut_h, noise_tex=noise_tex)
     out = launch_sky_lut(sky_params(g), noise_tex, lut_w, lut_h)
-    return out * clouds.sky_horizon(-g.sun.direction)
+    horizon = clouds.sky_horizon(-g.sun.direction)
+    return out * horizon.reshape(*horizon.shape, 1, 1)

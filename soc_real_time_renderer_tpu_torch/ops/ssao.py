@@ -20,6 +20,7 @@ import torch
 from . import sampling
 from .composition import view_from_depth
 from ..kernels import build as kb
+from ..utils import views
 from ..utils.vec import cross3, dot3, normalize3
 
 KERNEL = (  # ssao_generation.inl:76-103 (26 samples)
@@ -90,15 +91,22 @@ def _noise(u, v, freq):
 def _preamble(depth, normal, g):
     """Per-half-res-pixel setup (ssao_generation.inl:174-192): view-space
     fragment position + procedural-noise TBN.  Returns
-    (frag_pos, tangent, bitangent, normal_v), each (3, h, w)."""
-    H, W = depth.shape
+    (frag_pos, tangent, bitangent, normal_v), each (3, h, w), or
+    (3, B, h, w) for depth (B, H, W), normal (B, 3, H, W) and batched
+    globals."""
+    H, W = depth.shape[-2:]
+    nv = depth.dim() - 2
     h, w = H // 2, W // 2
     uv = sampling.grid_uv(h, w, depth.device)
-    d = sampling.sample_screen(depth, uv)
-    n_half = sampling.sample_screen(normal, uv)
-    frag_pos = view_from_depth(uv, d, g.camera.inv_projection)
+    # every view taps the same points: the views ride the channel axis
+    d = sampling.sample_screen(depth.reshape(-1, H, W), uv).reshape(
+        *depth.shape[:-2], h, w)
+    n_half = views.to_planar(sampling.sample_screen(
+        normal.reshape(-1, H, W), uv).reshape(*normal.shape[:-2], h, w), nv)
+    gp = views.planar(g, 2)
+    frag_pos = view_from_depth(uv, d, gp.camera.inv_projection)
     n_world = normalize3(n_half)
-    vm = g.camera.view[:3, :3]
+    vm = gp.camera.view[:3, :3]
     normal_v = torch.stack([
         vm[0, 0] * n_world[0] + vm[0, 1] * n_world[1] + vm[0, 2] * n_world[2],
         vm[1, 0] * n_world[0] + vm[1, 1] * n_world[1] + vm[1, 2] * n_world[2],
@@ -110,6 +118,7 @@ def _preamble(depth, normal, g):
                 torch.pow(sampling.constant(W * 4.2, depth.device),
                           1.5 + uv[0] / 10.0))
     rv = normalize3(torch.stack([rx, ry, torch.zeros_like(rx)]))
+    rv = views.column(rv, nv)          # (3, 1, h, w): shared by the views
 
     tangent = normalize3(rv - normal_v * dot3(rv, normal_v)[None])
     bitangent = cross3(tangent, normal_v)
@@ -120,9 +129,16 @@ def ssao_taps_plain(planes, depth, proj, inv_proj, radius, bias, kern):
     """The 26-tap loop in plain PyTorch (K2's reference).
 
     planes: (12, h, w) [frag_pos | tangent | bitangent | normal_v];
-    depth: (H, W) full res; kern: (K, 3).  Returns (h, w)."""
+    depth: (H, W) full res; kern: (K, 3).  Returns (h, w).  With a
+    leading view axis on planes, depth, the matrices, radius and bias:
+    (B, h, w), each view tapping its own depth."""
+    nviews = depth.dim() - 2
+    planes = views.to_planar(planes, nviews)
+    proj, inv_proj = views.mat(proj, 2), views.mat(inv_proj, 2)
+    radius = views.leaf(radius, 0, 2)
+    bias = views.leaf(bias, 0, 2)
     frag, tan, bit, nv = planes[0:3], planes[3:6], planes[6:9], planes[9:12]
-    k = kern[:, :, None, None]                                # (K, 3, 1, 1)
+    k = kern.reshape(*kern.shape, *(1,) * (nviews + 2))   # (K, 3, 1.., 1)
     sx = frag[0][None] + (tan[0][None] * k[:, 0] + bit[0][None] * k[:, 1]
                           + nv[0][None] * k[:, 2]) * radius
     sy = frag[1][None] + (tan[1][None] * k[:, 0] + bit[1][None] * k[:, 1]
@@ -137,10 +153,12 @@ def ssao_taps_plain(planes, depth, proj, inv_proj, radius, bias, kern):
     ou = ox / ows * 0.5 + 0.5
     ov = oy / ows * 0.5 + 0.5
 
-    Hf, Wf = depth.shape
+    Hf, Wf = depth.shape[-2:]
     xi = sampling.index_of(ou * Wf - 0.5, Wf)
     yi = sampling.index_of(ov * Hf - 0.5, Hf)
-    sd = depth.reshape(-1)[(yi * Wf + xi).long()]            # (K, h, w)
+    base = (torch.arange(depth[..., 0, 0].numel(), device=depth.device)
+            * (Hf * Wf)).reshape(*depth.shape[:-2], 1, 1)
+    sd = depth.reshape(-1)[(yi * Wf + xi).long() + base]     # (K, *V, h, w)
 
     Q = inv_proj
     nx = ou * 2.0 - 1.0
@@ -162,7 +180,10 @@ def ssao_taps_plain(planes, depth, proj, inv_proj, radius, bias, kern):
 def ssao_taps(planes, depth, proj, inv_proj, radius, bias, kern,
               impl: str | None = None):
     """K2 dispatch: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors (or impl="plain").  1 to MAX_TAPS kernel vectors."""
+    for CPU tensors (or impl="plain").  1 to MAX_TAPS kernel vectors.
+    planes (*V, 12, h, w), depth (*V, H, W), proj and inv_proj
+    (*V, 4, 4), radius and bias (*V,): one launch for every view, the
+    parameter block (*V, 34) a row per view."""
     if kern.dim() != 2 or kern.shape[1] != 3 \
             or not 1 <= kern.shape[0] <= MAX_TAPS:
         raise ValueError(f"ssao kernel {tuple(kern.shape)}: want (k, 3), "
@@ -171,28 +192,31 @@ def ssao_taps(planes, depth, proj, inv_proj, radius, bias, kern,
         return ssao_taps_plain(planes, depth, proj, inv_proj, radius, bias,
                                kern)
     lib = kb.library()
-    _, h, w = planes.shape
-    H, W = depth.shape
+    h, w = planes.shape[-2:]
+    H, W = depth.shape[-2:]
+    V = depth.shape[:-2]
     if planes.dtype != torch.float32 or depth.dtype != torch.float32:
         raise TypeError("ssao_taps takes float32 planes and depth")
-    if planes.shape[0] != 12:
-        raise ValueError(f"planes {tuple(planes.shape)}: want (12, h, w)")
+    if planes.shape[:-2] != (*V, 12) or len(V) > 1:
+        raise ValueError(f"planes {tuple(planes.shape)}, depth "
+                         f"{tuple(depth.shape)}: want (*V, 12, h, w), "
+                         f"(*V, H, W)")
     if H * W >= 1 << 31:
         raise ValueError(f"depth {H}x{W}: K2 indexes texels in 32 bits")
     planes = planes.contiguous()
     depth = depth.contiguous()
     # the kernel's parameter block, one device operation, no host copy
-    params = torch.cat([proj.reshape(16), inv_proj.reshape(16),
-                        radius.reshape(1), bias.reshape(1)])
+    params = torch.cat([proj.reshape(*V, 16), inv_proj.reshape(*V, 16),
+                        radius.reshape(*V, 1), bias.reshape(*V, 1)], dim=-1)
     if params.dtype != torch.float32 or kern.dtype != torch.float32:
         raise TypeError("ssao_taps takes float32 matrices, radius, bias "
                         "and kernel vectors")
     kern = kern.contiguous()
-    out = torch.empty((h, w), dtype=torch.float32, device=planes.device)
+    out = torch.empty((*V, h, w), dtype=torch.float32, device=planes.device)
     code = lib.ssao_taps_launch(
         planes.data_ptr(), depth.data_ptr(), params.data_ptr(),
         kern.data_ptr(), out.data_ptr(), h, w, H, W, kern.shape[0],
-        kb.stream_ptr(planes))
+        V[0] if V else 1, kb.stream_ptr(planes))
     kb.launches["ssao_taps"] += 1
     kb.check(code, "ssao_taps")
     return out
@@ -200,10 +224,12 @@ def ssao_taps(planes, depth, proj, inv_proj, radius, bias, kern,
 
 def ssao_generate(depth, normal, g, kernel_size: int = 26,
                   impl: str | None = None):
-    """depth: (H, W) full res; normal: (3, H, W) world normals ->
-    (H/2, W/2) occlusion."""
+    """depth: (*V, H, W) full res; normal: (*V, 3, H, W) world normals
+    -> (*V, H/2, W/2) occlusion."""
     frag_pos, tangent, bitangent, normal_v = _preamble(depth, normal, g)
-    planes = torch.cat([frag_pos, tangent, bitangent, normal_v], dim=0)
+    planes = views.from_planar(
+        torch.cat([frag_pos, tangent, bitangent, normal_v], dim=0),
+        depth.dim() - 2)
     return ssao_taps(planes, depth, g.camera.projection,
                      g.camera.inv_projection, g.ssao_radius, g.ssao_bias,
                      kernel_vectors(kernel_size, depth.device), impl=impl)

@@ -10,7 +10,9 @@ velocity-disocclusion fallback to the blurred colour.  The reference's
 The history fetch is kernel K3 (``kernels/csrc/taa.cu``), which replaces
 the TPU's windowed ``_taa_kernel`` (ops/taa_pallas.py);
 :func:`reproject_plain` is the same fetch in plain PyTorch.  The 3x3
-resolve around it stays plain PyTorch.
+resolve around it stays plain PyTorch.  Every array may carry a leading
+view axis (B, ...): the neighbourhood is per view, and one K3 launch
+fetches every view's history.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 
 from . import sampling
 from ..kernels import build as kb
+from ..utils import views
 
 GAUSS = [1 / 16, 1 / 8, 1 / 16,
          1 / 8, 1 / 4, 1 / 8,
@@ -25,35 +28,41 @@ GAUSS = [1 / 16, 1 / 8, 1 / 16,
 
 
 def reproject_plain(history, velocity):
-    """Bilinear clamp-to-edge sample of (C, H, W) history (any float
-    dtype, read as float32) at uv - velocity; velocity (2, H, W) f32."""
-    _, H, W = history.shape
+    """Bilinear clamp-to-edge sample of (*V, C, H, W) history (any float
+    dtype, read as float32) at uv - velocity; velocity (*V, 2, H, W)
+    f32.  Returns (*V, C, H, W) f32."""
+    H, W = history.shape[-2:]
+    nv = history.dim() - 3
     uv = sampling.grid_uv(H, W, velocity.device)
-    return sampling.sample_screen(history.to(torch.float32),
-                                  torch.stack([uv[0] - velocity[0],
-                                               uv[1] - velocity[1]]))
+    out = sampling.sample_screen(
+        history.to(torch.float32),
+        torch.stack([uv[0] - velocity[..., 0, :, :],
+                     uv[1] - velocity[..., 1, :, :]]), views=nv > 0)
+    return views.from_planar(out, nv)
 
 
 def reproject_history(history, velocity, impl: str | None = None):
     """K3 dispatch: the CUDA kernel for CUDA tensors (history bf16), the
-    plain version for CPU tensors (or impl="plain").  Returns (C, H, W)
-    float32."""
+    plain version for CPU tensors (or impl="plain").  history
+    (*V, C, H, W), velocity (*V, 2, H, W): one launch for every view.
+    Returns (*V, C, H, W) float32."""
     if kb.choose(impl, history, velocity) == "plain":
         return reproject_plain(history, velocity)
     lib = kb.library()
-    C, H, W = history.shape
+    *V, C, H, W = history.shape
     if history.dtype != torch.bfloat16 or velocity.dtype != torch.float32:
         raise TypeError("reproject_history takes bf16 history and f32 "
                         "velocity")
-    if velocity.shape != (2, H, W):
+    if velocity.shape != (*V, 2, H, W) or len(V) > 1:
         raise ValueError(f"velocity {tuple(velocity.shape)} vs history "
                          f"{tuple(history.shape)}")
     history = history.contiguous()
     velocity = velocity.contiguous()
-    out = torch.empty((C, H, W), dtype=torch.float32, device=history.device)
+    out = torch.empty(history.shape, dtype=torch.float32,
+                      device=history.device)
     code = lib.taa_reproject_launch(history.data_ptr(), velocity.data_ptr(),
                                     out.data_ptr(), C, H, W,
-                                    kb.stream_ptr(history))
+                                    V[0] if V else 1, kb.stream_ptr(history))
     kb.launches["taa_reproject"] += 1
     kb.check(code, "taa_reproject")
     return out
@@ -91,7 +100,8 @@ def neighbourhood(color, depth, velocity):
     for y in (1, 0, -1):
         for x in (1, 0, -1):
             m = (dilate_dx == float(x)) & (dilate_dy == float(y))
-            velocity_s = torch.where(m[None], sampling.shift(velocity, x, y),
+            velocity_s = torch.where(m.unsqueeze(-3),
+                                     sampling.shift(velocity, x, y),
                                      velocity_s)
     return blurred, min_c, max_c, center, velocity_s
 
@@ -100,25 +110,28 @@ def taa(color, depth, velocity, prev_color, prev_velocity, frame_counter,
         impl: str | None = None):
     """color: (3, H, W) f32; depth: (H, W); velocity: (2, H, W) f32;
     prev_color/prev_velocity: (3|2, H, W) bf16 history; frame_counter:
-    () int32.  Returns resolved (3, H, W)."""
-    H, W = depth.shape
+    () int32.  Returns resolved (3, H, W).  Each may carry a leading view
+    axis (B, ...), frame_counter then (B,)."""
+    H, W = depth.shape[-2:]
     uv = sampling.grid_uv(H, W, depth.device)
     blurred, min_c, max_c, center, velocity_s = neighbourhood(
         color, depth, velocity)
 
     accum = torch.clamp(frame_counter.to(torch.float32), max=0.1)
-    shift_u = uv[0] - velocity_s[0]
-    shift_v = uv[1] - velocity_s[1]
+    accum = accum.reshape(*accum.shape, 1, 1)
+    shift_u = uv[0] - velocity_s[..., 0, :, :]
+    shift_v = uv[1] - velocity_s[..., 1, :, :]
     off = (shift_u < 0) | (shift_v < 0) | (shift_u > 1) | (shift_v > 1)
-    accum = torch.where(off, 1.0, accum)
+    accum = torch.where(off, 1.0, accum).unsqueeze(-3)
 
-    packed = torch.cat([prev_color, prev_velocity], dim=0)
+    packed = torch.cat([prev_color, prev_velocity], dim=-3)
     hist = reproject_history(packed, velocity_s, impl=impl)
-    acc_color = torch.minimum(torch.maximum(hist[:3], min_c), max_c)
-    out = center * accum[None] + acc_color * (1.0 - accum[None])
+    acc_color = torch.minimum(torch.maximum(hist[..., :3, :, :], min_c),
+                              max_c)
+    out = center * accum + acc_color * (1.0 - accum)
 
-    pv = hist[3:5]
-    dv = pv - velocity_s
-    vel_len = torch.sqrt(dv[0] * dv[0] + dv[1] * dv[1])
+    dv = hist[..., 3:5, :, :] - velocity_s
+    vel_len = torch.sqrt(dv[..., 0, :, :] * dv[..., 0, :, :]
+                         + dv[..., 1, :, :] * dv[..., 1, :, :])
     disocc = torch.clamp((vel_len - 0.001) * 10.0, 0.0, 1.0)
-    return out + (blurred - out) * disocc[None]
+    return out + (blurred - out) * disocc.unsqueeze(-3)

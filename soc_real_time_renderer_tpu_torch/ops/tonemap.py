@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from . import sampling
+
 _XY_RED = (0.64, 0.33)
 _XY_GREEN = (0.3, 0.6)
 _XY_BLUE = (0.15, 0.06)
@@ -20,34 +22,34 @@ def _inv(m):
 
 def _unproject(xy, device):
     x, y = xy
-    return torch.tensor([x / y, 1.0, (1.0 - x - y) / y], dtype=torch.float32,
-                        device=device)
+    return sampling.constant([x / y, 1.0, (1.0 - x - y) / y], device)
 
 
 def _unproject_dyn(xy):
-    return torch.stack([xy[0] / xy[1], torch.ones_like(xy[0]),
-                        (1.0 - xy[0] - xy[1]) / xy[1]])
+    return torch.stack([xy[..., 0] / xy[..., 1], torch.ones_like(xy[..., 0]),
+                        (1.0 - xy[..., 0] - xy[..., 1]) / xy[..., 1]], dim=-1)
 
 
 def _primaries_to_matrix(r, g, b, w):
-    """tone_mapping.inl:103-116 (columns are primaries)."""
+    """tone_mapping.inl:103-116 (columns are primaries); r, g, b (..., 3)
+    give (..., 3, 3)."""
     temp = torch.stack([
-        torch.stack([r[0], g[0], b[0]]),
-        torch.ones(3, dtype=torch.float32, device=r.device),
-        torch.stack([r[2], g[2], b[2]])], dim=0)
+        torch.stack([r[..., 0], g[..., 0], b[..., 0]], dim=-1),
+        torch.ones_like(r),
+        torch.stack([r[..., 2], g[..., 2], b[..., 2]], dim=-1)], dim=-2)
     scale = _inv(temp) @ w
-    return torch.stack([r * scale[0], g * scale[1], b * scale[2]], dim=1)
+    return torch.stack([r * scale[..., 0:1], g * scale[..., 1:2],
+                        b * scale[..., 2:3]], dim=-1)
 
 
 def _compression_matrix(compression):
-    """tone_mapping.inl:118-127."""
+    """tone_mapping.inl:118-127; compression (*V,) -> (*V, 3, 3)."""
     dev = compression.device
-    s = 1.0 / (1.0 - compression)
-    w = torch.tensor(_XY_WHITE, dtype=torch.float32, device=dev)
+    s = (1.0 / (1.0 - compression))[..., None]
+    w = sampling.constant(_XY_WHITE, dev)
 
     def mixw(p):
-        p = torch.tensor(p, dtype=torch.float32, device=dev)
-        return w + (p - w) * s
+        return w + (sampling.constant(p, dev) - w) * s
 
     r, g, b = mixw(_XY_RED), mixw(_XY_GREEN), mixw(_XY_BLUE)
     return _primaries_to_matrix(_unproject_dyn(r), _unproject_dyn(g),
@@ -64,9 +66,16 @@ def _dual_section(x, linear, peak):
 
 
 def agx_ds(color, exposure, saturation, linear_section, peak, compression):
-    """color: (3, H, W) linear HDR -> (3, H, W) display-referred [0,1]."""
+    """color: (3, H, W) linear HDR -> (3, H, W) display-referred [0,1].
+    With a leading view axis: color (B, 3, H, W), the rest (B,)."""
     dev = color.device
-    work = torch.clamp(color, min=0.0) * torch.exp2(exposure)
+    V = color.shape[:-3]
+
+    def per_view(x):
+        return x.reshape(*V, 1, 1)
+
+    work = torch.clamp(color, min=0.0) * per_view(
+        torch.exp2(exposure))[..., None]
 
     srgb_to_xyz = _primaries_to_matrix(
         _unproject(_XY_RED, dev), _unproject(_XY_GREEN, dev),
@@ -75,12 +84,13 @@ def agx_ds(color, exposure, saturation, linear_section, peak, compression):
     xyz_to_adjusted = _inv(adjusted_to_xyz)
     srgb_to_adjusted = srgb_to_xyz @ xyz_to_adjusted   # reference order
 
-    flat = work.reshape(3, -1)
+    flat = work.reshape(*V, 3, -1)
     flat = srgb_to_adjusted @ flat
-    flat = torch.clamp(_dual_section(flat, linear_section, peak), 0.0, 1.0)
-    lum = (0.2126729 * flat[0] + 0.7151522 * flat[1]
-           + 0.0721750 * flat[2])
-    flat = lum[None, :] + (flat - lum[None, :]) * saturation
+    flat = torch.clamp(_dual_section(flat, per_view(linear_section),
+                                     per_view(peak)), 0.0, 1.0)
+    lum = (0.2126729 * flat[..., 0, :] + 0.7151522 * flat[..., 1, :]
+           + 0.0721750 * flat[..., 2, :])[..., None, :]
+    flat = lum + (flat - lum) * per_view(saturation)
     flat = torch.clamp(flat, 0.0, 1.0)
     flat = _inv(srgb_to_adjusted) @ flat
     return flat.reshape(color.shape)

@@ -25,10 +25,14 @@ def normalize3(a, eps=1e-8):
 
 
 def mat_vec3(m, v, translate=None):
-    """m: (3, 3) @ v: (3, ...) (+ translate (3,))."""
+    """m: (3, 3) @ v: (3, ...) (+ translate (3,)).  m and translate may
+    also come in planar shape (utils/views.py: (3, 3, *V, 1, ...) and
+    (3, *V, 1, ...)), one per view."""
     out = torch.stack([m[0, 0] * v[0] + m[0, 1] * v[1] + m[0, 2] * v[2],
                        m[1, 0] * v[0] + m[1, 1] * v[1] + m[1, 2] * v[2],
                        m[2, 0] * v[0] + m[2, 1] * v[1] + m[2, 2] * v[2]])
     if translate is not None:
-        out = out + translate.reshape(3, *([1] * (v.dim() - 1)))
+        if translate.dim() == 1:
+            translate = translate.reshape(3, *([1] * (v.dim() - 1)))
+        out = out + translate
     return out

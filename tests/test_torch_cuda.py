@@ -788,3 +788,74 @@ def test_viewer_on_the_card(dev, tmp_path, monkeypatch):
         loop.join(timeout=120)
     assert not loop.is_alive() and len(per_frame) > 6
     assert all(d == {k: 1 for k in kb.launches} for d in per_frame)
+
+
+# --- B views in one step (parallel/mesh.py) --------------------------------
+
+VIEW_POSITIONS = ([-7.0, 33.8, 0.0], [-4.0, 35.0, 2.0], [-8.0, 34.5, -2.5])
+
+
+def _views(built, B):
+    """(batched globals, history, mm, nm) of B cameras at distinct
+    positions."""
+    from soc_real_time_renderer_tpu_torch.parallel import mesh as pmesh
+    gs, mm, nm = pmesh.view_globals(built, VIEW_POSITIONS[:B], 0)
+    hb = pmesh.batched_history([fm.RenderHistory.create(
+        built.plan.config, device=built.device) for _ in range(B)])
+    return pmesh.batched_globals(gs), hb, mm, nm
+
+
+@pytest.mark.parametrize("B", [3, 1])
+def test_batched_kernels_match_plain(dev, B):
+    """Each of K1, K4, K5, K2, K6 and K3 on the inputs of a batched frame
+    of the small atrium_lifted (B views from distinct cameras, so of
+    different content) against its plain version with the same view
+    axis: bit-identical (tri_id equal); K5's views folded into its pixel
+    axis.  The inputs are recorded as chip_smoke.py's batched phase
+    records them."""
+    import chip_smoke
+    from soc_real_time_renderer_tpu_torch.parallel import mesh as pmesh
+    built = kit.build_port("atrium_lifted",
+                           RenderConfig(width=256, height=128,
+                                        shadow_resolution=512), dev)
+    gb, hb, mm, nm = _views(built, B)
+    step = pmesh.make_batched_render_fn(built.plan, impl="plain")
+    seen = chip_smoke.recorded_inputs(
+        lambda: step(built.batch, gb, hb, mm, nm))
+    assert sorted(seen) == sorted(kb.launches)
+    for k, (fn, a, kw) in seen.items():
+        got, want = fn(*a, impl="cuda", **kw), fn(*a, impl="plain", **kw)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        lead = B if k != "texsample" else 11
+        for x, y in zip(got, want):
+            assert x.shape[0] == lead, (k, x.shape)
+            assert torch.equal(x, y), k
+    # the views differ: view 0's image is not view 1's
+    if B > 1:
+        depth = seen["resolve"][0](*seen["resolve"][1], impl="cuda",
+                                   **seen["resolve"][2])[0]
+        assert not torch.equal(depth[0], depth[1])
+
+
+def test_batched_step_launches_each_kernel_once(dev):
+    """One batched step of three views launches each of the six kernels
+    once, and view i equals render_frame of view i."""
+    from soc_real_time_renderer_tpu_torch.config import select_view
+    from soc_real_time_renderer_tpu_torch.parallel import mesh as pmesh
+    built = kit.build_port("atrium_lifted",
+                           RenderConfig(width=256, height=128,
+                                        shadow_resolution=512), dev)
+    gb, hb, mm, nm = _views(built, 3)
+    step = pmesh.make_batched_render_fn(built.plan)
+    kb.reset_launches()
+    colors, hb2 = step(built.batch, gb, hb, mm, nm)
+    torch.cuda.synchronize()
+    assert kb.launches == {k: 1 for k in kb.launches}
+    for i in range(3):
+        out, h = fm.render_frame(
+            built.plan, built.batch, select_view(gb, i),
+            fm.RenderHistory.create(built.plan.config, device=dev), mm, nm)
+        assert (out.color - colors[i]).abs().max().item() <= 1e-6
+        assert (h.exposure - hb2.exposure[i]).abs().item() <= 1e-6
