@@ -52,6 +52,21 @@ frame against four single-view frames (CUDA events, median of 5,
 alternating); ``torch.cuda.max_memory_allocated`` of a batched frame at
 B = 1 and B = 4.
 
+Then ``sharded``: one frame of ``atrium_lifted`` (all six kernels) cut
+into four row bands over a mesh that names the card four times
+(``parallel/mesh.make_mesh(4, dp=1, devices=["cuda:0"] * 4)``, the
+split plan's ``raster_stage`` and ``make_sharded_shade_fn``), two
+frames carrying history: K1 and K4 once per band of bin rows, K5, K2
+and K3 once per band of 272 rows, K6 once (one distinct device), the
+counts printed per frame; the assembled colour and history against the
+unsplit ``render_frame`` (max abs <= 1e-6, exposure <= 1e-7); every
+band-mode launch against its plain version on the band's own inputs
+(recorded during a plain-path split frame), bit for bit; ms per frame
+split and unsplit; ``max_memory_allocated`` at sp = 1 and sp = 4.  Then
+``make_batched_render_fn`` over a (dp = 2, sp = 2) mesh of the card for
+the terrain's four views, two frames: each view within 1e-6 of the
+unmeshed batched step.
+
 Then the asset path, from a synthetic asset tree written into a
 temporary directory at the real assets' sizes
 (``soc_real_time_renderer_tpu_torch/tools/synth_assets.py``: a
@@ -142,6 +157,8 @@ BATCH_POSITIONS = {
                 [22.0, 13.0, 21.0]),
 }
 BATCH_FRAMES = 2
+SHARD_BANDS = 4        # row bands of the sharded phase (one card)
+SHARD_FRAMES = 2
 VIEWER_SAMPLES = 20    # /metrics readings (distinct frames) it takes
 ASSET_SEED = 0
 NOISE_SEED = 11
@@ -1090,9 +1107,10 @@ def perpixel_phase(dev, card, results):
     return st["whole frame"]
 
 
-def recorded_inputs(fn):
+def recorded_inputs(fn, every=False):
     """fn() with every kernel wrapper spied: {kernel: (wrapper, args,
-    kwargs without impl)} of each wrapper's first call."""
+    kwargs without impl)} of each wrapper's first call (every: a list of
+    every call's)."""
     from soc_real_time_renderer_tpu_torch.ops import raster2, sky, ssao, \
         taa, texsample
     wrappers = {"resolve": (raster2, "resolve"),
@@ -1106,8 +1124,12 @@ def recorded_inputs(fn):
         real[k] = getattr(mod, attr)
 
         def spy(*a, _k=k, **kw):
-            seen.setdefault(_k, (real[_k], a, {n: v for n, v in kw.items()
-                                               if n != "impl"}))
+            call = (real[_k], a, {n: v for n, v in kw.items()
+                                  if n != "impl"})
+            if every:
+                seen.setdefault(_k, []).append(call)
+            else:
+                seen.setdefault(_k, call)
             return real[_k](*a, **kw)
 
         setattr(mod, attr, spy)
@@ -1271,6 +1293,191 @@ def batched_phase(name, dev, card, results):
     del built, frames, colors, colors_l, hb, hb_l, gb_l
     torch.cuda.empty_cache()
     return b_ms, s_ms, peak[1], peak[B]
+
+
+def sharded_phase(dev, card, results):
+    """`atrium_lifted` (all six kernels) cut into SHARD_BANDS row bands
+    over a mesh that names the card SHARD_BANDS times
+    (``parallel/mesh.make_mesh`` + ``raster_stage`` of the split plan +
+    ``make_sharded_shade_fn``), SHARD_FRAMES frames carrying history:
+    launch counts per frame (K1, K4, K5, K2, K3 once per band, K6 once:
+    one distinct device); the assembled colour, history and exposure
+    against the unsplit frames; every band-mode launch against its plain
+    version on the band's inputs (recorded during a plain-path split
+    frame); ms per frame split and unsplit (CUDA events, alternating);
+    max_memory_allocated of a frame at sp = 1 and sp = SHARD_BANDS.
+    Then the meshed batched step: the terrain's four views over a
+    (dp = 2, sp = 2) mesh of the card against the unmeshed batched step.
+    Returns (split ms, unsplit ms, peak MiB sp = 1, peak MiB split,
+    launches per split frame)."""
+    import dataclasses
+    import torch
+    from soc_real_time_renderer_tpu_torch.graph import frame as fm
+    from soc_real_time_renderer_tpu_torch.kernels import build as kb
+    from soc_real_time_renderer_tpu_torch.parallel import halo
+    from soc_real_time_renderer_tpu_torch.parallel import mesh as pmesh
+    built = build_scene("atrium_lifted", dev)
+    plan, batch = built.plan, built.batch
+    path = path_of(plan, batch)
+    check(sorted(path) == sorted(KERNELS), "atrium_lifted runs all six")
+    n = SHARD_BANDS
+    mesh = pmesh.make_mesh(n, dp=1, devices=[dev] * n)
+    splan = dataclasses.replace(plan, shard_mesh=mesh, shard_axis="sp")
+    starts = halo.band_starts(HEIGHT, n)
+
+    def split(g, h, mm, nm, impl=None):
+        ins = fm.raster_stage(splan, batch, g, mm, nm, impl=impl)
+        return pmesh.make_sharded_shade_fn(plan, mesh, impl=impl)(
+            batch, g, h, *ins)
+
+    # the main path: SHARD_FRAMES split frames, counts around each
+    hs = hu = fm.RenderHistory.create(plan.config, device=dev)
+    per_frame, worst, frames = [], {}, []
+    for f in range(SHARD_FRAMES):
+        g, mm, nm = built.frame_globals(f)
+        h_in, hu_in = hs, hu
+        torch.cuda.synchronize()
+        kb.reset_launches()
+        colour, hs = split(g, hs, mm, nm)
+        torch.cuda.synchronize()
+        per_frame.append(dict(kb.launches))
+        out, hu = fm.render_frame(plan, batch, g, hu, mm, nm)
+        frames.append((g, h_in, hu_in, mm, nm))
+        for key, (a, b) in {
+                "colour": (out.color, colour),
+                "history colour": (hu.previous_color, hs.previous_color),
+                "history velocity": (hu.previous_velocity,
+                                     hs.previous_velocity)}.items():
+            got = halo.assemble(b, dev)
+            worst[key] = max(worst.get(key, 0.0),
+                             (a.float() - got.float()).abs().max().item())
+        worst["exposure"] = max(worst.get("exposure", 0.0),
+                                (hu.exposure - hs.exposure).abs().item())
+        check([c.shape[-2] for c in colour] == [b - a for a, b in
+                                                zip(starts, starts[1:])]
+              and all(c.device == dev for c in colour),
+              f"{n} colour bands of {starts}")
+    want = {k: (1 if k == "sky_lut" else n) for k in KERNELS}
+    log(f"[sharded] atrium_lifted {WIDTH}x{HEIGHT} in {n} row bands "
+        f"{starts} over {[str(d) for d in mesh.band_devices('sp')]}: "
+        f"launches per frame {per_frame} (want {want}: once per band, K6 "
+        f"once per distinct device)")
+    check(all(c == want for c in per_frame), "launches once per band")
+    for k in KERNELS:
+        results[k]["sharded atrium_lifted"] = {
+            "launches": sum(c[k] for c in per_frame)}
+    colour_full = halo.assemble(colour, dev)
+    check(torch.isfinite(colour_full).all().item()
+          and colour_full.std().item() > 1e-3, "finite, not constant")
+    log(f"[sharded] assembled against the unsplit frames over "
+        f"{SHARD_FRAMES} frames, max abs: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in worst.items())
+        + " (colour and history <= 1e-6, exposure <= 1e-7) " + card)
+    check(max(v for k, v in worst.items() if k != "exposure") <= 1e-6
+          and worst["exposure"] <= 1e-7, "split frame equals unsplit")
+
+    # each band-mode launch against its plain version on its inputs
+    g, h_in, hu_in, mm, nm = frames[-1]
+    seen = recorded_inputs(lambda: split(g, h_in, mm, nm, impl="plain"),
+                           every=True)
+    check({k: len(v) for k, v in seen.items()} == want,
+          f"inputs recorded for every band: "
+          f"{ {k: len(v) for k, v in seen.items()} }")
+    parity = {}
+    for k, calls in seen.items():
+        errs, shapes = [], []
+        for fn, a, kw in calls:
+            got, exp = fn(*a, impl="cuda", **kw), fn(*a, impl="plain", **kw)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            exp = exp if isinstance(exp, tuple) else (exp,)
+            shapes.append(tuple(got[0].shape))
+            errs.append(max((x.float() - y.float()).abs().max().item()
+                            for x, y in zip(got, exp)))
+            check(all(torch.equal(x, y) for x, y in zip(got, exp)),
+                  f"sharded {k} parity, band {len(errs) - 1}")
+        parity[k] = max(errs)
+        log(f"[sharded] parity {k}: {len(calls)} launches, out {shapes}, "
+            f"row0 {[kw.get('row0') for _, _, kw in calls]}, max abs "
+            f"{parity[k]:.3g} (== 0), equal True")
+        results[k]["sharded atrium_lifted"]["max_abs_err"] = parity[k]
+    del seen
+
+    # ms per frame, split and unsplit, alternating
+    def split_frame():
+        split(g, h_in, mm, nm)
+
+    def whole_frame():
+        fm.render_frame(plan, batch, g, hu_in, mm, nm)
+
+    split_frame()
+    whole_frame()
+    torch.cuda.synchronize()
+    ms = {"split": [], "whole": []}
+    for _ in range(TIMED):
+        ms["split"].append(cuda_ms(split_frame, 1))
+        ms["whole"].append(cuda_ms(whole_frame, 1))
+    s_ms, w_ms = (statistics.median(ms[k]) for k in ("split", "whole"))
+    peak = {}
+    for key, fn in (("1", whole_frame), (str(n), split_frame)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fn()
+        torch.cuda.synchronize()
+        peak[key] = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    log(f"[sharded] {WIDTH}x{HEIGHT}: frame in {n} bands on one card "
+        f"{s_ms:.2f} ms against unsplit {w_ms:.2f} ms (median of {TIMED}, "
+        f"alternating; the bands run one after another on the one card); "
+        f"peak device memory of a frame (max_memory_allocated, the scene's "
+        f"own tensors included): sp = 1 {peak['1']:.0f} MiB, sp = {n} "
+        f"{peak[str(n)]:.0f} MiB {card}")
+    del built, frames, colour, colour_full, hs, hu, out
+    torch.cuda.empty_cache()
+
+    # the meshed batched step: 4 views of the terrain, (dp 2, sp 2)
+    built = build_scene("terrain", dev)
+    positions = BATCH_POSITIONS["terrain"]
+    B = len(positions)
+    mesh = pmesh.make_mesh(4, dp=2, devices=[dev] * 4)
+    meshed = pmesh.make_batched_render_fn(built.plan, mesh=mesh)
+    step = pmesh.make_batched_render_fn(built.plan)
+    hb = hm = pmesh.batched_history([fm.RenderHistory.create(
+        built.plan.config, device=dev) for _ in range(B)])
+    prev, worst_m, counts = None, 0.0, []
+    for f in range(BATCH_FRAMES):
+        gs, mm, nm = pmesh.view_globals(built, positions, f, prev)
+        prev = [g.camera for g in gs]
+        gb = pmesh.batched_globals(gs)
+        bt = built.batch
+        if f == 0:
+            bt, gm, hm = pmesh.shard_inputs(mesh, built.batch, gb, hm)
+        else:
+            gm = gb
+        torch.cuda.synchronize()
+        kb.reset_launches()
+        colors_m, hm = meshed(bt, gm, hm, mm, nm)
+        torch.cuda.synchronize()
+        counts.append(dict(kb.launches))
+        colors, hb = step(built.batch, gb, hb, mm, nm)
+        got = pmesh.assemble_views(colors_m, dev)
+        hist = pmesh.assemble_history(hm, dev)
+        check(got.shape == colors.shape == (B, 3, HEIGHT, WIDTH),
+              "meshed colour (B, 3, H, W)")
+        for a, b in ((colors, got), (hb.previous_color, hist.previous_color),
+                     (hb.exposure, hist.exposure)):
+            worst_m = max(worst_m, (a.float() - b.float()).abs().max()
+                          .item())
+    log(f"[sharded] terrain, {B} views over a (dp 2, sp 2) mesh of the "
+        f"card, {BATCH_FRAMES} frames: launches per step {counts} (K1, K5, "
+        f"K2, K3 once per band of each group); each view against the "
+        f"unmeshed batched step, max abs {worst_m:.3g} (<= 1e-6) {card}")
+    check(all(c == {k: (4 if k in path_of(built.plan, built.batch) else 0)
+                    for k in KERNELS} for c in counts),
+          "the meshed step launches once per band of each view group")
+    check(worst_m <= 1e-6, "meshed views equal the unmeshed step")
+    del built, hb, hm, colors, colors_m, got, hist
+    torch.cuda.empty_cache()
+    return s_ms, w_ms, peak["1"], peak[str(n)], per_frame[-1]
 
 
 def asset_phase(tree, card):
@@ -1872,6 +2079,10 @@ def main():
         t0 = time.perf_counter()
         batch_ms[name] = batched_phase(name, dev, card, results)
         seconds[f"batched {name}"] = time.perf_counter() - t0
+    # one frame in row bands over a mesh that names the card four times
+    t0 = time.perf_counter()
+    shard = sharded_phase(dev, card, results)
+    seconds["sharded"] = time.perf_counter() - t0
     # the asset path: a written asset tree, the four glTF presets, the CLI
     from soc_real_time_renderer_tpu_torch import scenes
     preset_ms = {}
@@ -1899,6 +2110,9 @@ def main():
             f"batched {n} {b:.2f} ms vs {len(BATCH_POSITIONS[n])} singles "
             f"{s:.2f} ms, peak {m1:.0f} / {mb:.0f} MiB"
             for n, (b, s, m1, mb) in batch_ms.items())
+        + f"; sharded atrium_lifted {SHARD_BANDS} bands {shard[0]:.2f} ms "
+        f"vs unsplit {shard[1]:.2f} ms, peak {shard[2]:.0f} / "
+        f"{shard[3]:.0f} MiB"
         + f"; viewer frame_ms {viewer['frame_ms']} latency_ms "
         f"{viewer['latency_ms']} (medians), full tier "
         f"{viewer['full_tier_s']:.2f} s, cheap tier "
@@ -1914,6 +2128,7 @@ def main():
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "scene": HOME[name],
             "launches": sum(r["launches"] for r in results[name].values()),
+            "band_launches": shard[4][name],
             **{k: home[k] for k in ("max_abs_err", "ms", "device_ms",
                                     "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "library_device_ms",

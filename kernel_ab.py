@@ -10,8 +10,8 @@ this, other.
         --other build/other/soc_real_time_renderer_tpu_torch/kernels/csrc
 
 The other tree's launch functions must take this tree's arguments (the
-view count of the batched render included): a tree from before that
-does not load.  Without ``--other`` the other build is the checkout's
+view count of the batched render and the row band of K1, K4 and K3
+included): a tree from before those does not load.  Without ``--other`` the other build is the checkout's
 own sources, which
 with ``--other-flags`` times a compile-time variant against the default
 (K4's region of 32x8 pixels against its default 32x16):

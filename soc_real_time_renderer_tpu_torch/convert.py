@@ -91,7 +91,13 @@ batched_history_from_numpy = history_from_numpy
 def plan_from_jax_plan(plan) -> frame_mod.FramePlan:
     """The port's FramePlan from the JAX one: same config and grids
     (the TPU record-format fields of BinGrid are dropped, the port
-    always streams f32 records); TPU-only plan fields are dropped."""
+    always streams f32 records); TPU-only plan fields are dropped.  A
+    plan split over a JAX mesh raises: the port's row split takes its
+    own mesh of torch devices (parallel/mesh.make_mesh)."""
+    if getattr(plan, "shard_mesh", None) is not None:
+        raise ValueError("the JAX plan is split over a JAX mesh: set the "
+                         "port plan's shard_mesh to a parallel/mesh.Mesh")
+
     def convert(f, v):
         if f.name == "config":
             return _fields(cfg.RenderConfig, v, lambda _, x: x)

@@ -25,6 +25,12 @@ leading view axis.  The geometry's world transform is then made once,
 everything that reads the globals gains the view axis, each kernel
 launches once for the B views, and every output and history target is
 (B, ...).  The bracketed passes then run view by view.
+
+Row bands: a plan with ``shard_mesh`` / ``shard_axis`` renders the frame
+cut into row bands over the devices of that mesh axis
+(``parallel/mesh.make_sharded_shade_fn``, whose docstring says how each
+pass runs).  Every image of the outputs and of the history is then a
+list of bands (``parallel/halo.py``), band i on the axis's device i.
 """
 from __future__ import annotations
 
@@ -51,6 +57,7 @@ from ..ops import ssao as ssao_ops
 from ..ops import ssr as ssr_ops
 from ..ops import taa as taa_ops
 from ..ops import tonemap as tonemap_ops
+from ..parallel import halo
 
 
 @dataclass(frozen=True)
@@ -81,7 +88,9 @@ class RenderHistory:
 class FramePlan:
     """Static per-scene/per-config raster grids + atlas metadata (the JAX
     FramePlan without its TPU-only knobs: tile-sampler geometry, record
-    packing, attribution stubs, barriers, interpret mode, sharding)."""
+    packing, attribution stubs, barriers, interpret mode).  shard_mesh /
+    shard_axis: the row split of the frame over that axis of a
+    parallel/mesh.Mesh (None: one device, the default)."""
     config: RenderConfig
     main_grid: raster2.BinGrid
     shadow_grid: raster2.BinGrid
@@ -95,6 +104,8 @@ class FramePlan:
     shadow_crop: tuple | None = None
     proved_crop_mats: tuple | None = None
     ssr_cap: int = 0
+    shard_mesh: object | None = None
+    shard_axis: str | None = None
 
     @staticmethod
     def create(config: RenderConfig, atlas, texture_filter: str = "bilinear"):
@@ -167,49 +178,131 @@ def _clip_of(world, view_proj):
     return torch.stack(outs, dim=-3)
 
 
+def _shard(plan: FramePlan):
+    """(mesh, axis) of the plan's row split, or None."""
+    if plan.shard_mesh is None or plan.shard_axis is None:
+        return None
+    return plan.shard_mesh, plan.shard_axis
+
+
 def raster_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
                  model_mats, normal_mats, impl: str | None = None):
     """Geometry half: transform, main-view raster (K1), the sun shadow
     view (back-face culled, depth only: K4) unless the build proved its
     map empty, shading records.  Batched globals: the transform once,
-    the rest per view (each view's sun too), one K1 and one K4 launch."""
+    the rest per view (each view's sun too), one K1 and one K4 launch.
+
+    With the plan's row split: setup, binning and records on the axis's
+    first device (`batch` may be halo.replicate's {device: batch}), K1
+    and K4 once per band of bin rows (raster2.resolve_row_sharded); the
+    visibility buffer comes back cut into the shade's row bands
+    (halo.band_starts), the shading records and the whole shadow map as
+    {device: tensor} replicas."""
     cfg = plan.config
+    shard = _shard(plan)
+    if shard is not None:
+        devices = shard[0].band_devices(shard[1])
+        lead = devices[0]
+        batch = (batch[lead] if isinstance(batch, dict)
+                 else halo.move(batch, lead))
+        g = halo.move(g, lead)
+        model_mats, normal_mats = (m.to(lead)
+                                   for m in (model_mats, normal_mats))
     world, wnrm = transform_triangles(batch, model_mats, normal_mats)
     clip = _clip_of(world, g.camera.projection_view)
     vis, setup = raster2.rasterize(clip, plan.main_grid, cull="front",
-                                   impl=impl)
+                                   impl=impl, shard=shard)
+    if shard is not None:
+        # the resolve's bands are whole bin rows: cut again into the shade's
+        starts = halo.band_starts(cfg.height, len(devices))
+        vis = raster2.VisibilityBuffer(**{
+            f: [halo.rows_of(getattr(vis, f), a, b, d)
+                for a, b, d in zip(starts, starts[1:], devices)]
+            for f in ("depth", "tri_id")}, overflow=vis.overflow)
     shadow_map = None
     overflow = vis.overflow
     if cfg.enable_shadows and not plan.shadow_statically_empty:
         sclip = _clip_of(world, g.sun.projection_view)
         svis, _ = raster2.rasterize(sclip, plan.shadow_grid, cull="back",
-                                    impl=impl, depth_only=True)
-        shadow_map = svis.depth
+                                    impl=impl, depth_only=True, shard=shard)
+        # split: the ESM tap reads anywhere in the map (or its crop)
+        shadow_map = (svis.depth if shard is None
+                      else halo.gather(svis.depth))
         overflow = overflow | svis.overflow
     records = gbuf_ops.build_shading_records(
         setup, world, wnrm, batch.tri_uv, batch.static_rows)
+    if shard is not None:
+        records = halo.replicate(records, devices)
     return vis, records, shadow_map, overflow
+
+
+def _each_view(g, V, fn, *arrays):
+    """fn(g, *arrays) of one view's globals and arrays, run view by view
+    over the batch of V views and stacked (the passes not yet batched)."""
+    if not V:
+        return fn(g, *arrays)
+    outs = [fn(select_view(g, i), *(a[i] for a in arrays))
+            for i in range(V[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return torch.stack(outs)
+
+
+def _ssr_mix(hdr, ssr_img, metallic_roughness):
+    """The mix the reference comments out (composition.inl:213-216)."""
+    rough = metallic_roughness[..., 0, :, :]
+    metal = metallic_roughness[..., 1, :, :]
+    return hdr + (ssr_img - hdr) * (metal * (1.0 - rough)).unsqueeze(-3)
+
+
+def _cloud_args(cfg: RenderConfig, noise, stacklevel: int = 3):
+    """(half width, half height, the QUADRANT quirk's full sizes) of the
+    clouds pass, after warning where a texture-noise path falls back
+    (stacklevel: shade_stage's caller)."""
+    if cfg.cloud_noise_mode == "texture" and noise is None:
+        warnings.warn(
+            "cloud_noise_mode='texture' falling back to the "
+            "procedural sky LUT: batch.cloud_noise is missing; "
+            "cloud shapes will differ from the reference noise "
+            "texture.", stacklevel=stacklevel)
+    if cfg.cloud_impl == "perpixel" and noise is None:
+        warnings.warn(
+            "cloud_impl='perpixel' falling back to the sky-LUT "
+            "path: batch.cloud_noise is missing; the exact "
+            "per-pixel march needs the noise texture.",
+            stacklevel=stacklevel)
+    # QUADRANT quirk: pass the FULL resolution so the half-res rays and
+    # sky mask span only the top-left frustum quadrant
+    quadrant = dict(
+        full_width=None if cfg.cloud_fullscreen_rays else cfg.width,
+        full_height=None if cfg.cloud_fullscreen_rays else cfg.height)
+    return cfg.width // 2, cfg.height // 2, quadrant
+
+
+def _sky_lut(cfg: RenderConfig, g, noise, impl):
+    """The sky LUT of the frame: K6 over the noise texture, or the
+    procedural one."""
+    if cfg.cloud_noise_mode == "texture" and noise is not None:
+        return sky_ops.render_sky_lut_noise(g, noise, impl=impl)
+    return clouds_ops.render_sky_lut(g)
 
 
 def shade_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
                 history: RenderHistory, vis, records, shadow_map, overflow,
                 impl: str | None = None
                 ) -> tuple[FrameOutputs, RenderHistory]:
-    """Screen-space half of the frame."""
+    """Screen-space half of the frame.  With the plan's row split it runs
+    over row bands (parallel/mesh.make_sharded_shade_fn); its inputs may
+    then be raster_stage's bands and replicas or whole tensors."""
+    if _shard(plan) is not None:
+        return _shade_sharded(plan, batch, g, history, vis, records,
+                              shadow_map, overflow, impl)
     cfg = plan.config
     dev = vis.depth.device
     V = vis.depth.shape[:-2]
 
     def each_view(fn, *arrays):
-        """fn(g, *arrays) of one view's globals and arrays, run view by
-        view over the batch and stacked (the passes not yet batched)."""
-        if not V:
-            return fn(g, *arrays)
-        outs = [fn(select_view(g, i), *(a[i] for a in arrays))
-                for i in range(V[0])]
-        if isinstance(outs[0], tuple):
-            return tuple(torch.stack(o) for o in zip(*outs))
-        return torch.stack(outs)
+        return _each_view(g, V, fn, *arrays)
 
     hiz_min = hiz_max = None
     if cfg.enable_hiz:
@@ -249,24 +342,8 @@ def shade_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
     clouds_full = None
     clouds_half = None
     if cfg.enable_clouds:
-        hw, hh = cfg.width // 2, cfg.height // 2
         noise = batch.cloud_noise
-        # QUADRANT quirk: pass the FULL resolution so the half-res rays
-        # and sky mask span only the top-left frustum quadrant
-        quadrant = dict(
-            full_width=None if cfg.cloud_fullscreen_rays else cfg.width,
-            full_height=None if cfg.cloud_fullscreen_rays else cfg.height)
-        if cfg.cloud_noise_mode == "texture" and noise is None:
-            warnings.warn(
-                "cloud_noise_mode='texture' falling back to the "
-                "procedural sky LUT: batch.cloud_noise is missing; "
-                "cloud shapes will differ from the reference noise "
-                "texture.", stacklevel=2)
-        if cfg.cloud_impl == "perpixel" and noise is None:
-            warnings.warn(
-                "cloud_impl='perpixel' falling back to the sky-LUT "
-                "path: batch.cloud_noise is missing; the exact "
-                "per-pixel march needs the noise texture.", stacklevel=2)
+        hw, hh, quadrant = _cloud_args(cfg, noise)
         if cfg.cloud_impl == "perpixel" and noise is not None:
             # the exact per-pixel march: no LUT is made
             clouds_half = each_view(
@@ -274,10 +351,7 @@ def shade_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
                                                        **quadrant),
                 vis.depth)
         else:
-            if cfg.cloud_noise_mode == "texture" and noise is not None:
-                lut = sky_ops.render_sky_lut_noise(g, noise, impl=impl)
-            else:
-                lut = clouds_ops.render_sky_lut(g)
+            lut = _sky_lut(cfg, g, noise, impl)
             clouds_half = clouds_ops.sky_from_lut(g, lut, vis.depth, hw, hh,
                                                   **quadrant)
         clouds_full = sampling.upsample_bilinear(clouds_half, cfg.height,
@@ -293,10 +367,7 @@ def shade_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
         empty_shadow_map=cfg.enable_shadows and plan.shadow_statically_empty,
         shadow_crop=plan.shadow_crop)
     if cfg.composite_ssr and ssr_img is not None:
-        # the mix the reference comments out (composition.inl:213-216)
-        rough = gbuf.metallic_roughness[..., 0, :, :]
-        metal = gbuf.metallic_roughness[..., 1, :, :]
-        hdr = hdr + (ssr_img - hdr) * (metal * (1.0 - rough)).unsqueeze(-3)
+        hdr = _ssr_mix(hdr, ssr_img, gbuf.metallic_roughness)
 
     # depth of field blurs the composed colour before the luminance
     # histogram and TAA, so it feeds the history once and does not
@@ -331,6 +402,170 @@ def shade_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
         clouds=clouds_half, bloom=bloom, ssr=ssr_img, hiz_min=hiz_min,
         hiz_max=hiz_max, overflow=overflow,
         tex_dirty=torch.full(V, -1, dtype=torch.int32, device=dev),
+        ssr_active=ssr_active)
+    return outputs, new_history
+
+
+def _gbuffer_bands(parts):
+    """A GBuffer per band -> one GBuffer of band lists."""
+    return gbuf_ops.GBuffer(**{
+        f: [getattr(p, f) for p in parts]
+        for f in gbuf_ops.GBuffer.__dataclass_fields__})
+
+
+def _shade_sharded(plan, batch, g, history, vis, records, shadow_map,
+                   overflow, impl):
+    """shade_stage over row bands: see parallel/mesh.make_sharded_shade_fn
+    for how each pass runs."""
+    cfg = plan.config
+    mesh, axis = shard = _shard(plan)
+    devices = mesh.band_devices(axis)
+    lead = devices[0]
+    H, W = cfg.height, cfg.width
+    starts = halo.band_starts(H, len(devices))
+    band_rows = list(zip(starts, starts[1:]))
+
+    def bands(x):
+        """An image as the shade's bands (a whole tensor is split, other
+        bands are cut again)."""
+        if isinstance(x, torch.Tensor):
+            return halo.split_rows(x, devices, starts)
+        if halo.starts_of(x) == starts:
+            return [b.to(d) for b, d in zip(x, devices)]
+        return [halo.rows_of(x, a, b, d)
+                for (a, b), d in zip(band_rows, devices)]
+
+    def whole(x):
+        return halo.assemble(x, lead)
+
+    depth, tri_id = bands(vis.depth), bands(vis.tri_id)
+    V = depth[0].shape[:-2]
+    gs = halo.replicate(g, devices)
+    batches = halo.replicate(batch, devices)
+    recs = halo.replicate(records, devices)
+    smaps = None if shadow_map is None else halo.replicate(shadow_map,
+                                                           devices)
+    overflow = overflow.to(lead)
+    # K2's taps, the clouds' QUADRANT taps and HiZ read the whole screen
+    depth_full = halo.gather(depth)
+
+    def each_view(fn, *arrays):
+        return _each_view(gs[lead], V, fn, *arrays)
+
+    hiz_min = hiz_max = None
+    if cfg.enable_hiz:
+        hiz_min = hiz_ops.build_hiz(depth_full[lead], "min")
+        hiz_max = hiz_ops.build_hiz(depth_full[lead], "max")
+
+    gbuf = _gbuffer_bands([gbuf_ops.resolve_gbuffer(
+        raster2.VisibilityBuffer(depth=depth[i], tri_id=tri_id[i],
+                                 overflow=overflow),
+        recs[d], batches[d].atlas_packed,
+        gs[d].camera_prev.projection_view, atlas_size=plan.atlas_size,
+        layer_stride=plan.atlas_layer_stride, n_levels=plan.atlas_n_levels,
+        filter_mode=plan.texture_filter, impl=impl, row0=a, full_h=H)
+        for i, ((a, _), d) in enumerate(zip(band_rows, devices))])
+
+    emissive = gbuf.emissive
+    bloom = None
+    if cfg.enable_bloom:
+        # the mip chain's reach grows with each level: the whole screen
+        bloom = bloom_ops.bloom(whole(emissive), cfg.bloom_mip_count)
+        emissive = bands(bloom)
+
+    if cfg.enable_ssao:
+        ssao_full = ssao_ops.ssao_row_bands(
+            mesh, axis, depth, gbuf.normal, depth_full, gs,
+            cfg.ssao_kernel_size, impl=impl)
+    else:
+        ssao_full = [torch.ones_like(d) for d in depth]
+
+    ssr_img = None
+    ssr_active = torch.full(V, -1, dtype=torch.int32, device=lead)
+    if cfg.enable_ssr:
+        ssr_img, ssr_overflow, ssr_active = each_view(
+            lambda gv, *a: ssr_ops.ssr(*a, gv, compact_cap=plan.ssr_cap),
+            depth_full[lead], whole(gbuf.albedo), whole(gbuf.normal),
+            whole(gbuf.metallic_roughness))
+        overflow = overflow | ssr_overflow
+
+    clouds_full = [None] * len(devices)
+    if cfg.enable_clouds:
+        noise = batches[lead].cloud_noise
+        hw, hh, quadrant = _cloud_args(cfg, noise, stacklevel=4)
+        if cfg.cloud_impl == "perpixel" and noise is not None:
+            # the per-pixel march on the whole screen, then cut
+            half = each_view(
+                lambda gv, d: clouds_ops.render_clouds(gv, d, noise, hw, hh,
+                                                       **quadrant),
+                depth_full[lead])
+            clouds_full = bands(sampling.upsample_bilinear(half, H, W))
+        else:
+            # the LUT once per distinct device; each band looks up its
+            # half-res rows and one more either side for the upsample
+            luts = {d: _sky_lut(cfg, gs[d], batches[d].cloud_noise, impl)
+                    for d in halo.distinct(devices)}
+            clouds_full = []
+            for (a, b), d in zip(band_rows, devices):
+                lo, hi = max(a // 2 - 1, 0), min(b // 2 + 1, hh)
+                half = clouds_ops.sky_from_lut(
+                    gs[d], luts[d], depth_full[d], hw, hh, rows=(lo, hi),
+                    **quadrant)
+                clouds_full.append(sampling.upsample_bilinear(
+                    half, H, W, rows=(a, b), src_row0=lo, src_h=hh))
+
+    hdr = [comp_ops.compose(
+        gs[d], depth[i], gbuf.albedo[i], emissive[i], gbuf.normal[i],
+        ssao_full[i], None if smaps is None else smaps[d], clouds_full[i],
+        enable_volumetric=cfg.enable_volumetric_light,
+        enable_shadow=cfg.enable_shadows,
+        max_point_lights=cfg.max_point_lights,
+        max_spot_lights=cfg.max_spot_lights,
+        empty_shadow_map=cfg.enable_shadows and plan.shadow_statically_empty,
+        shadow_crop=plan.shadow_crop, row0=a, full_h=H)
+        for i, ((a, _), d) in enumerate(zip(band_rows, devices))]
+    if cfg.composite_ssr and ssr_img is not None:
+        hdr = [_ssr_mix(*a) for a in zip(hdr, bands(ssr_img),
+                                         gbuf.metallic_roughness)]
+
+    if cfg.enable_depth_of_field:
+        hdr = bands(each_view(
+            lambda gv, c, d: dof_ops.depth_of_field(c, d, gv), whole(hdr),
+            depth_full[lead]))
+
+    prev_exposure = history.exposure.to(lead)
+    if cfg.enable_auto_exposure:
+        # a sum of the bands' integer histograms: exact
+        hist = sum(exposure_ops.luminance_histogram(
+            x, gs[d].log_min_luminance, gs[d].log_max_luminance).to(lead)
+            for x, d in zip(hdr, devices))
+        exposure = exposure_ops.resolve_exposure(hist, prev_exposure,
+                                                 gs[lead], H * W)
+    else:
+        exposure = prev_exposure
+    exposures = halo.replicate(exposure, devices)
+
+    velocity = gbuf.velocity
+    if cfg.enable_taa:
+        resolved = taa_ops.taa(
+            hdr, depth, velocity, bands(history.previous_color),
+            bands(history.previous_velocity),
+            {d: gs[d].frame_counter for d in gs}, impl=impl, shard=shard)
+    else:
+        resolved = hdr
+
+    color = [tonemap_ops.tone_map(r, exposures[d], gs[d])
+             for r, d in zip(resolved, devices)]
+    new_history = RenderHistory(
+        previous_color=[r.to(torch.bfloat16) for r in resolved],
+        previous_velocity=[v.to(torch.bfloat16) for v in velocity],
+        exposure=exposure)
+    outputs = FrameOutputs(
+        color=color, hdr=hdr, gbuffer=gbuf,
+        shadow_map=None if smaps is None else smaps[lead], ssao=None,
+        clouds=None, bloom=bloom, ssr=ssr_img, hiz_min=hiz_min,
+        hiz_max=hiz_max, overflow=overflow,
+        tex_dirty=torch.full(V, -1, dtype=torch.int32, device=lead),
         ssr_active=ssr_active)
     return outputs, new_history
 

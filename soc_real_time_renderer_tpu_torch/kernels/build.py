@@ -54,10 +54,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # starts, recs, depth, tri_id, cap, num_bins, bx, bw, bh, out_w,
-    # views, stream
-    "resolve_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # starts, recs, depth, cap, num_bins, bx, bw, bh, out_w, views, stream
-    "resolve_depth_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # views, row0 (first bin row), band_by (bin rows), stream
+    "resolve_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _P],
+    # starts, recs, depth, cap, num_bins, bx, bw, bh, out_w, views, row0,
+    # band_by, stream
+    "resolve_depth_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _P],
     # atlas, mid, uv, lod, out, P, rows, size, layer_stride, n_levels,
     # filter mode, stream
     "texsample_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -65,8 +68,8 @@ _SIGNATURES = {
     "ssao_taps_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # params, noise, out, lut_w, lut_h, views, stream
     "sky_lut_launch": [_P, _P, _P, _I, _I, _I, _P],
-    # history, velocity, out, C, H, W, views, stream
-    "taa_reproject_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # history, velocity, out, C, H, W, views, row0, full_h, stream
+    "taa_reproject_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

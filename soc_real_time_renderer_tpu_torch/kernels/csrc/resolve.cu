@@ -16,11 +16,19 @@
 // Inputs: `starts` (num_bins + 1) int32 offsets into the bin-sorted pair
 // records `recs` (16, cap) float32, rows [adjugate 3x3 | z0..2 | w0..2 |
 // id as an exact float] (K4 reads rows 0-14).  Outputs `depth` f32 and,
-// for K1, `tri_id` i32, both (rows of bins * bh, out_w) with out_w = bins
-// per row * bw.  Views: `views` such sets back to back, (views, num_bins
-// + 1) starts, (views, 16, cap) records, (views, rows, out_w) outputs,
-// resolved by one launch whose blockIdx.y is the view (the B views of
-// parallel/mesh.py; one frame is views = 1).
+// for K1, `tri_id` i32, both (band_by * bh, out_w) with out_w = bins per
+// row * bw.  Views: `views` such sets back to back, (views, num_bins + 1)
+// starts, (views, 16, cap) records, (views, band_by * bh, out_w)
+// outputs, resolved by one launch whose blockIdx.y is the view (the B
+// views of parallel/mesh.py; one frame is views = 1).
+//
+// Row bands: a launch resolves the `band_by` bin rows from global bin row
+// `row0` on (the JAX kernels' `row0` scalar, raster2.py:468, 568-575):
+// its blocks read only those bins of the whole `starts` table, evaluate
+// the edge functions at the pixels' global centres and write the band's
+// rows.  One frame is row0 = 0, band_by = all bin rows; the row split of
+// one frame over a mesh (ops/raster2.resolve_row_sharded) launches once
+// per band.
 //
 // The work.  What an exact resolve must do is small: of the (pair,
 // pixel) tests a bin resolve could make, only 0.5-1.8% fall inside a
@@ -186,8 +194,8 @@ __device__ __forceinline__ bool edge_may_cover(float a0, float a1, float a2,
 template <bool kIds, int kTiles>
 __global__ void __launch_bounds__(kThreads)
 resolve_body(const int* __restrict__ starts, const float* __restrict__ recs,
-             int cap, int vec, int bx, int bw, int bh, int parts_x,
-             int parts, int out_w, size_t out_view,
+             int cap, int vec, int num_bins, int bx, int bw, int bh,
+             int row0, int parts_x, int parts, int out_w, size_t out_view,
              float* __restrict__ depth, int* __restrict__ tri_id) {
     constexpr int kR = kIds ? 16 : 15;
     constexpr int kRegionH = kBlockH * kTiles;
@@ -195,17 +203,20 @@ resolve_body(const int* __restrict__ starts, const float* __restrict__ recs,
     __shared__ int kept[kWindow];             // window columns kept
     __shared__ int kept_by_warp[kThreads / 32];
     // this block's view: its starts, records and output planes
-    const int num_bins = gridDim.x / parts;
     starts += (size_t)blockIdx.y * (num_bins + 1);
     recs += (size_t)blockIdx.y * 16 * cap;
     depth += blockIdx.y * out_view;
     if (kIds) tri_id += blockIdx.y * out_view;
-    const int b = blockIdx.x / parts;
+    // the band's bin bl, global bin b: output rows from the band's first
+    // row (oy0), pixel centres at the screen's rows (gy0)
+    const int bl = blockIdx.x / parts;
+    const int b = bl + row0 * bx;
     const int part = blockIdx.x % parts;
     const int warp = threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
-    const int gx0 = (b % bx) * bw;
-    const int gy0 = (b / bx) * bh;
+    const int gx0 = (bl % bx) * bw;
+    const int oy0 = (bl / bx) * bh;
+    const int gy0 = oy0 + row0 * bh;
     // this block's region in bin pixels
     const int rx = part % parts_x * kBlockW;
     const int ry = part / parts_x * kRegionH;
@@ -217,7 +228,7 @@ resolve_body(const int* __restrict__ starts, const float* __restrict__ recs,
             const int x = rx + threadIdx.x % kBlockW;
             const int y = ry + y0 + threadIdx.x / kBlockW;
             if (x < bw && y < bh) {
-                const size_t o = (size_t)(y + gy0) * out_w + (x + gx0);
+                const size_t o = (size_t)(y + oy0) * out_w + (x + gx0);
                 depth[o] = 1.0f;
                 if (kIds) tri_id[o] = -1;
             }
@@ -337,7 +348,7 @@ resolve_body(const int* __restrict__ starts, const float* __restrict__ recs,
     for (int t = 0; t < kTiles; ++t) {
         const int y = ly + t * kBlockH;
         if (lx < bw && y < bh) {
-            const size_t o = (size_t)(y + gy0) * out_w + (lx + gx0);
+            const size_t o = (size_t)(y + oy0) * out_w + (lx + gx0);
             if (kIds) {
                 depth[o] = ib[t] >= 0 ? zb[t] : 1.0f;
                 tri_id[o] = ib[t];
@@ -351,24 +362,27 @@ resolve_body(const int* __restrict__ starts, const float* __restrict__ recs,
 template <bool kIds, int kTiles>
 int launch(const void* starts, const void* recs, void* depth, void* tri_id,
            int cap, int num_bins, int bx, int bw, int bh, int out_w,
-           int views, void* stream) {
-    if (bw <= 0 || bh <= 0 || bx <= 0 || views > 65535)
+           int views, int row0, int band_by, void* stream) {
+    if (bw <= 0 || bh <= 0 || bx <= 0 || views > 65535 || row0 < 0
+        || band_by < 0 || (long long)(row0 + band_by) * bx > num_bins)
         return (int)cudaErrorInvalidValue;
-    if (num_bins <= 0 || views <= 0) return 0;
+    const int band_bins = band_by * bx;
+    if (band_bins <= 0 || views <= 0) return 0;
     const int region_h = kBlockH * kTiles;
     const int parts_x = (bw + kBlockW - 1) / kBlockW;
     const int parts = parts_x * ((bh + region_h - 1) / region_h);
-    if ((long long)num_bins * parts > 0x7fffffff) {
+    if ((long long)band_bins * parts > 0x7fffffff) {
         return (int)cudaErrorInvalidValue;
     }
     // a view's records start 16 * cap floats apart: aligned alike
     const int vec = cap % 4 == 0 && (uintptr_t)recs % 16 == 0;
-    const size_t out_view = (size_t)((num_bins + bx - 1) / bx) * bh * out_w;
+    const size_t out_view = (size_t)band_by * bh * out_w;
     resolve_body<kIds, kTiles>
-        <<<dim3(num_bins * parts, views), kThreads, 0,
+        <<<dim3(band_bins * parts, views), kThreads, 0,
            (cudaStream_t)stream>>>(
-            (const int*)starts, (const float*)recs, cap, vec, bx, bw, bh,
-            parts_x, parts, out_w, out_view, (float*)depth, (int*)tri_id);
+            (const int*)starts, (const float*)recs, cap, vec, num_bins, bx,
+            bw, bh, row0, parts_x, parts, out_w, out_view, (float*)depth,
+            (int*)tri_id);
     return (int)cudaGetLastError();
 }
 
@@ -377,18 +391,20 @@ int launch(const void* starts, const void* recs, void* depth, void* tri_id,
 SOC_EXPORT int resolve_depth_launch(const void* starts, const void* recs,
                                     void* depth, int cap, int num_bins,
                                     int bx, int bw, int bh, int out_w,
-                                    int views, void* stream) {
+                                    int views, int row0, int band_by,
+                                    void* stream) {
     return launch<false, SOC_K4_TILES>(starts, recs, depth, nullptr, cap,
                                        num_bins, bx, bw, bh, out_w, views,
-                                       stream);
+                                       row0, band_by, stream);
 }
 
 SOC_EXPORT int resolve_launch(const void* starts, const void* recs,
                               void* depth, void* tri_id, int cap,
                               int num_bins, int bx, int bw, int bh,
-                              int out_w, int views, void* stream) {
+                              int out_w, int views, int row0, int band_by,
+                              void* stream) {
     return launch<true, 1>(starts, recs, depth, tri_id, cap, num_bins, bx,
-                           bw, bh, out_w, views, stream);
+                           bw, bh, out_w, views, row0, band_by, stream);
 }
 
 SOC_EXPORT const char* soc_error_string(int code) {

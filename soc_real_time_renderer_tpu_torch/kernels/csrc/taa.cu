@@ -8,9 +8,15 @@
 // uv - velocity.  The TPU kernel's out-of-window flag is an artifact of
 // its VMEM window and has no counterpart here.
 //
-// Inputs: `hist` (C, H, W) bf16, `vel` (2, H, W) f32 (the dilated
-// velocity).  Output (C, H, W) f32.  Views: `views` such sets back to
-// back ((views, C, H, W) history, ...), one launch, blockIdx.z the view.
+// Inputs: `hist` (C, full_h, W) bf16, the whole screen's history; `vel`
+// (2, H, W) f32 (the dilated velocity) of a band of H rows whose first
+// row is screen row `row0`.  Output (C, H, W) f32.  A pixel's uv and the
+// reprojected row are the screen's, `(y + row0 + 0.5) / full_h`, and the
+// fetch clamps at the screen's edges (the JAX kernel's `row0` / `full_h`,
+// taa_pallas.py:44-64; one frame is row0 = 0, H = full_h; the row split
+// of one frame over a mesh launches once per band).  Views: `views` such
+// sets back to back ((views, C, full_h, W) history, (views, 2, H, W)
+// velocity, ...), one launch, blockIdx.z the view.
 //
 // Design: one thread per pixel computes the tap position and weights
 // once and fetches the 4 corners of each of the C channels, so that each
@@ -38,29 +44,30 @@ __device__ __forceinline__ int floor_index(float v, int n) {
 __global__ void taa_reproject_kernel(const __nv_bfloat16* __restrict__ hist,
                                      const float* __restrict__ vel,
                                      float* __restrict__ out, int C, int H,
-                                     int W) {
+                                     int W, int row0, int full_h) {
     const int x = blockIdx.x * blockDim.x + threadIdx.x;
     const int y = blockIdx.y * blockDim.y + threadIdx.y;
     if (x >= W || y >= H) return;
-    const size_t HW = (size_t)H * W;
-    hist += blockIdx.z * C * HW;
+    const size_t HW = (size_t)H * W;             // the band's plane
+    const size_t FW = (size_t)full_h * W;        // the history's plane
+    hist += blockIdx.z * C * FW;
     vel += blockIdx.z * 2 * HW;
     out += blockIdx.z * C * HW;
     const size_t i = (size_t)y * W + x;
     const float u = ((float)x + 0.5f) / (float)W - vel[i];
-    const float v = ((float)y + 0.5f) / (float)H - vel[HW + i];
+    const float v = ((float)(y + row0) + 0.5f) / (float)full_h - vel[HW + i];
     const float xf = u * (float)W - 0.5f;
-    const float yf = v * (float)H - 0.5f;
+    const float yf = v * (float)full_h - 0.5f;
     const int x0 = floor_index(xf, W);
-    const int y0 = floor_index(yf, H);
+    const int y0 = floor_index(yf, full_h);
     const int x1 = min(x0 + 1, W - 1);
-    const int y1 = min(y0 + 1, H - 1);
+    const int y1 = min(y0 + 1, full_h - 1);
     const float fx = fminf(fmaxf(xf - (float)x0, 0.0f), 1.0f);
     const float fy = fminf(fmaxf(yf - (float)y0, 0.0f), 1.0f);
     const size_t o00 = (size_t)y0 * W + x0, o10 = (size_t)y0 * W + x1;
     const size_t o01 = (size_t)y1 * W + x0, o11 = (size_t)y1 * W + x1;
     for (int c = 0; c < C; ++c) {
-        const __nv_bfloat16* p = hist + c * HW;
+        const __nv_bfloat16* p = hist + c * FW;
         const float c00 = __bfloat162float(p[o00]);
         const float c10 = __bfloat162float(p[o10]);
         const float c01 = __bfloat162float(p[o01]);
@@ -75,12 +82,15 @@ __global__ void taa_reproject_kernel(const __nv_bfloat16* __restrict__ hist,
 
 SOC_EXPORT int taa_reproject_launch(const void* hist, const void* vel,
                                     void* out, int C, int H, int W,
-                                    int views, void* stream) {
-    if (views > 65535) return (int)cudaErrorInvalidValue;
+                                    int views, int row0, int full_h,
+                                    void* stream) {
+    if (views > 65535 || row0 < 0 || full_h <= 0 || row0 + H > full_h)
+        return (int)cudaErrorInvalidValue;
     if (H <= 0 || W <= 0 || views <= 0) return 0;
     const dim3 block(32, 8);
     const dim3 grid((W + 31) / 32, (H + 7) / 8, views);
     taa_reproject_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)hist, (const float*)vel, (float*)out, C, H, W);
+        (const __nv_bfloat16*)hist, (const float*)vel, (float*)out, C, H, W,
+        row0, full_h);
     return (int)cudaGetLastError();
 }

@@ -399,14 +399,16 @@ def render_sky_lut(g, lut_w: int = 256, lut_h: int = 128, noise_tex=None):
     return (sky * sky_horizon(sun_dir)).movedim(-1, -3)
 
 
-def _pixel_rays(g, width: int, height: int, fw, fh, dev):
+def _pixel_rays(g, width: int, height: int, fw, fh, dev, rows=None):
     """World-space unit ray of each pixel of a (height, width) target
     whose pixel coordinates are divided by (fw - 1, fh - 1)
     (cloud_rendering.inl:443-455 with its quirks): (px, py, dx, dy, dz),
-    the directions (height, width)."""
+    the directions (height, width); of its rows [rows[0], rows[1]) alone
+    when `rows` is given."""
+    a, b = rows if rows is not None else (0, height)
     px = torch.arange(width, dtype=torch.float32, device=dev)
-    py = torch.arange(height, dtype=torch.float32, device=dev)
-    shape = (height, width)
+    py = torch.arange(a, b, dtype=torch.float32, device=dev)
+    shape = (b - a, width)
     u = (px[None, :] / (fw - 1.0)).expand(shape)
     v = (py[:, None] / (fh - 1.0)).expand(shape)
     ndc_x = u * 2.0 - 1.0
@@ -426,21 +428,23 @@ def _pixel_rays(g, width: int, height: int, fw, fh, dev):
 
 def sky_from_lut(g, lut, depth_full, width: int, height: int,
                  dither: bool = True, full_width: int | None = None,
-                 full_height: int | None = None):
+                 full_height: int | None = None, rows=None):
     """Per-pixel sky via LUT lookup at the pixel's ray direction
     (render_clouds' ray construction, :445-455 quirks, and the QUADRANT
     quirk when full_width/full_height are given).  Returns
     (3, height, width) half-res sky colour; non-sky pixels take the
     (0.2, 0.4, 1.0) clear.  Batched: g, lut (B, 3, lut_h, lut_w) and
     depth_full (B, H, W) give (B, 3, height, width), each view looking
-    up its own LUT."""
+    up its own LUT.  rows: rows [rows[0], rows[1]) of the target alone
+    (a row band; each pixel reads the whole screen's depth_full, which
+    the QUADRANT quirk taps far from the pixel's own rows)."""
     dev = depth_full.device
     nv = g.frame_counter.dim()
     fw = width if full_width is None else full_width
     fh = height if full_height is None else full_height
-    shape = (height, width)
     px, py, dx, dy, dz = _pixel_rays(views.planar(g, 2), width, height, fw,
-                                     fh, dev)
+                                     fh, dev, rows)
+    shape = (py.shape[0], width)
 
     az = torch.atan2(dz, dx)
     el = torch.asin(torch.clamp(dy, -1.0, 1.0))

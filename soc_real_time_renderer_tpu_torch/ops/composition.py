@@ -154,7 +154,8 @@ def compose(g, depth, albedo, emissive, normal, ssao, shadow_map, clouds,
             *, enable_volumetric: bool = False, enable_shadow: bool = True,
             max_point_lights: int = 128, max_spot_lights: int = 128,
             empty_shadow_map: bool = False,
-            shadow_crop: tuple | None = None):
+            shadow_crop: tuple | None = None, row0: int = 0,
+            full_h: int | None = None):
     """Full composition pass (planar).
 
     depth: (H, W); albedo/emissive/normal: (3, H, W); ssao: (H, W);
@@ -168,11 +169,14 @@ def compose(g, depth, albedo, emissive, normal, ssao, shadow_map, clouds,
     the result is bit-identical to the full-map tap.  Returns (3, H, W)
     HDR colour.  With batched globals every array carries a leading view
     axis (B, ...): each view has its own sun, lights and shadow map; the
-    volumetric term is then taken view by view."""
+    volumetric term is then taken view by view.  A row band: the images
+    hold rows [row0, row0 + H) of a `full_h`-row screen; every pixel is
+    composed at its screen uv (per pixel, no halo)."""
     H, W = depth.shape[-2:]
+    Hf = full_h or H
     V = depth.shape[:-2]
     nv = len(V)
-    uv = sampling.grid_uv(H, W, depth.device).reshape(2, -1)
+    uv = sampling.grid_uv(H, W, depth.device, row0, Hf).reshape(2, -1)
     gp = views.planar(g, 1)
 
     def flat(img):                                  # -> (3, *V, P)
@@ -222,10 +226,10 @@ def compose(g, depth, albedo, emissive, normal, ssao, shadow_map, clouds,
             vol = torch.stack([_volumetric(
                 select_view(g, i), position[:, i], uv, d[i],
                 None if shadow_map is None else shadow_map[i],
-                empty_shadow_map, H, W) for i in range(V[0])])
+                empty_shadow_map, Hf, W) for i in range(V[0])])
         else:
             vol = _volumetric(g, position, uv, d, shadow_map,
-                              empty_shadow_map, H, W)
+                              empty_shadow_map, Hf, W)
         volumetric = vol[None]
 
     color = ((direct + gp.ambient) * alb * occ[None]

@@ -122,13 +122,21 @@ def sample_packed_atlas(atlas, mid, uv, lod, *, size: int,
 def resolve_gbuffer(vis: VisibilityBuffer, shading_records, atlas,
                     prev_view_proj, *, atlas_size: int, layer_stride: int,
                     n_levels: int, filter_mode: str = "bilinear",
-                    impl: str | None = None) -> GBuffer:
+                    impl: str | None = None, row0: int = 0,
+                    full_h: int | None = None) -> GBuffer:
     """Shade the visibility buffer into the 5-target G-buffer.  The
     material tap is texsample.sample_atlas (K5), dispatched by `impl`.
     With a leading view axis (vis (B, H, W), records (40, B, T+1),
     prev_view_proj (B, 4, 4)) every target gains it, and the taps of all
-    views go through one K5 call (the views fold into its pixel axis)."""
+    views go through one K5 call (the views fold into its pixel axis).
+
+    A row band (the JAX ``resolve_gbuffer(shard=)`` band, gbuffer.py:
+    340-392): vis holds rows [row0, row0 + H) of a `full_h`-row screen.
+    Every pixel is shaded at its screen centre (the edge functions, the
+    velocity against camera_prev), and its material tap is per pixel, so
+    the band needs no halo and each pixel equals the whole screen's."""
     H, W = vis.depth.shape[-2:]
+    Hf = full_h or H
     V = vis.depth.shape[:-2]
     dev = vis.depth.device
     T = shading_records.shape[-1] - 1
@@ -138,7 +146,8 @@ def resolve_gbuffer(vis: VisibilityBuffer, shading_records, atlas,
     t = torch.where(miss, T, tri).long()
 
     px = (torch.arange(W, dtype=torch.float32, device=dev) + 0.5)[None, :]
-    py = (torch.arange(H, dtype=torch.float32, device=dev) + 0.5)[:, None]
+    py = (torch.arange(row0, row0 + H, dtype=torch.float32, device=dev)
+          + 0.5)[:, None]
     px = px.expand(H, W).reshape(-1)
     py = py.expand(H, W).reshape(-1)
 
@@ -220,7 +229,7 @@ def resolve_gbuffer(vis: VisibilityBuffer, shading_records, atlas,
     # velocity (inl:226-229)
     m = views.mat(prev_view_proj, 1)
     cur_u = px / W
-    cur_v = py / H
+    cur_v = py / Hf
     pc_x = m[0, 0] * pos[0] + m[0, 1] * pos[1] + m[0, 2] * pos[2] + m[0, 3]
     pc_y = m[1, 0] * pos[0] + m[1, 1] * pos[1] + m[1, 2] * pos[2] + m[1, 3]
     pc_w = m[3, 0] * pos[0] + m[3, 1] * pos[1] + m[3, 2] * pos[2] + m[3, 3]

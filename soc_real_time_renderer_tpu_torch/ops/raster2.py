@@ -18,6 +18,15 @@ layout only:
    The shadow view's depth-only resolve (:func:`resolve_depth`) is
    kernel K4 in the same source, :func:`resolve_depth_plain` on the CPU.
 
+Row bands (the row split of one frame over a mesh, parallel/mesh.py):
+:func:`resolve` and :func:`resolve_depth` take a band of bin rows
+(``row0``, ``band_by``) of the whole starts table and write the band's
+rows alone, at the pixels' global centres; :func:`resolve_row_sharded`
+launches once per band on the band's device, and ``rasterize(...,
+shard=(mesh, axis))`` pads the bin grid to a multiple of the axis's
+bands first.  Setup, binning, starts and records stay whole (made once,
+replicated to each distinct device of the axis).
+
 Views: every step takes an optional leading view axis (B views of one
 scene, ``parallel/mesh.py``).  Clip positions (B, 3, 4, T) give a setup
 whose rows are (k, B, T), per-view pair streams (B, S) sorted along
@@ -33,6 +42,7 @@ from dataclasses import dataclass
 import torch
 
 from ..kernels import build as kb
+from ..parallel import halo
 
 W_EPS = 1e-6
 # bin keys are bin_id * ZQ + quantized conservative min z, so each bin's
@@ -307,46 +317,75 @@ def _eval_records(rec, px, py):
     return cov, z
 
 
-def _per_view(fn, starts, recs, *args):
+def _per_view(fn, starts, recs, *args, **kw):
     """fn over the leading view axis of (starts, recs), outputs stacked
     (the plain versions resolve one view at a time)."""
     if starts.dim() == 1:
-        return fn(starts, recs, *args)
-    outs = [fn(s, r, *args) for s, r in zip(starts, recs)]
+        return fn(starts, recs, *args, **kw)
+    outs = [fn(s, r, *args, **kw) for s, r in zip(starts, recs)]
     if isinstance(outs[0], tuple):
         return tuple(torch.stack(o) for o in zip(*outs))
     return torch.stack(outs)
 
 
-def resolve_plain(starts, recs, grid: BinGrid, pair_chunk: int = 4096):
+def _band(grid: BinGrid, row0: int, band_by: int | None) -> int:
+    """The band's bin-row count, after checking that bin rows [row0,
+    row0 + band_by) lie in the grid (band_by None: to the last row)."""
+    band_by = grid.by - row0 if band_by is None else band_by
+    if row0 < 0 or band_by < 0 or row0 + band_by > grid.by:
+        raise ValueError(f"bin rows [{row0}, {row0 + band_by}) outside the "
+                         f"grid's {grid.by}")
+    return band_by
+
+
+def _band_pairs(starts, grid: BinGrid, row0: int, band_by: int, pix_w: int):
+    """(pair range of the band's bins, and per chunk of pairs: their bin,
+    pixel x, band-local pixel row, global pixel row) for the plain
+    resolves; pix_w: the pixels of a bin."""
+    BX, bw, bh = grid.bx, grid.bw, grid.bh
+    p_lo = int(starts[row0 * BX])
+    p_hi = int(starts[(row0 + band_by) * BX])
+    pix = torch.arange(pix_w, device=starts.device)
+    lx, ly = pix % bw, torch.div(pix, bw, rounding_mode="floor")
+
+    def locate(p):
+        b = torch.searchsorted(starts, p.to(starts.dtype), right=True) - 1
+        gx = (b % BX * bw)[:, None] + lx[None, :]
+        oy = ((torch.div(b, BX, rounding_mode="floor") - row0) * bh)[:, None] \
+            + ly[None, :]
+        return gx, oy, oy + row0 * bh
+
+    return p_lo, p_hi, locate
+
+
+def resolve_plain(starts, recs, grid: BinGrid, pair_chunk: int = 4096,
+                  row0: int = 0, band_by: int | None = None):
     """K1's reference in plain PyTorch: every (pair, bin-pixel) test,
     chunked over pairs, reduced with scatter_reduce("amin") — first the
     min z per pixel, then the min id among the covering records at that
     z.  Returns (depth, tri_id) padded to the bin grid; with a leading
-    view axis on starts and recs, view by view, (B, Hp, Wp) each."""
+    view axis on starts and recs, view by view, (B, Hp, Wp) each.  A band
+    (row0, band_by; see :func:`resolve`) gives its rows alone."""
     if starts.dim() > 1:
-        return _per_view(resolve_plain, starts, recs, grid, pair_chunk)
+        return _per_view(resolve_plain, starts, recs, grid, pair_chunk,
+                         row0=row0, band_by=band_by)
     dev = recs.device
+    band_by = _band(grid, row0, band_by)
     bw, bh, BX = grid.bw, grid.bh, grid.bx
-    Hp, Wp = grid.by * bh, BX * bw
-    n_pairs = int(starts[-1])
-    pix = torch.arange(bw * bh, device=dev)
-    lx, ly = pix % bw, torch.div(pix, bw, rounding_mode="floor")
+    Hp, Wp = band_by * bh, BX * bw
+    p_lo, p_hi, locate = _band_pairs(starts, grid, row0, band_by, bw * bh)
     big_id = 2 ** 30
     zbuf = torch.full((Hp * Wp,), float("inf"), device=dev)
     ibuf = torch.full((Hp * Wp,), big_id, dtype=torch.int32, device=dev)
 
     def chunks():
-        for p0 in range(0, n_pairs, pair_chunk):
-            p = torch.arange(p0, min(p0 + pair_chunk, n_pairs), device=dev)
-            b = torch.searchsorted(starts, p.to(starts.dtype), right=True) - 1
-            gx = (b % BX * bw)[:, None] + lx[None, :]
-            gy = (torch.div(b, BX, rounding_mode="floor") * bh)[:, None] \
-                + ly[None, :]
+        for p0 in range(p_lo, p_hi, pair_chunk):
+            p = torch.arange(p0, min(p0 + pair_chunk, p_hi), device=dev)
+            gx, oy, gy = locate(p)
             rec = recs[:, p][:, :, None]                      # (16, n, 1)
             cov, z = _eval_records(rec, gx.to(torch.float32) + 0.5,
                                    gy.to(torch.float32) + 0.5)
-            yield rec, cov, z, (gy * Wp + gx)
+            yield rec, cov, z, (oy * Wp + gx)
 
     for _, cov, z, flat in chunks():
         zbuf.scatter_reduce_(0, flat[cov], z[cov], reduce="amin")
@@ -373,25 +412,32 @@ def _check_resolve_inputs(what, starts, recs, grid):
     return starts.shape[0] if starts.dim() == 2 else 1
 
 
-def resolve(starts, recs, grid: BinGrid, impl: str | None = None):
+def resolve(starts, recs, grid: BinGrid, impl: str | None = None,
+            row0: int = 0, band_by: int | None = None):
     """K1 dispatch: bin resolve -> (depth, tri_id) padded to the bin
     grid.  CUDA tensors launch the kernel, CPU tensors (or impl="plain")
     take resolve_plain.  starts (*V, bins + 1), recs (*V, 16, cap): with
-    a view axis one launch resolves every view, (B, Hp, Wp) out."""
+    a view axis one launch resolves every view, (B, Hp, Wp) out.
+
+    A band: bin rows [row0, row0 + band_by) of the grid (band_by None:
+    to the last row); starts and records stay the whole grid's, the
+    output is the band's band_by * bh rows (the JAX kernel's ``row0``,
+    raster2.py:568-575)."""
     if kb.choose(impl, starts, recs) == "plain":
-        return resolve_plain(starts, recs, grid)
+        return resolve_plain(starts, recs, grid, row0=row0, band_by=band_by)
     lib = kb.library()
     views = _check_resolve_inputs("resolve", starts, recs, grid)
+    band_by = _band(grid, row0, band_by)
     starts = starts.contiguous()
     recs = recs.contiguous()
-    Hp, Wp = grid.by * grid.bh, grid.bx * grid.bw
+    Hp, Wp = band_by * grid.bh, grid.bx * grid.bw
     shape = (*starts.shape[:-1], Hp, Wp)
     depth = torch.empty(shape, dtype=torch.float32, device=recs.device)
     tri_id = torch.empty(shape, dtype=torch.int32, device=recs.device)
     code = lib.resolve_launch(starts.data_ptr(), recs.data_ptr(),
                               depth.data_ptr(), tri_id.data_ptr(),
                               recs.shape[-1], grid.num_bins, grid.bx,
-                              grid.bw, grid.bh, Wp, views,
+                              grid.bw, grid.bh, Wp, views, row0, band_by,
                               kb.stream_ptr(recs))
     kb.launches["resolve"] += 1
     kb.check(code, "resolve")
@@ -399,58 +445,60 @@ def resolve(starts, recs, grid: BinGrid, impl: str | None = None):
 
 
 def resolve_depth_plain(starts, recs, grid: BinGrid,
-                        pixels_per_chunk: int = 1 << 24):
+                        pixels_per_chunk: int = 1 << 24, row0: int = 0,
+                        band_by: int | None = None):
     """K4's reference in plain PyTorch: the depth-only resolve of the
     shadow view — per pixel the minimum z over the covering records of
     its bin, 1.0 where none covers.  Pairs go in chunks of
     pixels_per_chunk // (bin pixels) (1,024 pairs of a 128x128 bin), so
     one chunk's temporaries stay near 1 GB at the 4096^2 shadow map.
     Returns depth padded to the bin grid (view by view with a leading
-    view axis)."""
+    view axis); a band (row0, band_by) gives its rows alone."""
     if starts.dim() > 1:
         return _per_view(resolve_depth_plain, starts, recs, grid,
-                         pixels_per_chunk)
+                         pixels_per_chunk, row0=row0, band_by=band_by)
     dev = recs.device
+    band_by = _band(grid, row0, band_by)
     bw, bh, BX = grid.bw, grid.bh, grid.bx
-    Hp, Wp = grid.by * bh, BX * bw
-    n_pairs = int(starts[-1])
-    pix = torch.arange(bw * bh, device=dev)
-    lx, ly = pix % bw, torch.div(pix, bw, rounding_mode="floor")
+    Hp, Wp = band_by * bh, BX * bw
+    p_lo, p_hi, locate = _band_pairs(starts, grid, row0, band_by, bw * bh)
     zbuf = torch.full((Hp * Wp,), float("inf"), device=dev)
     pair_chunk = max(1, pixels_per_chunk // (bw * bh))
-    for p0 in range(0, n_pairs, pair_chunk):
-        p = torch.arange(p0, min(p0 + pair_chunk, n_pairs), device=dev)
-        b = torch.searchsorted(starts, p.to(starts.dtype), right=True) - 1
-        gx = (b % BX * bw)[:, None] + lx[None, :]
-        gy = (torch.div(b, BX, rounding_mode="floor") * bh)[:, None] \
-            + ly[None, :]
+    for p0 in range(p_lo, p_hi, pair_chunk):
+        p = torch.arange(p0, min(p0 + pair_chunk, p_hi), device=dev)
+        gx, oy, gy = locate(p)
         cov, z = _eval_records(recs[:, p][:, :, None],
                                gx.to(torch.float32) + 0.5,
                                gy.to(torch.float32) + 0.5)
-        zbuf.scatter_reduce_(0, (gy * Wp + gx).reshape(-1),
+        zbuf.scatter_reduce_(0, (oy * Wp + gx).reshape(-1),
                              torch.where(cov, z, float("inf")).reshape(-1),
                              reduce="amin")
     return torch.where(torch.isfinite(zbuf), zbuf, 1.0).reshape(Hp, Wp)
 
 
-def resolve_depth(starts, recs, grid: BinGrid, impl: str | None = None):
+def resolve_depth(starts, recs, grid: BinGrid, impl: str | None = None,
+                  row0: int = 0, band_by: int | None = None):
     """K4 dispatch: depth-only bin resolve -> depth padded to the bin
     grid.  CUDA tensors launch the kernel (``resolve.cu``: K1's body
     without the id row, any bin size), CPU tensors (or impl="plain") take
-    resolve_depth_plain.  Views as in :func:`resolve`: one launch."""
+    resolve_depth_plain.  Views and bands as in :func:`resolve`: one
+    launch."""
     if kb.choose(impl, starts, recs) == "plain":
-        return resolve_depth_plain(starts, recs, grid)
+        return resolve_depth_plain(starts, recs, grid, row0=row0,
+                                   band_by=band_by)
     lib = kb.library()
     views = _check_resolve_inputs("resolve_depth", starts, recs, grid)
+    band_by = _band(grid, row0, band_by)
     starts = starts.contiguous()
     recs = recs.contiguous()
-    Hp, Wp = grid.by * grid.bh, grid.bx * grid.bw
+    Hp, Wp = band_by * grid.bh, grid.bx * grid.bw
     depth = torch.empty((*starts.shape[:-1], Hp, Wp), dtype=torch.float32,
                         device=recs.device)
     code = lib.resolve_depth_launch(starts.data_ptr(), recs.data_ptr(),
                                     depth.data_ptr(), recs.shape[-1],
                                     grid.num_bins, grid.bx, grid.bw,
-                                    grid.bh, Wp, views, kb.stream_ptr(recs))
+                                    grid.bh, Wp, views, row0, band_by,
+                                    kb.stream_ptr(recs))
     kb.launches["resolve_depth"] += 1
     kb.check(code, "resolve_depth")
     return depth
@@ -475,16 +523,72 @@ def gather_records(setup: PlanarSetup, grid: BinGrid):
     return starts, recs, overflow, dataclasses.replace(grid, pair_cap=cap)
 
 
+def resolve_row_sharded(starts, recs, grid: BinGrid, mesh, axis: str,
+                        impl: str | None = None, depth_only: bool = False):
+    """The resolve with the grid's bin rows split over the devices of
+    mesh axis `axis` (the JAX package's ``resolve_row_sharded``): band i
+    is bin rows [i * by / n, (i + 1) * by / n), resolved by one K1 (K4
+    with depth_only) launch on the band's device from the whole starts
+    table and records, which stay whole (tensors, copied once to each
+    distinct device of the axis, or halo.replicate's {device: tensor}).
+    `grid.by` must be a multiple of the axis size (rasterize pads the bin
+    grid).  Returns (depth bands, tri_id bands or None): lists of (*V,
+    by / n * bh, Wp) tensors, band i on the axis's device i."""
+    devices = mesh.band_devices(axis)
+    n = len(devices)
+    if grid.by % n:
+        raise ValueError(f"{grid.by} bin rows do not split into {n} bands "
+                         f"(rasterize pads the grid)")
+    BYs = grid.by // n
+    starts = halo.replicate(starts, devices)
+    recs = halo.replicate(recs, devices)
+    depth, tid = [], []
+    for i, dev in enumerate(devices):
+        kw = dict(impl=impl, row0=i * BYs, band_by=BYs)
+        if depth_only:
+            depth.append(resolve_depth(starts[dev], recs[dev], grid, **kw))
+        else:
+            d, t = resolve(starts[dev], recs[dev], grid, **kw)
+            depth.append(d)
+            tid.append(t)
+    return depth, (None if depth_only else tid)
+
+
 def rasterize(clip, grid: BinGrid, cull: str = "front",
-              impl: str | None = None, depth_only: bool = False
-              ) -> tuple[VisibilityBuffer, PlanarSetup]:
+              impl: str | None = None, depth_only: bool = False,
+              shard=None) -> tuple[VisibilityBuffer, PlanarSetup]:
     """Full raster: clip (3 verts, 4 comps, T) planar clip positions (or
     (B, 3, 4, T), B views in one resolve launch) -> visibility buffer
     cropped to the viewport.  depth_only: the shadow view's id-free
-    resolve (K4); the buffer's tri_id is None."""
+    resolve (K4); the buffer's tri_id is None.
+
+    shard: (mesh, axis) — the resolve split over the axis's devices by
+    bin rows (:func:`resolve_row_sharded`) after the bin grid is padded
+    to a multiple of the axis size (the padded rows get no pairs: the
+    bboxes are clamped to the viewport); setup, binning and records run
+    on clip's device.  The buffer's depth and tri_id are then lists of
+    row bands cropped to the viewport (a band past the viewport is
+    empty), band i on the axis's device i."""
     vh, vw = grid.height, grid.width
     setup = triangle_setup_planar(clip, grid.width, grid.height, cull)
+    if shard is not None:
+        mesh, axis = shard
+        n = len(mesh.band_devices(axis))
+        grid = dataclasses.replace(
+            grid, height=_cdiv(grid.by, n) * n * grid.bh)
     starts, recs, overflow, rgrid = gather_records(setup, grid)
+    if shard is not None:
+        depth, tid = resolve_row_sharded(starts, recs, rgrid, mesh, axis,
+                                         impl=impl, depth_only=depth_only)
+        band_h = rgrid.height // n
+
+        def crop(bands):
+            return [b[..., :max(0, min(band_h, vh - i * band_h)), :vw]
+                    for i, b in enumerate(bands)]
+
+        return VisibilityBuffer(
+            depth=crop(depth), tri_id=None if tid is None else crop(tid),
+            overflow=overflow), setup
     if depth_only:
         depth = resolve_depth(starts, recs, rgrid, impl=impl)
         return VisibilityBuffer(depth=depth[..., :vh, :vw], tri_id=None,

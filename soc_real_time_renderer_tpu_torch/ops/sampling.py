@@ -46,10 +46,13 @@ def mod(x, m):
     return torch.where(r < 0, r + m, r)
 
 
-def grid_uv(h, w, device="cpu"):
-    """(2, h, w) pixel-centre uv in [0,1]."""
+def grid_uv(h, w, device="cpu", row0: int = 0, full_h: int | None = None):
+    """(2, h, w) pixel-centre uv in [0,1].  A row band: the h rows from
+    screen row `row0` of a `full_h`-row screen, at their screen uv (each
+    value the whole screen's, bit for bit)."""
     ux = div(torch.arange(w, dtype=torch.float32, device=device) + 0.5, w)
-    uy = div(torch.arange(h, dtype=torch.float32, device=device) + 0.5, h)
+    uy = div(torch.arange(row0, row0 + h, dtype=torch.float32,
+                          device=device) + 0.5, full_h or h)
     return torch.stack([ux[None, :].expand(h, w), uy[:, None].expand(h, w)])
 
 
@@ -76,7 +79,8 @@ def _lerp2(c00, c10, c01, c11, fx, fy):
 
 
 def sample_screen(img, uv, texel_coords: bool = False,
-                  method: str = "linear", views: bool = False):
+                  method: str = "linear", views: bool = False,
+                  row0: int = 0, full_h: int | None = None):
     """Bilinear (method="nearest": nearest-texel) sample of a planar
     image at planar uv, clamp-to-edge.
 
@@ -86,7 +90,10 @@ def sample_screen(img, uv, texel_coords: bool = False,
     full-map coordinates are shifted by the integer crop origin).
     views: img carries a leading view axis, (B, C, H, W) or (B, H, W),
     and uv is (2, B, ...): view b's points tap view b's image.  Returns
-    (C, B, ...) / (B, ...)."""
+    (C, B, ...) / (B, ...).
+    row0 / full_h: img holds rows [row0, row0 + H) of a `full_h`-row
+    image; the taps are the whole image's (coordinates, clamps and
+    weights), read from those rows, which must hold every row tapped."""
     squeeze = img.dim() == (3 if views else 2)
     if squeeze:
         img = img.unsqueeze(-3)
@@ -99,24 +106,25 @@ def sample_screen(img, uv, texel_coords: bool = False,
     else:
         C, H, W = img.shape
         flat = img.reshape(C, H * W)
+    Hf = full_h or H
     if texel_coords:
         x, y = uv[0], uv[1]
     else:
         x = uv[0] * W - 0.5
-        y = uv[1] * H - 0.5
+        y = uv[1] * Hf - 0.5
     if method == "nearest":
         xi = index_of(torch.round(x), W)
-        yi = index_of(torch.round(y), H)
+        yi = index_of(torch.round(y), Hf) - row0
         out = flat[:, (yi * W + xi).long() + base]
         return out[0] if squeeze else out
     x0i = index_of(torch.floor(x), W)
-    y0i = index_of(torch.floor(y), H)
+    y0i = index_of(torch.floor(y), Hf)
     x1i = torch.clamp(x0i + 1, max=W - 1)
-    y1i = torch.clamp(y0i + 1, max=H - 1)
+    y1i = torch.clamp(y0i + 1, max=Hf - 1)
     fx = torch.clamp(x - x0i, 0.0, 1.0)
     fy = torch.clamp(y - y0i, 0.0, 1.0)
-    r0 = (y0i * W).long() + base
-    r1 = (y1i * W).long() + base
+    r0 = ((y0i - row0) * W).long() + base
+    r1 = ((y1i - row0) * W).long() + base
     out = _lerp2(flat[:, r0 + x0i], flat[:, r0 + x1i],
                  flat[:, r1 + x0i], flat[:, r1 + x1i], fx, fy)
     return out[0] if squeeze else out
@@ -148,22 +156,31 @@ def resize_half(img):
         *img.shape[:-2], H // 2, 2, W // 2, 2).mean(dim=(-3, -1))
 
 
-def upsample_bilinear(img, oh, ow):
-    """(..., h, w) -> (..., oh, ow) separable bilinear, clamp-to-edge."""
+def upsample_bilinear(img, oh, ow, rows=None, src_row0: int = 0,
+                      src_h: int | None = None):
+    """(..., h, w) -> (..., oh, ow) separable bilinear, clamp-to-edge.
+
+    A row band: img holds rows [src_row0, src_row0 + h) of an `src_h`-row
+    source (rows past the source's edges, if any, repeat its edge rows),
+    and the output is rows [rows[0], rows[1]) of the (oh, ow) upsample,
+    each the whole upsample's, bit for bit; img must hold every source
+    row those rows read."""
     H, W = img.shape[-2:]
+    Hs = src_h or H
     dev = img.device
-    ys = (torch.arange(oh, dtype=torch.float32, device=dev) + 0.5) * H / oh \
-        - 0.5
+    a, b = rows if rows is not None else (0, oh)
+    ys = (torch.arange(a, b, dtype=torch.float32, device=dev) + 0.5) * Hs \
+        / oh - 0.5
     xs = (torch.arange(ow, dtype=torch.float32, device=dev) + 0.5) * W / ow \
         - 0.5
-    y0 = torch.clamp(torch.floor(ys).to(torch.int64), 0, H - 1)
+    y0 = torch.clamp(torch.floor(ys).to(torch.int64), 0, Hs - 1)
     x0 = torch.clamp(torch.floor(xs).to(torch.int64), 0, W - 1)
-    y1 = torch.clamp(y0 + 1, 0, H - 1)
+    y1 = torch.clamp(y0 + 1, 0, Hs - 1)
     x1 = torch.clamp(x0 + 1, 0, W - 1)
     fy = torch.clamp(ys - y0, 0.0, 1.0)[:, None]
     fx = torch.clamp(xs - x0, 0.0, 1.0)
-    r0 = img[..., y0, :]
-    r1 = img[..., y1, :]
+    r0 = img[..., y0 - src_row0, :]
+    r1 = img[..., y1 - src_row0, :]
     a = r0[..., x0] * (1 - fx) + r0[..., x1] * fx
     b = r1[..., x0] * (1 - fx) + r1[..., x1] * fx
     return a * (1 - fy) + b * fy

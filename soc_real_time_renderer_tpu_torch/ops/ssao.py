@@ -20,6 +20,7 @@ import torch
 from . import sampling
 from .composition import view_from_depth
 from ..kernels import build as kb
+from ..parallel import halo
 from ..utils import views
 from ..utils.vec import cross3, dot3, normalize3
 
@@ -88,21 +89,31 @@ def _noise(u, v, freq):
     return x1 + (x2 - x1) * xv
 
 
-def _preamble(depth, normal, g):
+def _preamble(depth, normal, g, row0_half: int = 0,
+              full_h: int | None = None):
     """Per-half-res-pixel setup (ssao_generation.inl:174-192): view-space
     fragment position + procedural-noise TBN.  Returns
     (frag_pos, tangent, bitangent, normal_v), each (3, h, w), or
     (3, B, h, w) for depth (B, H, W), normal (B, 3, H, W) and batched
-    globals."""
+    globals.
+
+    row0_half / full_h (the JAX ``_preamble``'s, ssao.py:70-96): depth
+    and normal are the full-res rows [2 row0_half, 2 row0_half + H) of a
+    `full_h`-row screen; the half-res pixels' uv, their bilinear taps
+    (rows 2j and 2j + 1, inside the band) and the noise hash are in
+    screen coordinates, so each pixel equals the whole screen's."""
     H, W = depth.shape[-2:]
+    Hf = full_h or H
     nv = depth.dim() - 2
     h, w = H // 2, W // 2
-    uv = sampling.grid_uv(h, w, depth.device)
+    uv = sampling.grid_uv(h, w, depth.device, row0_half, Hf // 2)
+    band = dict(row0=2 * row0_half, full_h=Hf)
     # every view taps the same points: the views ride the channel axis
-    d = sampling.sample_screen(depth.reshape(-1, H, W), uv).reshape(
+    d = sampling.sample_screen(depth.reshape(-1, H, W), uv, **band).reshape(
         *depth.shape[:-2], h, w)
     n_half = views.to_planar(sampling.sample_screen(
-        normal.reshape(-1, H, W), uv).reshape(*normal.shape[:-2], h, w), nv)
+        normal.reshape(-1, H, W), uv, **band).reshape(
+            *normal.shape[:-2], h, w), nv)
     gp = views.planar(g, 2)
     frag_pos = view_from_depth(uv, d, gp.camera.inv_projection)
     n_world = normalize3(n_half)
@@ -223,16 +234,53 @@ def ssao_taps(planes, depth, proj, inv_proj, radius, bias, kern,
 
 
 def ssao_generate(depth, normal, g, kernel_size: int = 26,
-                  impl: str | None = None):
+                  impl: str | None = None, row0: int = 0, depth_full=None):
     """depth: (*V, H, W) full res; normal: (*V, 3, H, W) world normals
-    -> (*V, H/2, W/2) occlusion."""
-    frag_pos, tangent, bitangent, normal_v = _preamble(depth, normal, g)
+    -> (*V, H/2, W/2) occlusion.
+
+    A row band: depth and normal are the screen rows [row0, row0 + H)
+    (row0 even) and depth_full the whole screen's depth, which K2's taps
+    read (a tap lands anywhere on the screen); the output is the band's
+    half-res rows."""
+    if depth_full is None:
+        depth_full = depth
+    if row0 % 2:
+        raise ValueError(f"an SSAO band starts at odd row {row0}")
+    frag_pos, tangent, bitangent, normal_v = _preamble(
+        depth, normal, g, row0 // 2, depth_full.shape[-2])
     planes = views.from_planar(
         torch.cat([frag_pos, tangent, bitangent, normal_v], dim=0),
         depth.dim() - 2)
-    return ssao_taps(planes, depth, g.camera.projection,
+    return ssao_taps(planes, depth_full, g.camera.projection,
                      g.camera.inv_projection, g.ssao_radius, g.ssao_bias,
                      kernel_vectors(kernel_size, depth.device), impl=impl)
+
+
+def ssao_row_bands(mesh, axis: str, depth, normal, depth_full, g,
+                   kernel_size: int = 26, impl: str | None = None):
+    """SSAO of one frame split in row bands over the devices of mesh axis
+    `axis` (the JAX Pallas band mode, frame.py:463-500, without its
+    bounded halos): depth (*V, h_i, W) and normal (*V, 3, h_i, W) bands
+    of even heights, depth_full the whole screen's depth ({device:
+    tensor} or a tensor), g the globals (replicas or one tree).  Per
+    band: the preamble and one K2 launch (taps into the whole screen),
+    the 4x4 blur with 2 + 1 half-res halo rows, the bilinear upsample
+    with 1 + 1.  Returns the full-res occlusion bands (*V, h_i, W), each
+    equal to the unsplit frame's rows."""
+    devices = mesh.band_devices(axis)
+    starts = halo.starts_of(depth)
+    H, W = starts[-1], depth[0].shape[-1]
+    gs = halo.replicate(g, devices)
+    dfull = halo.replicate(depth_full, devices)
+    half = [ssao_generate(depth[i], normal[i], gs[dev], kernel_size, impl,
+                          row0=starts[i], depth_full=dfull[dev])
+            for i, dev in enumerate(devices)]
+    blurred = halo.row_band_call(mesh, axis, lambda p, _: ssao_blur(p[0]),
+                                 (half,), halo_top=2, halo_bot=1)
+    return [sampling.upsample_bilinear(p, H, W, rows=(a, b),
+                                       src_row0=a // 2 - 1, src_h=H // 2)
+            for p, a, b in zip(halo.exchange_row_halos(blurred, 1, 1),
+                               starts, starts[1:])]
 
 
 def ssao_blur(ssao):

@@ -13,6 +13,13 @@ the TPU's windowed ``_taa_kernel`` (ops/taa_pallas.py);
 resolve around it stays plain PyTorch.  Every array may carry a leading
 view axis (B, ...): the neighbourhood is per view, and one K3 launch
 fetches every view's history.
+
+Row bands (``taa(..., shard=(mesh, axis))``, the row split of one frame
+over a mesh): the 3x3 neighbourhood runs per band with a 1-row halo, and
+each band's K3 launch fetches from the whole previous colour and
+velocity, gathered to the band's device, at the band's screen rows
+(``row0`` / ``full_h``, the JAX kernel's, taa_pallas.py:44-64), clamping
+at the screen's edges: each band equals the unsplit frame's rows.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import torch
 
 from . import sampling
 from ..kernels import build as kb
+from ..parallel import halo
 from ..utils import views
 
 GAUSS = [1 / 16, 1 / 8, 1 / 16,
@@ -27,13 +35,14 @@ GAUSS = [1 / 16, 1 / 8, 1 / 16,
          1 / 16, 1 / 8, 1 / 16]
 
 
-def reproject_plain(history, velocity):
+def reproject_plain(history, velocity, row0: int = 0):
     """Bilinear clamp-to-edge sample of (*V, C, H, W) history (any float
-    dtype, read as float32) at uv - velocity; velocity (*V, 2, H, W)
-    f32.  Returns (*V, C, H, W) f32."""
+    dtype, read as float32) at uv - velocity; velocity (*V, 2, h, W) f32
+    of the screen rows [row0, row0 + h) (the whole screen: row0 = 0, h =
+    H).  Returns (*V, C, h, W) f32."""
     H, W = history.shape[-2:]
     nv = history.dim() - 3
-    uv = sampling.grid_uv(H, W, velocity.device)
+    uv = sampling.grid_uv(velocity.shape[-2], W, velocity.device, row0, H)
     out = sampling.sample_screen(
         history.to(torch.float32),
         torch.stack([uv[0] - velocity[..., 0, :, :],
@@ -41,28 +50,33 @@ def reproject_plain(history, velocity):
     return views.from_planar(out, nv)
 
 
-def reproject_history(history, velocity, impl: str | None = None):
+def reproject_history(history, velocity, impl: str | None = None,
+                      row0: int = 0):
     """K3 dispatch: the CUDA kernel for CUDA tensors (history bf16), the
     plain version for CPU tensors (or impl="plain").  history
-    (*V, C, H, W), velocity (*V, 2, H, W): one launch for every view.
-    Returns (*V, C, H, W) float32."""
-    if kb.choose(impl, history, velocity) == "plain":
-        return reproject_plain(history, velocity)
-    lib = kb.library()
+    (*V, C, H, W), velocity (*V, 2, h, W) of the screen rows [row0, row0
+    + h) (h = H, row0 = 0 for the whole screen): one launch for every
+    view.  Returns (*V, C, h, W) float32."""
     *V, C, H, W = history.shape
+    h = velocity.shape[-2]
+    if velocity.shape != (*V, 2, h, W) or len(V) > 1 or row0 < 0 \
+            or row0 + h > H:
+        raise ValueError(f"velocity {tuple(velocity.shape)} at row {row0} "
+                         f"vs history {tuple(history.shape)}")
+    if kb.choose(impl, history, velocity) == "plain":
+        return reproject_plain(history, velocity, row0)
+    lib = kb.library()
     if history.dtype != torch.bfloat16 or velocity.dtype != torch.float32:
         raise TypeError("reproject_history takes bf16 history and f32 "
                         "velocity")
-    if velocity.shape != (*V, 2, H, W) or len(V) > 1:
-        raise ValueError(f"velocity {tuple(velocity.shape)} vs history "
-                         f"{tuple(history.shape)}")
     history = history.contiguous()
     velocity = velocity.contiguous()
-    out = torch.empty(history.shape, dtype=torch.float32,
+    out = torch.empty((*V, C, h, W), dtype=torch.float32,
                       device=history.device)
     code = lib.taa_reproject_launch(history.data_ptr(), velocity.data_ptr(),
-                                    out.data_ptr(), C, H, W,
-                                    V[0] if V else 1, kb.stream_ptr(history))
+                                    out.data_ptr(), C, h, W,
+                                    V[0] if V else 1, row0, H,
+                                    kb.stream_ptr(history))
     kb.launches["taa_reproject"] += 1
     kb.check(code, "taa_reproject")
     return out
@@ -107,15 +121,49 @@ def neighbourhood(color, depth, velocity):
 
 
 def taa(color, depth, velocity, prev_color, prev_velocity, frame_counter,
-        impl: str | None = None):
+        impl: str | None = None, shard=None):
     """color: (3, H, W) f32; depth: (H, W); velocity: (2, H, W) f32;
     prev_color/prev_velocity: (3|2, H, W) bf16 history; frame_counter:
     () int32.  Returns resolved (3, H, W).  Each may carry a leading view
-    axis (B, ...), frame_counter then (B,)."""
+    axis (B, ...), frame_counter then (B,).
+
+    shard: (mesh, axis) — every image is a list of row bands on the
+    axis's devices (parallel/halo.py), frame_counter a tensor or its
+    replicas; returns the resolved bands (see the module docstring)."""
+    if shard is not None:
+        return _taa_bands(shard, color, depth, velocity, prev_color,
+                          prev_velocity, frame_counter, impl)
+    packed = torch.cat([prev_color, prev_velocity], dim=-3)
+    return _resolve(color, depth, velocity, packed, frame_counter, impl)
+
+
+def _taa_bands(shard, color, depth, velocity, prev_color, prev_velocity,
+               frame_counter, impl):
+    mesh, axis = shard
+    devices = mesh.band_devices(axis)
+    packed = halo.gather([torch.cat([c, v], dim=-3)
+                          for c, v in zip(prev_color, prev_velocity)])
+    fc = halo.replicate(frame_counter, devices)
+    padded = zip(*(halo.exchange_row_halos(x, 1, 1)
+                   for x in (color, depth, velocity)))
+    return [_resolve(c, d, v, packed[dev], fc[dev], impl, row0=s - 1,
+                     crop=1)
+            for (c, d, v), dev, s in zip(padded, devices,
+                                         halo.starts_of(depth))]
+
+
+def _resolve(color, depth, velocity, packed, frame_counter, impl,
+             row0: int = 0, crop: int = 0):
+    """The TAA resolve of the rows of (color, depth, velocity), whose
+    first row is screen row `row0`, against the packed history (*V, 5,
+    H, W) of the whole screen; the neighbourhood reads every row, the
+    output drops `crop` rows at either end (a band's halo)."""
     H, W = depth.shape[-2:]
-    uv = sampling.grid_uv(H, W, depth.device)
-    blurred, min_c, max_c, center, velocity_s = neighbourhood(
-        color, depth, velocity)
+    blurred, min_c, max_c, center, velocity_s = (
+        x[..., crop:H - crop, :] for x in neighbourhood(color, depth,
+                                                        velocity))
+    row0, H = row0 + crop, H - 2 * crop
+    uv = sampling.grid_uv(H, W, depth.device, row0, packed.shape[-2])
 
     accum = torch.clamp(frame_counter.to(torch.float32), max=0.1)
     accum = accum.reshape(*accum.shape, 1, 1)
@@ -124,8 +172,7 @@ def taa(color, depth, velocity, prev_color, prev_velocity, frame_counter,
     off = (shift_u < 0) | (shift_v < 0) | (shift_u > 1) | (shift_v > 1)
     accum = torch.where(off, 1.0, accum).unsqueeze(-3)
 
-    packed = torch.cat([prev_color, prev_velocity], dim=-3)
-    hist = reproject_history(packed, velocity_s, impl=impl)
+    hist = reproject_history(packed, velocity_s, impl=impl, row0=row0)
     acc_color = torch.minimum(torch.maximum(hist[..., :3, :, :], min_c),
                               max_c)
     out = center * accum + acc_color * (1.0 - accum)

@@ -60,9 +60,9 @@ class BuiltScene:
     sun: SunInfo | None = None    # None: the default sun
 
     # FramePlan fields the viewer may set after the build, which a full
-    # rebuild keeps: of the JAX package's list, the one field the port's
+    # rebuild keeps: of the JAX package's list, the fields the port's
     # FramePlan has (ssr_cap is re-derived by _finish in both packages)
-    _PLAN_OVERRIDES = ("texture_filter",)
+    _PLAN_OVERRIDES = ("texture_filter", "shard_mesh", "shard_axis")
 
     def apply_input(self, inp, dt: float) -> None:
         """Fly-camera input (ControlledCamera3D) from the viewer.  The

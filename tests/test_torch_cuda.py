@@ -859,3 +859,125 @@ def test_batched_step_launches_each_kernel_once(dev):
             fm.RenderHistory.create(built.plan.config, device=dev), mm, nm)
         assert (out.color - colors[i]).abs().max().item() <= 1e-6
         assert (h.exposure - hb2.exposure[i]).abs().item() <= 1e-6
+
+
+# --- the row split of one frame (parallel/halo.py, parallel/mesh.py) -------
+
+BANDS = ((0, 1), (1, 2), (3, 1), (0, 4), (2, 2))     # (bin row0, bin rows)
+
+
+@pytest.mark.parametrize("depth_only", [False, True])
+def test_band_resolve_kernels_match_plain(dev, depth_only):
+    """K1 (a 256x128 main grid, 4 bin rows of 32) and K4 (a 512^2 shadow
+    grid, 4 bin rows of 128) resolving a band of bin rows of the whole
+    starts table: bit-identical to the plain version's band and to the
+    whole resolve's rows, the first and the last band included; a band
+    that starts above the grid (negative row0) or runs past it raises on
+    both paths before anything launches."""
+    if depth_only:
+        S = 512
+        clip = _soup(400, S, S, S).to(dev)
+        setup = raster2.triangle_setup_planar(clip, S, S, "back")
+        grid, fn = _shadow_grid(S), raster2.resolve_depth
+    else:
+        clip = _soup(300, 3, 256, 128).to(dev)
+        setup = raster2.triangle_setup_planar(clip, 256, 128, "front")
+        grid = raster2.BinGrid(width=256, height=128, bin_w=64, bin_h=32,
+                               group=2)
+        fn = raster2.resolve
+    starts, recs, _, rgrid = raster2.gather_records(setup, grid)
+    assert rgrid.by == 4
+    whole = fn(starts, recs, rgrid, impl="plain")
+    whole = whole if isinstance(whole, tuple) else (whole,)
+    key = "resolve_depth" if depth_only else "resolve"
+    for row0, n in BANDS:
+        n0 = kb.launches[key]
+        k = fn(starts, recs, rgrid, row0=row0, band_by=n)
+        assert kb.launches[key] == n0 + 1
+        p = fn(starts, recs, rgrid, impl="plain", row0=row0, band_by=n)
+        torch.cuda.synchronize()
+        k = k if isinstance(k, tuple) else (k,)
+        p = p if isinstance(p, tuple) else (p,)
+        rows = slice(row0 * rgrid.bh, (row0 + n) * rgrid.bh)
+        for a, b, w in zip(k, p, whole):
+            assert a.shape[-2] == n * rgrid.bh
+            assert torch.equal(a, b) and torch.equal(a, w[rows])
+    assert (whole[0] < 1.0).any()
+    for impl in (None, "plain"):
+        n0 = kb.launches[key]
+        for row0, n in ((-1, 1), (3, 2)):
+            with pytest.raises(ValueError):
+                fn(starts, recs, rgrid, impl=impl, row0=row0, band_by=n)
+        assert kb.launches[key] == n0
+
+
+@pytest.mark.parametrize("views", [0, 2])
+def test_band_taa_kernel_matches_plain(dev, views):
+    """K3 fetching for a band of screen rows from the whole history (row0
+    and full_h): bit-identical to the plain version's band and to the
+    whole fetch's rows, with velocities that throw taps past the band
+    and off the screen, one row bands and the edge bands included, and
+    with a view axis; a negative row0 or a band past the screen raises
+    on both paths."""
+    g = torch.Generator(device="cpu").manual_seed(5 + views)
+    V = (views,) if views else ()
+    H, W = 72, 136
+    hist = (torch.rand(*V, 5, H, W, generator=g) * 3).to(torch.bfloat16)
+    vel = (torch.rand(*V, 2, H, W, generator=g) - 0.5) * 0.6
+    hist, vel = hist.to(dev), vel.to(dev)
+    whole = taa.reproject_history(hist, vel, impl="plain")
+    for a, b in ((0, 18), (18, 36), (54, 72), (35, 36), (0, 72)):
+        n0 = kb.launches["taa_reproject"]
+        k = taa.reproject_history(hist, vel[..., a:b, :], row0=a)
+        assert kb.launches["taa_reproject"] == n0 + 1
+        p = taa.reproject_history(hist, vel[..., a:b, :], impl="plain",
+                                  row0=a)
+        torch.cuda.synchronize()
+        assert torch.equal(k, p) and torch.equal(k, whole[..., a:b, :])
+    for impl in (None, "plain"):
+        for row0 in (-1, 68):                 # 8 rows from row0
+            with pytest.raises(ValueError):
+                taa.reproject_history(hist, vel[..., :8, :], impl=impl,
+                                      row0=row0)
+
+
+def test_sharded_frame_on_one_card(dev):
+    """Two frames of the small atrium_lifted (all six kernels) split in
+    four row bands over a ["cuda:0"] * 4 mesh: K1, K4, K5, K2 and K3
+    launch once per band, K6 once (one distinct device); colour, history
+    and exposure within 1e-6 of the unsplit frame.  Then the meshed
+    batched step over a (dp = 2, sp = 2) mesh of the card: each view
+    within 1e-6 of the unmeshed step."""
+    from soc_real_time_renderer_tpu_torch.parallel import halo
+    from soc_real_time_renderer_tpu_torch.parallel import mesh as pmesh
+    built = kit.build_port("atrium_lifted",
+                           RenderConfig(width=256, height=128,
+                                        shadow_resolution=512), dev)
+    mesh = pmesh.make_mesh(4, dp=1, devices=["cuda:0"] * 4)
+    splan = dataclasses.replace(built.plan, shard_mesh=mesh,
+                                shard_axis="sp")
+    hs = hu = fm.RenderHistory.create(built.plan.config, device=dev)
+    for f in range(2):
+        g, mm, nm = built.frame_globals(f)
+        kb.reset_launches()
+        out, hs = fm.render_frame(splan, built.batch, g, hs, mm, nm)
+        torch.cuda.synchronize()
+        assert kb.launches == {"resolve": 4, "resolve_depth": 4,
+                               "texsample": 4, "ssao_taps": 4, "sky_lut": 1,
+                               "taa_reproject": 4}, kb.launches
+        want, hu = fm.render_frame(built.plan, built.batch, g, hu, mm, nm)
+        assert [b.shape for b in out.color] == [(3, 32, 256)] * 4
+        assert all(b.device == dev for b in out.color)
+        for a, b in ((want.color, out.color),
+                     (hu.previous_color, hs.previous_color)):
+            assert (a.float() - halo.assemble(b, dev).float()).abs().max() \
+                .item() <= 1e-6
+        assert (hu.exposure - hs.exposure).abs().item() <= 1e-6
+    gb, hb, mm, nm = _views(built, 2)
+    colors, _ = pmesh.make_batched_render_fn(built.plan)(
+        built.batch, gb, hb, mm, nm)
+    meshed = pmesh.make_batched_render_fn(
+        built.plan, mesh=pmesh.make_mesh(4, dp=2, devices=["cuda:0"] * 4))
+    got, _ = meshed(built.batch, gb, hb, mm, nm)
+    assert (pmesh.assemble_views(got, dev) - colors).abs().max().item() \
+        <= 1e-6
