@@ -40,7 +40,16 @@ camera positions each, on two scenes at the same size:
 * ``atrium_lifted``: all six kernels, K4 rastering each view's sun view;
 * ``terrain``: the procedural sky LUT (plain PyTorch, a LUT per view),
   the shadow elided, the sun proof checked over the batch (a batch with
-  one view under another sun is refused before anything launches).
+  one view under another sun is refused before anything launches);
+* ``atrium_passes`` (the atrium_lifted views; ``ssr_cap`` sized from
+  the views' reflective pixels) and ``terrain_perpixel`` (the terrain
+  views): SSR, depth of field, the volumetric light and the per-pixel
+  cloud march each one call for the four views.  On a batched frame's
+  own inputs, each of those passes in one call against four
+  single-view calls: bit for bit, ms (median of 5, alternating), and
+  the CUDA kernels it issues at B = 4 and at B = 1 counted with
+  ``torch.profiler`` (SSR, DoF and compose, at most 1.25x; the cloud
+  march's chunk loop runs over (view, row), so its chunks are printed).
 
 For each: two consecutive batched frames with launch counts (each
 kernel of the path once per batched frame, the others never); view i of
@@ -63,6 +72,10 @@ unsplit ``render_frame`` (max abs <= 1e-6, exposure <= 1e-7); every
 band-mode launch against its plain version on the band's own inputs
 (recorded during a plain-path split frame), bit for bit; ms per frame
 split and unsplit; ``max_memory_allocated`` at sp = 1 and sp = 4.  Then
+``atrium_passes`` in the same four bands, two frames (SSR, DoF and the
+cloud march on the gathered screen, the volumetric term per band):
+launches per band as above, colour, hdr, the SSR target, history and
+exposure against the unsplit frames (max abs <= 1e-6).  Then
 ``make_batched_render_fn`` over a (dp = 2, sp = 2) mesh of the card for
 the terrain's four views, two frames: each view within 1e-6 of the
 unmeshed batched step.
@@ -156,6 +169,12 @@ BATCH_POSITIONS = {
     "terrain": ([20.0, 12.0, 20.0], [21.0, 14.0, 19.0], [19.0, 16.0, 21.0],
                 [22.0, 13.0, 21.0]),
 }
+# the passes that are off by default, batched: the same views
+BATCH_POSITIONS["atrium_passes"] = BATCH_POSITIONS["atrium_lifted"]
+BATCH_POSITIONS["terrain_perpixel"] = BATCH_POSITIONS["terrain"]
+# the SSR pass's CUDA kernels at B = 4 over those at B = 1: one batched
+# call, not one per view, at most this ratio
+SSR_LAUNCH_RATIO = 1.25
 BATCH_FRAMES = 2
 SHARD_BANDS = 4        # row bands of the sharded phase (one card)
 SHARD_FRAMES = 2
@@ -259,6 +278,22 @@ def device_ms(fn, reps, flush):
         return None
     return statistics.median(ev[2 * i + 1].elapsed_time(ev[2 * i + 2])
                              for i in range(reps))
+
+
+def cuda_kernels(fn):
+    """The CUDA kernels the card ran during fn(), counted with
+    torch.profiler (CUPTI, ProfilerActivity.CUDA): its kernel events,
+    copies and fills left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset")))
 
 
 def smi(query):
@@ -958,6 +993,12 @@ def run_frames(built, plan, path, n, dev):
     return out, last_in, counts
 
 
+def ssr_cap_for(n_active):
+    """FramePlan.ssr_cap for a frame of `n_active` reflective pixels
+    (the most of any view): a quarter more, rounded up to 4,096."""
+    return -(-int(n_active) * 5 // 4 // 4096) * 4096
+
+
 def passes_phase(dev, card, results):
     """`atrium_passes`: SSR (compacted and composited), depth of field
     and the volumetric light over the rendered 4096^2 shadow map."""
@@ -983,7 +1024,7 @@ def passes_phase(dev, card, results):
     g0, mm0, nm0 = built.frame_globals(0, peek=True)
     n_active = int(frame(g0, hist0, mm0, nm0, P).ssr_active)
     check(n_active > 0.01 * P, f"ssr_active {n_active} > 1% of {P} pixels")
-    cap = -(-n_active * 5 // 4 // 4096) * 4096
+    cap = ssr_cap_for(n_active)
     plan_c = dataclasses.replace(plan, ssr_cap=cap)
     # the cap _finish sized (5% of the screen rounded up to 1,024, the
     # JAX package's rule) is below this scene's reflective pixels, as it
@@ -1146,8 +1187,11 @@ def batched_phase(name, dev, card, results):
     counts over BATCH_FRAMES batched frames, each view against its
     single-view frame, each kernel against its plain version on the
     batched inputs, batched against single-view frame ms, peak memory at
-    B = 1 and B.  Returns (batched ms, single-view ms, peak MiB B = 1,
-    peak MiB B)."""
+    B = 1 and B.  On the scenes of the passes that are off by default,
+    also each of those passes in one call for the B views against B
+    single-view calls (ms, and the CUDA kernels counted with
+    torch.profiler).  Returns (batched ms, single-view ms, peak MiB
+    B = 1, peak MiB B)."""
     import dataclasses
     import torch
     from soc_real_time_renderer_tpu_torch.config import SunInfo
@@ -1159,15 +1203,28 @@ def batched_phase(name, dev, card, results):
     path = path_of(plan, batch)
     positions = BATCH_POSITIONS[name]
     B = len(positions)
-    step = pmesh.make_batched_render_fn(plan)
 
     def histories(n):
         return pmesh.batched_history([fm.RenderHistory.create(
             plan.config, device=dev) for _ in range(n)])
 
-    if name == "terrain":
+    if plan.config.enable_ssr:
+        # every pixel allowed on frame 0 sizes the cap from the views' data
+        gs, mm, nm = pmesh.view_globals(built, positions, 0)
+        n_active = fm.render_frame(
+            dataclasses.replace(plan, ssr_cap=WIDTH * HEIGHT), batch,
+            pmesh.batched_globals(gs), histories(B), mm, nm)[0].ssr_active
+        plan = dataclasses.replace(plan,
+                                   ssr_cap=ssr_cap_for(n_active.max()))
+        log(f"[batched {name}] reflective pixels per view "
+            f"{n_active.tolist()}; FramePlan.ssr_cap = {plan.ssr_cap}")
+    step = pmesh.make_batched_render_fn(plan)
+
+    if name.startswith("terrain"):
         check(plan.shadow_statically_empty and "sky_lut" not in path,
-              "terrain: the shadow elided, the procedural LUT")
+              f"{name}: the shadow elided, no K6 (the procedural LUT or "
+              f"the per-pixel march)")
+    if name == "terrain":
         gs, mm, nm = pmesh.view_globals(built, positions, 0)
         gs[1] = dataclasses.replace(gs[1], sun=SunInfo.create(
             angle_direction_deg=(12.0, 0.0, 0.0), device=dev))
@@ -1180,7 +1237,7 @@ def batched_phase(name, dev, card, results):
         check(refused and not any(kb.launches.values()),
               "a batch with one view under another sun is refused before "
               "any launch")
-    else:
+    elif not name.startswith("terrain"):
         check(not plan.shadow_statically_empty
               and plan.shadow_crop is not None
               and sorted(path) == sorted(KERNELS),
@@ -1255,6 +1312,8 @@ def batched_phase(name, dev, card, results):
             f"{err:.3g} (== 0), equal {same}")
         check(same and err == 0.0, f"batched {name} {k} parity")
     del seen
+    if name in ("atrium_passes", "terrain_perpixel"):
+        batched_passes(name, plan, batch, gb_l, gs_l, hb_l, mm, nm, card)
 
     # batched frame against four single-view frames, alternating
     def batched():
@@ -1293,6 +1352,91 @@ def batched_phase(name, dev, card, results):
     del built, frames, colors, colors_l, hb, hb_l, gb_l
     torch.cuda.empty_cache()
     return b_ms, s_ms, peak[1], peak[B]
+
+
+def batched_passes(name, plan, batch, gb, gs, hb, mm, nm, card):
+    """The passes that are off by default on a batched frame's own
+    inputs: each in one call for the B views against B single-view calls
+    (ms, CUDA events, median of TIMED, alternating), and the CUDA
+    kernels each issues at B and at B = 1 (torch.profiler): SSR, depth
+    of field and the volumetric term about as many at B as at 1.  The
+    cloud march's chunk loop runs over (view, row), so its kernels grow
+    with the rows: its chunks are printed instead."""
+    import torch
+    from soc_real_time_renderer_tpu_torch.graph import frame as fm
+    from soc_real_time_renderer_tpu_torch.ops import clouds, composition, \
+        dof, ssr
+    cfg = plan.config
+    B = len(gs)
+    out = fm.render_frame(plan, batch, gb, hb, mm, nm)[0]
+    gbuf = out.gbuffer
+    if name == "atrium_passes":
+        imgs = (gbuf.depth, gbuf.albedo, gbuf.normal,
+                gbuf.metallic_roughness)
+        comp = (gbuf.depth, gbuf.albedo, gbuf.emissive, gbuf.normal,
+                torch.ones_like(gbuf.depth), out.shadow_map, None)
+        ckw = dict(enable_volumetric=True,
+                   max_point_lights=cfg.max_point_lights,
+                   max_spot_lights=cfg.max_spot_lights,
+                   shadow_crop=plan.shadow_crop)
+        passes = {
+            "SSR": lambda g, *a: ssr.ssr(*a, g, compact_cap=plan.ssr_cap),
+            "depth of field": lambda g, *a: dof.depth_of_field(*a, g),
+            "compose with the volumetric light":
+                lambda g, *a: composition.compose(g, *a, **ckw)}
+        args = {"SSR": imgs, "depth of field": (out.hdr, gbuf.depth),
+                "compose with the volumetric light": comp}
+    else:
+        hw, hh = cfg.width // 2, cfg.height // 2
+        passes = {"per-pixel cloud march": lambda g, d: clouds.render_clouds(
+            g, d, batch.cloud_noise, hw, hh, full_width=cfg.width,
+            full_height=cfg.height)}
+        args = {"per-pixel cloud march": (gbuf.depth,)}
+    for pname, fn in passes.items():
+        a = args[pname]
+
+        def batched(fn=fn, a=a):
+            return fn(gb, *a)
+
+        def singles(fn=fn, a=a):
+            return [fn(gs[i], *(None if x is None else x[i] for x in a))
+                    for i in range(B)]
+
+        got = batched()
+        got = got if isinstance(got, tuple) else (got,)
+        worst = 0.0
+        for i, one in enumerate(singles()):
+            one = one if isinstance(one, tuple) else (one,)
+            worst = max([worst] + [(x[i].float() - y.float()).abs().max()
+                                   .item() for x, y in zip(got, one)])
+        check(worst == 0.0, f"{pname}: each view of the batched call "
+              f"equals its single-view call bit for bit ({worst:.3g})")
+        ms = {"batched": [], "singles": []}
+        for _ in range(TIMED):
+            ms["batched"].append(cuda_ms(batched, 1))
+            ms["singles"].append(cuda_ms(singles, 1))
+        if pname == "per-pixel cloud march":
+            # its kernels grow with the chunks (tracing its ~120,000 at
+            # B = 4 costs a minute): the chunks are the count
+            chunks = [-(-n * cfg.height // 2 // 64) for n in (B, 1)]
+            kernels = (f"chunks of 64 (view, row) rows at B = {B} "
+                       f"{chunks[0]}, at B = 1 {chunks[1]}")
+        else:
+            k_b, k_1 = cuda_kernels(batched), cuda_kernels(
+                lambda fn=fn, a=a: fn(gs[0], *(None if x is None else x[0]
+                                               for x in a)))
+            kernels = (f"CUDA kernels (torch.profiler) at B = {B} {k_b}, "
+                       f"at B = 1 {k_1}, ratio {k_b / max(k_1, 1):.3f}")
+            check(k_1 > 0 and k_b <= SSR_LAUNCH_RATIO * k_1,
+                  f"{pname}: the kernels of {B} views <= "
+                  f"{SSR_LAUNCH_RATIO} x one view's")
+        log(f"[batched {name}] {pname}: one call for {B} views "
+            f"{statistics.median(ms['batched']):.2f} ms against {B} "
+            f"single-view calls {statistics.median(ms['singles']):.2f} ms "
+            f"(median of {TIMED}, alternating); {kernels}; each view equal "
+            f"to its single call {card}")
+    del out, gbuf
+    torch.cuda.empty_cache()
 
 
 def sharded_phase(dev, card, results):
@@ -1432,6 +1576,55 @@ def sharded_phase(dev, card, results):
         f"own tensors included): sp = 1 {peak['1']:.0f} MiB, sp = {n} "
         f"{peak[str(n)]:.0f} MiB {card}")
     del built, frames, colour, colour_full, hs, hu, out
+    torch.cuda.empty_cache()
+
+    # the passes that are off by default in bands: atrium_passes, its
+    # SSR, DoF and per-band volumetric term on the split frame
+    built = build_scene("atrium_passes", dev)
+    plan = built.plan
+    g, mm, nm = built.frame_globals(0, peek=True)
+    n_active = fm.render_frame(
+        dataclasses.replace(plan, ssr_cap=WIDTH * HEIGHT), built.batch, g,
+        fm.RenderHistory.create(plan.config, device=dev), mm,
+        nm)[0].ssr_active
+    plan = dataclasses.replace(plan, ssr_cap=ssr_cap_for(n_active))
+    splan = dataclasses.replace(plan, shard_mesh=mesh, shard_axis="sp")
+    hs = hu = fm.RenderHistory.create(plan.config, device=dev)
+    per_frame_p, worst_p = [], {}
+    for f in range(SHARD_FRAMES):
+        g, mm, nm = built.frame_globals(f)
+        torch.cuda.synchronize()
+        kb.reset_launches()
+        so, hs = fm.render_frame(splan, built.batch, g, hs, mm, nm)
+        torch.cuda.synchronize()
+        per_frame_p.append(dict(kb.launches))
+        uo, hu = fm.render_frame(plan, built.batch, g, hu, mm, nm)
+        check(int(so.ssr_active) == int(uo.ssr_active) > 0
+              and int(so.overflow) == int(uo.overflow) == 0,
+              f"split ssr_active {int(so.ssr_active)} == unsplit "
+              f"{int(uo.ssr_active)}, no overflow")
+        for key, (a, b) in {
+                "colour": (uo.color, halo.assemble(so.color, dev)),
+                "hdr": (uo.hdr, halo.assemble(so.hdr, dev)),
+                "SSR target": (uo.ssr, so.ssr),
+                "history colour": (hu.previous_color,
+                                   halo.assemble(hs.previous_color, dev)),
+                "exposure": (hu.exposure, hs.exposure)}.items():
+            worst_p[key] = max(worst_p.get(key, 0.0),
+                               (a.float() - b.float()).abs().max().item())
+    for k in KERNELS:
+        results[k]["sharded atrium_passes"] = {
+            "launches": sum(c[k] for c in per_frame_p)}
+    log(f"[sharded] atrium_passes (SSR cap {plan.ssr_cap}, DoF, volumetric "
+        f"light) in {n} row bands, {SHARD_FRAMES} frames: launches per "
+        f"frame {per_frame_p}; against the unsplit frames, max abs: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst_p.items())
+        + f" (<= 1e-6) {card}")
+    check(all(c == want for c in per_frame_p),
+          "atrium_passes split: launches once per band")
+    check(max(worst_p.values()) <= 1e-6,
+          "split atrium_passes equals unsplit")
+    del built, so, uo, hs, hu
     torch.cuda.empty_cache()
 
     # the meshed batched step: 4 views of the terrain, (dp 2, sp 2)
@@ -2075,7 +2268,8 @@ def main():
         seconds[name] = time.perf_counter() - t0
     # B views in one step
     batch_ms = {}
-    for name in ("atrium_lifted", "terrain"):
+    for name in ("atrium_lifted", "terrain", "atrium_passes",
+                 "terrain_perpixel"):
         t0 = time.perf_counter()
         batch_ms[name] = batched_phase(name, dev, card, results)
         seconds[f"batched {name}"] = time.perf_counter() - t0

@@ -24,7 +24,9 @@ Views: ``render_frame`` also renders B views of one scene at once
 leading view axis.  The geometry's world transform is then made once,
 everything that reads the globals gains the view axis, each kernel
 launches once for the B views, and every output and history target is
-(B, ...).  The bracketed passes then run view by view.
+(B, ...).  The bracketed passes take the view axis too: each is one
+call for the B views, as every pass is one batched operation under the
+JAX package's ``vmap``.
 
 Row bands: a plan with ``shard_mesh`` / ``shard_axis`` renders the frame
 cut into row bands over the devices of that mesh axis
@@ -40,8 +42,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..config import RenderConfig, ShaderGlobals, resolve_device, \
-    select_view
+from ..config import RenderConfig, ShaderGlobals, resolve_device
 from ..models.scene_batch import SceneBatch
 from ..ops import bloom as bloom_ops
 from ..ops import clouds as clouds_ops
@@ -236,18 +237,6 @@ def raster_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
     return vis, records, shadow_map, overflow
 
 
-def _each_view(g, V, fn, *arrays):
-    """fn(g, *arrays) of one view's globals and arrays, run view by view
-    over the batch of V views and stacked (the passes not yet batched)."""
-    if not V:
-        return fn(g, *arrays)
-    outs = [fn(select_view(g, i), *(a[i] for a in arrays))
-            for i in range(V[0])]
-    if isinstance(outs[0], tuple):
-        return tuple(torch.stack(o) for o in zip(*outs))
-    return torch.stack(outs)
-
-
 def _ssr_mix(hdr, ssr_img, metallic_roughness):
     """The mix the reference comments out (composition.inl:213-216)."""
     rough = metallic_roughness[..., 0, :, :]
@@ -301,9 +290,6 @@ def shade_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
     dev = vis.depth.device
     V = vis.depth.shape[:-2]
 
-    def each_view(fn, *arrays):
-        return _each_view(g, V, fn, *arrays)
-
     hiz_min = hiz_max = None
     if cfg.enable_hiz:
         hiz_min = hiz_ops.build_hiz(vis.depth, "min")
@@ -334,9 +320,9 @@ def shade_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
     ssr_img = None
     ssr_active = torch.full(V, -1, dtype=torch.int32, device=dev)
     if cfg.enable_ssr:
-        ssr_img, ssr_overflow, ssr_active = each_view(
-            lambda gv, *a: ssr_ops.ssr(*a, gv, compact_cap=plan.ssr_cap),
-            vis.depth, gbuf.albedo, gbuf.normal, gbuf.metallic_roughness)
+        ssr_img, ssr_overflow, ssr_active = ssr_ops.ssr(
+            vis.depth, gbuf.albedo, gbuf.normal, gbuf.metallic_roughness, g,
+            compact_cap=plan.ssr_cap)
         overflow = overflow | ssr_overflow
 
     clouds_full = None
@@ -346,10 +332,8 @@ def shade_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
         hw, hh, quadrant = _cloud_args(cfg, noise)
         if cfg.cloud_impl == "perpixel" and noise is not None:
             # the exact per-pixel march: no LUT is made
-            clouds_half = each_view(
-                lambda gv, d: clouds_ops.render_clouds(gv, d, noise, hw, hh,
-                                                       **quadrant),
-                vis.depth)
+            clouds_half = clouds_ops.render_clouds(g, vis.depth, noise, hw,
+                                                   hh, **quadrant)
         else:
             lut = _sky_lut(cfg, g, noise, impl)
             clouds_half = clouds_ops.sky_from_lut(g, lut, vis.depth, hw, hh,
@@ -373,8 +357,7 @@ def shade_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
     # histogram and TAA, so it feeds the history once and does not
     # compound (renderer.cpp:1119-1153)
     if cfg.enable_depth_of_field:
-        hdr = each_view(lambda gv, c, d: dof_ops.depth_of_field(c, d, gv),
-                        hdr, vis.depth)
+        hdr = dof_ops.depth_of_field(hdr, vis.depth, g)
 
     if cfg.enable_auto_exposure:
         exposure = exposure_ops.auto_exposure(hdr, history.exposure, g)
@@ -449,9 +432,6 @@ def _shade_sharded(plan, batch, g, history, vis, records, shadow_map,
     # K2's taps, the clouds' QUADRANT taps and HiZ read the whole screen
     depth_full = halo.gather(depth)
 
-    def each_view(fn, *arrays):
-        return _each_view(gs[lead], V, fn, *arrays)
-
     hiz_min = hiz_max = None
     if cfg.enable_hiz:
         hiz_min = hiz_ops.build_hiz(depth_full[lead], "min")
@@ -483,10 +463,10 @@ def _shade_sharded(plan, batch, g, history, vis, records, shadow_map,
     ssr_img = None
     ssr_active = torch.full(V, -1, dtype=torch.int32, device=lead)
     if cfg.enable_ssr:
-        ssr_img, ssr_overflow, ssr_active = each_view(
-            lambda gv, *a: ssr_ops.ssr(*a, gv, compact_cap=plan.ssr_cap),
+        ssr_img, ssr_overflow, ssr_active = ssr_ops.ssr(
             depth_full[lead], whole(gbuf.albedo), whole(gbuf.normal),
-            whole(gbuf.metallic_roughness))
+            whole(gbuf.metallic_roughness), gs[lead],
+            compact_cap=plan.ssr_cap)
         overflow = overflow | ssr_overflow
 
     clouds_full = [None] * len(devices)
@@ -495,10 +475,8 @@ def _shade_sharded(plan, batch, g, history, vis, records, shadow_map,
         hw, hh, quadrant = _cloud_args(cfg, noise, stacklevel=4)
         if cfg.cloud_impl == "perpixel" and noise is not None:
             # the per-pixel march on the whole screen, then cut
-            half = each_view(
-                lambda gv, d: clouds_ops.render_clouds(gv, d, noise, hw, hh,
-                                                       **quadrant),
-                depth_full[lead])
+            half = clouds_ops.render_clouds(gs[lead], depth_full[lead], noise,
+                                            hw, hh, **quadrant)
             clouds_full = bands(sampling.upsample_bilinear(half, H, W))
         else:
             # the LUT once per distinct device; each band looks up its
@@ -529,9 +507,8 @@ def _shade_sharded(plan, batch, g, history, vis, records, shadow_map,
                                          gbuf.metallic_roughness)]
 
     if cfg.enable_depth_of_field:
-        hdr = bands(each_view(
-            lambda gv, c, d: dof_ops.depth_of_field(c, d, gv), whole(hdr),
-            depth_full[lead]))
+        hdr = bands(dof_ops.depth_of_field(whole(hdr), depth_full[lead],
+                                           gs[lead]))
 
     prev_exposure = history.exposure.to(lead)
     if cfg.enable_auto_exposure:

@@ -14,7 +14,8 @@ Vectors ride the LAST axis as in the JAX version.  With batched
 ShaderGlobals (a leading view axis, ``parallel/mesh.py``) the LUT and
 its lookup are made for every view at once: a per-view vector is
 shaped (B, 1, 1, 3) against the (lut_h, lut_w, 3) rays, the LUTs come
-out (B, 3, lut_h, lut_w).  The march's steps
+out (B, 3, lut_h, lut_w); the per-pixel march takes the views' rows as
+more rows, each with its view's values.  The march's steps
 are independent except for the transmittance carry, so the 24 primary
 samples and their 24x10 sun-march samples are evaluated as one batch;
 every point gets the same operations in the same order as the JAX
@@ -477,35 +478,61 @@ def render_clouds(g, depth_full, noise_tex, width: int, height: int,
     (cloud_rendering.inl:461): atmosphere + the 24-step cloud march with
     its 10-step sun march at every pixel's own ray, bayer16-dithered.
 
-    depth_full: (H, W) full-res depth (sampled for the sky test);
-    noise_tex: (N, N) f32 tiled noise.  Returns (3, height, width).
+    depth_full: (*V, H, W) full-res depth (sampled for the sky test);
+    noise_tex: (N, N) f32 tiled noise; g one frame's globals, or batched
+    ones for a leading view axis (*V).  Returns (*V, 3, height, width).
     full_width / full_height: the QUADRANT quirk, as in
     :func:`sky_from_lut`; None: the rays span the whole frustum.
     The march batches every sample of a pixel (24 x 10 sun samples), so
-    rows go `rows_per_chunk` at a time: at 960 pixels a row, 64 rows
-    keep the temporaries near 2 GB.  Pixels are independent, so the
-    chunking does not change the result."""
+    rows go `rows_per_chunk` at a time over the (view, row) rows of the
+    batch: at 960 pixels a row, 64 rows keep the temporaries near 2 GB
+    whatever the number of views.  Pixels are independent and each row
+    carries its own view's camera, sun and time, so neither the chunking
+    nor the batch changes the result."""
     dev = depth_full.device
+    nv = g.frame_counter.dim()
     fw = width if full_width is None else full_width
     fh = height if full_height is None else full_height
-    px, py, dx, dy, dz = _pixel_rays(g, width, height, fw, fh, dev)
-    ray_dir = torch.stack([dx, dy, dz], -1)                  # (h, w, 3)
-    sun_dir = -g.sun.direction
+    px, py, dx, dy, dz = _pixel_rays(views.planar(g, 2), width, height, fw,
+                                     fh, dev)
+    ray_dir = torch.stack([dx, dy, dz], -1).reshape(-1, width, 3)
+    n_rows = ray_dir.shape[0]                 # views x half-res rows
+
+    def per_row(x):
+        """A per-view leaf (*V, *C) -> (rows, 1, *C), each (view, row)
+        row its view's value; one frame's leaf as it is."""
+        if not nv:
+            return x
+        c = x.shape[nv:]
+        x = x.reshape(x.shape[:nv] + (1, 1) + c)
+        return x.expand(*x.shape[:nv], height, 1, *c).reshape(
+            n_rows, 1, *c)
+
+    sun_dir = per_row(-g.sun.direction)
+    cam = per_row(g.camera.position)
+    elapsed = per_row(g.elapsed_time)
     d = sampling.sample_screen_separable(depth_full, px / (fw - 1.0),
                                          py / (fh - 1.0))
     dither = bayer16(px[None, :].expand(height, width),
                      py[:, None].expand(height, width))
-    origin = _vec([0.0, 6372e3, 0.0], dev) + g.camera.position
+    dither = dither.expand(n_rows // height, height, width).reshape(
+        n_rows, width)
+    origin = _vec([0.0, 6372e3, 0.0], dev) + cam
     sun_color = _vec([0.8, 0.8, 0.8], dev)
     horizon = sky_horizon(sun_dir)
+
+    def rows_of(x, r0):
+        return x[r0:r0 + rows_per_chunk] if nv else x
+
     rows = []
-    for r0 in range(0, height, rows_per_chunk):
+    for r0 in range(0, n_rows, rows_per_chunk):
         ray = ray_dir[r0:r0 + rows_per_chunk]
-        atmos = _atmosphere(ray, origin, sun_dir, g.elapsed_time)
-        sky = _volumetric_clouds(ray, sun_dir, atmos,
+        sd, el = rows_of(sun_dir, r0), rows_of(elapsed, r0)
+        atmos = _atmosphere(ray, rows_of(origin, r0), sd, el)
+        sky = _volumetric_clouds(ray, sd, atmos,
                                  dither[r0:r0 + rows_per_chunk], sun_color,
-                                 g.camera.position, g.elapsed_time, noise_tex)
-        rows.append(sky * horizon)
-    sky = torch.cat(rows, dim=0).permute(2, 0, 1)
-    base = _vec([0.2, 0.4, 1.0], dev)[:, None, None]
-    return torch.where((d == 1.0)[None], sky, base)
+                                 rows_of(cam, r0), el, noise_tex)
+        rows.append(sky * rows_of(horizon, r0))
+    sky = torch.cat(rows, dim=0).reshape(*d.shape, 3).movedim(-1, 0)
+    base = _vec([0.2, 0.4, 1.0], dev).reshape(3, *(1,) * d.dim())
+    return views.from_planar(torch.where((d == 1.0)[None], sky, base), nv)

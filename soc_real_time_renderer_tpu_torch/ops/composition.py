@@ -17,7 +17,6 @@ import math
 import torch
 
 from . import sampling
-from ..config import select_view
 from ..utils import views
 from ..utils.vec import dot3, mat_vec3, normalize3
 
@@ -115,27 +114,26 @@ def _local_lights(g, albedo, normal, position, max_point: int = 128,
     return acc
 
 
-def _volumetric(g, position, uv, d, shadow_map, empty_shadow_map: bool,
+def _volumetric(gp, position, uv, d, shadow_map, empty_shadow_map: bool,
                 H: int, W: int):
-    """The volumetric light term of one view (composition.inl:174-196):
-    g one frame's globals, position (3, P), depth d (P,), shadow_map
-    (S, S) or None with empty_shadow_map.  Returns (P,)."""
-    spv = g.sun.projection_view
+    """The volumetric light term (composition.inl:174-196): gp the
+    globals in planar shape (views.planar(g, 1)), position (3, *V, P),
+    uv (2, P), depth d (*V, P), shadow_map (*V, S, S) or None with
+    empty_shadow_map.  Each view marches from its own camera through its
+    own sun's map.  Returns (*V, P)."""
+    spv = gp.sun.projection_view
     sp, _ = _project(spv, position)
-    cam4 = torch.cat([g.camera.position, torch.ones_like(
-        g.camera.position[:1])])
-    scp4 = spv @ cam4
-    scp = scp4[:3] / torch.where(scp4[3] != 0, scp4[3], 1.0)
-    V = sp - scp[:, None]
+    scp, _ = _project(spv, gp.camera.position)          # (3, *V, 1)
+    V = sp - scp
     step_len = torch.sqrt(torch.clamp(dot3(V, V), min=1e-12)) / 2.0
-    step = normalize3(V) * step_len[None, :]
+    step = normalize3(V) * step_len[None]
     xi = (uv[0] * W).to(torch.int64) % 4
     yi = (uv[1] * H).to(torch.int64) % 4
     dither = sampling.constant(DITHER_PATTERN, d.device).reshape(-1)[
         xi * 4 + yi]
     accum = torch.zeros_like(d)
     for i in range(2):  # NUM_STEPS_INT = 2
-        pstep = scp[:, None] + step * float(i) + dither[None, :] * step
+        pstep = scp + step * float(i) + dither * step
         if empty_shadow_map:
             # comparison-sample of the all-1.0 map (border 1.0 too):
             # the bilinear blend of equal tests is the test itself
@@ -144,10 +142,10 @@ def _volumetric(g, position, uv, d, shadow_map, empty_shadow_map: bool,
             accum = accum + sampling.sample_shadow_cmp(
                 shadow_map,
                 torch.stack([pstep[0] * 0.5 + 0.5, pstep[1] * 0.5 + 0.5]),
-                pstep[2])
-    vdir = normalize3(position - g.camera.position[:, None])
+                pstep[2], views=d.dim() > 1)
+    vdir = normalize3(position - gp.camera.position)
     return (accum / 2.0) * _henyey_greenstein(
-        dot3(vdir, -g.sun.direction[:, None]))
+        dot3(vdir, -gp.sun.direction))
 
 
 def compose(g, depth, albedo, emissive, normal, ssao, shadow_map, clouds,
@@ -168,8 +166,8 @@ def compose(g, depth, albedo, emissive, normal, ssao, shadow_map, clouds,
     origin, and clamps at the crop edge land on the proved 1.0 ring, so
     the result is bit-identical to the full-map tap.  Returns (3, H, W)
     HDR colour.  With batched globals every array carries a leading view
-    axis (B, ...): each view has its own sun, lights and shadow map; the
-    volumetric term is then taken view by view.  A row band: the images
+    axis (B, ...): each view has its own sun, lights and shadow map,
+    the volumetric term's too.  A row band: the images
     hold rows [row0, row0 + H) of a `full_h`-row screen; every pixel is
     composed at its screen uv (per pixel, no halo)."""
     H, W = depth.shape[-2:]
@@ -222,15 +220,8 @@ def compose(g, depth, albedo, emissive, normal, ssao, shadow_map, clouds,
     # --- volumetric light (computed-then-zeroed in the reference)
     volumetric = 0.0
     if enable_volumetric and (shadow_map is not None or empty_shadow_map):
-        if nv:
-            vol = torch.stack([_volumetric(
-                select_view(g, i), position[:, i], uv, d[i],
-                None if shadow_map is None else shadow_map[i],
-                empty_shadow_map, Hf, W) for i in range(V[0])])
-        else:
-            vol = _volumetric(g, position, uv, d, shadow_map,
-                              empty_shadow_map, Hf, W)
-        volumetric = vol[None]
+        volumetric = _volumetric(gp, position, uv, d, shadow_map,
+                                 empty_shadow_map, Hf, W)[None]
 
     color = ((direct + gp.ambient) * alb * occ[None]
              + volumetric + emi)

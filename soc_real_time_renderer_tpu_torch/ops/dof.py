@@ -13,50 +13,60 @@ import numpy as np
 import torch
 
 from . import sampling
+from ..utils import views
 
 
 def build_mips_device(color):
-    """Mip chain of (3, H, W) by 2x2 mean down to a 1-texel side (odd
-    sizes drop their last row / column)."""
-    levels = [color]
+    """Mip chain of (..., H, W) by 2x2 mean down to a 1-texel side (odd
+    sizes drop their last row / column); whatever leads the last two
+    axes (channels, views) is one axis of the (C, h, w) chain."""
+    lead = color.shape[:-2]
+    levels = [color.reshape(-1, *color.shape[-2:])]
     while min(levels[-1].shape[1:]) > 1:
         c, h, w = levels[-1].shape
         h2, w2 = max(h // 2, 1), max(w // 2, 1)
         x = levels[-1][:, :h2 * 2, :w2 * 2]
         levels.append(x.reshape(c, h2, 2, w2, 2).mean(dim=(2, 4)))
-    return levels
+    return [lv.reshape(*lead, *lv.shape[1:]) for lv in levels]
 
 
-def _sample_mip(levels, uv, lod):
-    """Trilinear sample across the mip list; uv planar (2, H, W)."""
+def _sample_mip(levels, uv, lod, nv: int):
+    """Trilinear sample across the mip list of (*V, 3, h, w) levels; uv
+    planar (2, 1 x nv, H, W), lod (*V, H, W).  Returns (3, *V, H, W)."""
     n = len(levels)
     lod = torch.clamp(lod, 0.0, n - 1.0)
     l0 = torch.floor(lod).to(torch.int32)
     f = (lod - l0.to(torch.float32))[None]
     l1 = torch.clamp(l0 + 1, max=n - 1)
-    out0 = torch.zeros((3,) + uv.shape[1:], dtype=torch.float32,
+    out0 = torch.zeros((3,) + lod.shape, dtype=torch.float32,
                        device=uv.device)
     out1 = torch.zeros_like(out0)
     for k in range(n):
-        s = sampling.sample_screen(levels[k], uv)
+        s = sampling.sample_screen(levels[k], uv, views=nv > 0)
         out0 = torch.where((l0 == k)[None], s, out0)
         out1 = torch.where((l1 == k)[None], s, out1)
     return out0 * (1 - f) + out1 * f
 
 
 def depth_of_field(color, depth, g):
-    """color: (3, H, W); depth: (H, W).  Returns (3, H, W)."""
-    H, W = depth.shape
-    uv = sampling.grid_uv(H, W, depth.device)
+    """color: (*V, 3, H, W); depth: (*V, H, W); g one frame's globals, or
+    batched ones for a leading view axis (*V): each view's CoC from its
+    own clip planes, focus and aperture, its taps from its own mip
+    chain.  Returns (*V, 3, H, W)."""
+    V = depth.shape[:-2]
+    nv = len(V)
+    H, W = depth.shape[-2:]
+    uv = views.column(sampling.grid_uv(H, W, depth.device), nv)
+    gp = views.planar(g, 2)
 
-    far, near = g.camera_far_clip, g.camera_near_clip
+    far, near = gp.camera_far_clip, gp.camera_near_clip
     obj = -far * near / (depth * (far - near) - far)
-    num = g.focal_length * (obj - g.plane_in_focus)
-    den = obj * (g.plane_in_focus - g.focal_length)
+    num = gp.focal_length * (obj - gp.plane_in_focus)
+    den = obj * (gp.plane_in_focus - gp.focal_length)
     den = torch.where(den != 0, den, 1e-6)
-    coc = torch.abs(g.aperture * num / den)
-    max_num = g.focal_length * (far - g.plane_in_focus)
-    max_coc = torch.abs(g.aperture * max_num / den)
+    coc = torch.abs(gp.aperture * num / den)
+    max_num = gp.focal_length * (far - gp.plane_in_focus)
+    max_coc = torch.abs(gp.aperture * max_num / den)
     coc = coc / torch.clamp(max_coc, min=1e-6)
 
     # textureGrad with ddx = ddy = (coc, coc) in uv units
@@ -70,12 +80,14 @@ def depth_of_field(color, depth, g):
 
     # 1 / W and 1 / H rounded to f32 first, as the reference's constants
     dx, dy = float(np.float32(1.0 / W)), float(np.float32(1.0 / H))
-    acc = (_sample_mip(levels, offs(dx, 0.0), lod)
-           + _sample_mip(levels, offs(-dx, 0.0), lod)
-           + _sample_mip(levels, offs(0.0, dy), lod)
-           + _sample_mip(levels, offs(0.0, -dy), lod)) * 0.25
+    acc = (_sample_mip(levels, offs(dx, 0.0), lod, nv)
+           + _sample_mip(levels, offs(-dx, 0.0), lod, nv)
+           + _sample_mip(levels, offs(0.0, dy), lod, nv)
+           + _sample_mip(levels, offs(0.0, -dy), lod, nv)) * 0.25
     # the sky branch samples colour at the pixel centre: the identity
-    return torch.where((depth < 1.0)[None], acc, color)
+    return views.from_planar(
+        torch.where((depth < 1.0)[None], acc, views.to_planar(color, nv)),
+        nv)
 
 
 def display_attachment(image, out_h, out_w):

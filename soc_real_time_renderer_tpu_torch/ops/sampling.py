@@ -194,13 +194,20 @@ def edge_pad(img, lo_y, hi_y, lo_x, hi_x):
     return out.reshape(*img.shape[:-2], *out.shape[-2:])
 
 
-def sample_shadow_cmp(shadow, uv, ref, border: float = 1.0):
+def sample_shadow_cmp(shadow, uv, ref, border: float = 1.0,
+                      views: bool = False):
     """Comparison-sampler shadow fetch (renderer.cpp:54-69).
 
     shadow: (S, S) depth; uv: (2, ...); ref: (...).  Returns (...) in
     [0, 1]: the bilinear blend of the four texels' (ref < depth) tests;
-    texels outside the map read the opaque-white border."""
+    texels outside the map read the opaque-white border.  views: shadow
+    is (B, S, S), uv (2, B, ...) and ref (B, ...): view b's points test
+    view b's map."""
     S = shadow.shape[-1]
+    base = 0
+    if views:
+        base = (torch.arange(shadow.shape[0], device=shadow.device)
+                * (S * S)).reshape((-1,) + (1,) * (uv.dim() - 2))
     x = uv[0] * S - 0.5
     y = uv[1] * S - 0.5
     x0 = torch.floor(x)
@@ -220,7 +227,7 @@ def sample_shadow_cmp(shadow, uv, ref, border: float = 1.0):
     def fetch(xi, yi):
         inside = (xi >= 0) & (xi < S) & (yi >= 0) & (yi < S)
         idx = torch.clamp(yi, 0, S - 1) * S + torch.clamp(xi, 0, S - 1)
-        d = torch.where(inside, flat[idx.long()], border)
+        d = torch.where(inside, flat[idx.long() + base], border)
         return (ref < d).to(torch.float32)
 
     t00 = fetch(x0i, y0i)

@@ -14,7 +14,9 @@ depends on its own pixel alone, so the result equals the dense march
 bit for bit); pixels past the cap are black and flagged
 (``OVERFLOW_SSR_CAP``).  The compaction is a stable sort of the
 reflective mask with a fixed output size: no ``nonzero``, so the call
-does not wait for the card.
+does not wait for the card.  With a leading view axis the sort, the cap,
+the count and the flag are per view (the JAX ``nonzero`` under
+``vmap``), and the B views march as one bundle.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 
 from . import sampling
 from .composition import view_from_depth
+from ..utils import views
 from ..utils.vec import dot3, normalize3
 
 RAY_STEP = 0.5
@@ -34,13 +37,16 @@ OVERFLOW_SSR_CAP = 16    # FrameOutputs.overflow bit: reflective pixels
 #                          black, never garbage)
 
 
-def _march(pos, n_view, depth, g):
+def _march(pos, n_view, depth, gp, nv: int):
     """The 50-iteration state machine on ray bundles of any trailing
-    shape: pos / n_view (3, ...), depth the full (H, W) screen.  Returns
-    (found (...) bool, hit_uv (2, ...))."""
+    shape: pos / n_view (3, *V, ...), depth the full (*V, H, W) screen,
+    gp the globals in planar shape for the bundles' pixel axes
+    (``views.planar(g, rank)``), nv the number of view axes: each ray
+    probes its own view's depth through its own view's projection.
+    Returns (found (*V, ...) bool, hit_uv (2, *V, ...))."""
     refl = normalize3(pos - 2.0 * dot3(pos, n_view)[None] * n_view)
-    proj = g.camera.projection
-    inv_p = g.camera.inv_projection
+    proj = gp.camera.projection
+    inv_p = gp.camera.inv_projection
 
     def probe(p):
         x = proj[0, 0] * p[0] + proj[0, 1] * p[1] + proj[0, 2] * p[2] \
@@ -51,7 +57,7 @@ def _march(pos, n_view, depth, g):
             + proj[3, 3]
         ws = torch.where(w != 0, w, 1.0)
         spos = torch.stack([x / ws * 0.5 + 0.5, y / ws * 0.5 + 0.5])
-        sd = sampling.sample_screen(depth, spos)
+        sd = sampling.sample_screen(depth, spos, views=nv > 0)
         vz = view_from_depth(spos, sd, inv_p)[2]
         return spos, torch.abs(p[2]) - torch.abs(vz)
 
@@ -89,58 +95,75 @@ def _march(pos, n_view, depth, g):
 
 
 def ssr(depth, albedo, normal, metallic_roughness, g, compact_cap: int = 0):
-    """depth: (H, W); albedo / normal: (3, H, W); metallic_roughness:
-    (2, H, W) (R = roughness, G = metallic).  Returns ((3, H, W),
-    overflow () int32, n_active () int32).
+    """depth: (*V, H, W); albedo / normal: (*V, 3, H, W);
+    metallic_roughness: (*V, 2, H, W) (R = roughness, G = metallic); g
+    one frame's globals, or batched ones for a leading view axis (*V).
+    Returns ((*V, 3, H, W), overflow (*V,) int32, n_active (*V,) int32).
 
     compact_cap > 0: march only the first `compact_cap` reflective
-    pixels (metallic >= 0.01) in row-major order.  n_active is the true
-    count of reflective pixels this frame (it sizes the cap from data);
-    overflow carries OVERFLOW_SSR_CAP when it exceeded the cap (rays
-    past the cap are black).  compact_cap == 0: the dense march of every
-    pixel, the same output, n_active -1 and no flag."""
-    H, W = depth.shape
+    pixels (metallic >= 0.01) of each view in row-major order.  n_active
+    is the view's true count of reflective pixels this frame (it sizes
+    the cap from data); overflow carries OVERFLOW_SSR_CAP where it
+    exceeded the cap (rays past the cap are black).  compact_cap == 0:
+    the dense march of every pixel, the same output, n_active -1 and no
+    flag.  A batch of views is one march: every operation is elementwise
+    or a gather from the ray's own view, so each view equals its
+    single-view call bit for bit."""
+    V = depth.shape[:-2]
+    nv = len(V)
+    H, W = depth.shape[-2:]
     dev = depth.device
     uv = sampling.grid_uv(H, W, dev)
-    vm = g.camera.view[:3, :3]
-    metallic = metallic_roughness[1]
+    alb = views.to_planar(albedo, nv)                   # (3, *V, H, W)
+    nrm = views.to_planar(normal, nv)
+    metallic = metallic_roughness[..., 1, :, :]
 
-    def view_normal(nrm):
+    def view_normal(gp, n):
+        vm = gp.camera.view[:3, :3]
         return normalize3(torch.stack([
-            vm[0, 0] * nrm[0] + vm[0, 1] * nrm[1] + vm[0, 2] * nrm[2],
-            vm[1, 0] * nrm[0] + vm[1, 1] * nrm[1] + vm[1, 2] * nrm[2],
-            vm[2, 0] * nrm[0] + vm[2, 1] * nrm[1] + vm[2, 2] * nrm[2]]))
+            vm[0, 0] * n[0] + vm[0, 1] * n[1] + vm[0, 2] * n[2],
+            vm[1, 0] * n[0] + vm[1, 1] * n[1] + vm[1, 2] * n[2],
+            vm[2, 0] * n[0] + vm[2, 1] * n[1] + vm[2, 2] * n[2]]))
 
     dielectric = (metallic < METALLIC_MIN)[None]
     if compact_cap <= 0:
-        pos = view_from_depth(uv, depth, g.camera.inv_projection)
-        found, hit_uv = _march(pos, view_normal(normal), depth, g)
-        hit_color = sampling.sample_screen(albedo, hit_uv)    # (3, H, W)
+        gp = views.planar(g, 2)
+        pos = view_from_depth(uv, depth, gp.camera.inv_projection)
+        found, hit_uv = _march(pos, view_normal(gp, nrm), depth, gp, nv)
+        hit_color = sampling.sample_screen(albedo, hit_uv, views=nv > 0)
         out = torch.where(found[None], hit_color, 0.0)
-        out = torch.where(dielectric, albedo, out)
-        return (out, torch.zeros((), dtype=torch.int32, device=dev),
-                torch.full((), -1, dtype=torch.int32, device=dev))
+        out = torch.where(dielectric, alb, out)
+        return (views.from_planar(out, nv),
+                torch.zeros(V, dtype=torch.int32, device=dev),
+                torch.full(V, -1, dtype=torch.int32, device=dev))
 
+    gp = views.planar(g, 1)
     P = H * W
     cap = min(compact_cap, P)
-    active = (metallic >= METALLIC_MIN).reshape(-1)
-    n_active = active.sum().to(torch.int32)
+    active = (metallic >= METALLIC_MIN).reshape(*V, P)
+    n_active = active.sum(-1).to(torch.int32)
     overflow = torch.where(n_active > compact_cap, OVERFLOW_SSR_CAP, 0).to(
         torch.int32)
-    # the first `cap` reflective pixels in row-major order, then (where
-    # fewer are reflective) dielectric ones, whose rays are dropped
-    idx = torch.sort((~active).to(torch.uint8), stable=True).indices[:cap]
-    live = active[idx]
+    # each view's first `cap` reflective pixels in row-major order, then
+    # (where fewer are reflective) dielectric ones, whose rays are dropped
+    idx = torch.sort((~active).to(torch.uint8), dim=-1,
+                     stable=True).indices[..., :cap]          # (*V, cap)
+    live = torch.take_along_dim(active, idx, -1)
+
+    def gather(x):                         # (C, *V, P) -> (C, *V, cap)
+        return torch.take_along_dim(x, idx[None], -1)
 
     uvf = uv.reshape(2, P)[:, idx]
-    df = depth.reshape(-1)[idx]
-    nf = normal.reshape(3, P)[:, idx]
-    pos = view_from_depth(uvf, df, g.camera.inv_projection)
-    found, hit_uv = _march(pos, view_normal(nf), depth, g)
+    df = torch.take_along_dim(depth.reshape(*V, P), idx, -1)
+    nf = gather(nrm.reshape(3, *V, P))
+    pos = view_from_depth(uvf, df, gp.camera.inv_projection)
+    found, hit_uv = _march(pos, view_normal(gp, nf), depth, gp, nv)
 
-    hit_color = sampling.sample_screen(albedo, hit_uv)        # (3, cap)
-    res = torch.where(found[None], hit_color, 0.0)
-    out = torch.where(dielectric, albedo, 0.0).reshape(3, P)
+    hit_color = sampling.sample_screen(albedo, hit_uv, views=nv > 0)
+    res = torch.where(found[None], hit_color, 0.0)      # (3, *V, cap)
+    out = torch.where(dielectric, alb, 0.0).reshape(3, *V, P)
     # a dielectric filler keeps the albedo it already holds
-    out[:, idx] = torch.where(live[None], res, out[:, idx])
-    return out.reshape(3, H, W), overflow, n_active
+    out.scatter_(-1, idx[None].expand(res.shape),
+                 torch.where(live[None], res, gather(out)))
+    return (views.from_planar(out.reshape(3, *V, H, W), nv), overflow,
+            n_active)

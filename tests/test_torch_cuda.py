@@ -792,7 +792,8 @@ def test_viewer_on_the_card(dev, tmp_path, monkeypatch):
 
 # --- B views in one step (parallel/mesh.py) --------------------------------
 
-VIEW_POSITIONS = ([-7.0, 33.8, 0.0], [-4.0, 35.0, 2.0], [-8.0, 34.5, -2.5])
+VIEW_POSITIONS = ([-7.0, 33.8, 0.0], [-4.0, 35.0, 2.0], [-8.0, 34.5, -2.5],
+                  [-2.0, 34.0, -1.0])
 
 
 def _views(built, B):
@@ -859,6 +860,112 @@ def test_batched_step_launches_each_kernel_once(dev):
             fm.RenderHistory.create(built.plan.config, device=dev), mm, nm)
         assert (out.color - colors[i]).abs().max().item() <= 1e-6
         assert (h.exposure - hb2.exposure[i]).abs().item() <= 1e-6
+
+
+TERRAIN_POSITIONS = ([20.0, 12.0, 20.0], [16.0, 10.0, 25.0],
+                     [18.0, 8.0, 22.0], [24.0, 10.0, 18.0])
+
+
+def _batched_pass_frame(dev, name, B):
+    """(views' globals, batched globals, outputs) of a batched frame of B
+    views of the small `name` at 256x128 with its passes on."""
+    from soc_real_time_renderer_tpu_torch.parallel import mesh as pmesh
+    switches = {"atrium_passes": dict(enable_ssr=True, composite_ssr=True,
+                                      enable_depth_of_field=True,
+                                      enable_volumetric_light=True),
+                "terrain_perpixel": dict(cloud_impl="perpixel")}[name]
+    cfg = RenderConfig(width=256, height=128, shadow_resolution=512,
+                       **switches)
+    built = kit.build_port(name, cfg, dev)
+    positions = (VIEW_POSITIONS if name == "atrium_passes"
+                 else TERRAIN_POSITIONS)[:B]
+    gs, mm, nm = pmesh.view_globals(built, positions, 0)
+    gb = pmesh.batched_globals(gs)
+    hb = pmesh.batched_history([fm.RenderHistory.create(cfg, device=dev)
+                                for _ in range(B)])
+    plan = dataclasses.replace(built.plan, ssr_cap=256 * 128)
+    out, _ = fm.render_frame(plan, built.batch, gb, hb, mm, nm)
+    return built, gs, gb, out
+
+
+def _equal_views(batched, singles):
+    """Each view of the batched outputs equals its single-view call's, bit
+    for bit (outputs a tensor or a tuple of tensors)."""
+    batched = batched if isinstance(batched, tuple) else (batched,)
+    for i, one in enumerate(singles):
+        one = one if isinstance(one, tuple) else (one,)
+        for a, b in zip(batched, one):
+            assert torch.equal(a[i], b), i
+
+
+def test_batched_passes_equal_single_views(dev):
+    """SSR (dense; compacted with one view over its cap), depth of field
+    and the volumetric term over each view's shadow map on B = 4 views
+    of the small atrium_passes, and the per-pixel cloud march on 4 views
+    of the small terrain_perpixel (one chunk of rows and chunks of 7
+    straddling views): each one call for the batch, each view equal to
+    its single-view call bit for bit."""
+    from soc_real_time_renderer_tpu_torch.ops import composition, dof
+    B = 4
+    built, gs, gb, out = _batched_pass_frame(dev, "atrium_passes", B)
+    gbuf = out.gbuffer
+    sv = [(gbuf.depth[i], gbuf.albedo[i], gbuf.normal[i],
+           gbuf.metallic_roughness[i]) for i in range(B)]
+    n = [int(mr[1].ge(ssr.METALLIC_MIN).sum()) for *_, mr in sv]
+    assert min(n) > 0.01 * 256 * 128 and max(n) > min(n), n
+    for cap in (0, (min(n) + max(n)) // 2):
+        got = ssr.ssr(gbuf.depth, gbuf.albedo, gbuf.normal,
+                      gbuf.metallic_roughness, gb, compact_cap=cap)
+        _equal_views(got, [ssr.ssr(*a, gs[i], compact_cap=cap)
+                           for i, a in enumerate(sv)])
+        if cap:
+            assert got[1].tolist() == [ssr.OVERFLOW_SSR_CAP if k > cap
+                                       else 0 for k in n]
+    _equal_views(dof.depth_of_field(out.hdr, gbuf.depth, gb),
+                 [dof.depth_of_field(out.hdr[i], gbuf.depth[i], gs[i])
+                  for i in range(B)])
+    assert out.shadow_map.shape == (B, 512, 512)
+    args = (gbuf.depth, gbuf.albedo, gbuf.emissive, gbuf.normal,
+            torch.ones_like(gbuf.depth), out.shadow_map, None)
+    kw = dict(enable_volumetric=True, max_point_lights=0, max_spot_lights=0)
+    _equal_views(composition.compose(gb, *args, **kw),
+                 [composition.compose(gs[i], *(None if a is None else a[i]
+                                               for a in args), **kw)
+                  for i in range(B)])
+
+    built, gs, gb, out = _batched_pass_frame(dev, "terrain_perpixel", B)
+    noise = built.batch.cloud_noise
+    for rows in (64, 7):
+        kw = dict(full_width=256, full_height=128, rows_per_chunk=rows)
+        got = clouds.render_clouds(gb, out.gbuffer.depth, noise, 128, 64,
+                                   **kw)
+        _equal_views(got, [clouds.render_clouds(
+            gs[i], out.gbuffer.depth[i], noise, 128, 64, **kw)
+            for i in range(B)])
+        assert torch.equal(got, out.clouds)
+
+
+def test_ssr_launches_do_not_grow_with_the_views(dev):
+    """The SSR pass of 4 views issues at most 1.25 times the CUDA
+    kernels of one view's (counted with torch.profiler): one call for
+    the batch, not one per view."""
+    import chip_smoke
+    _, gs, gb, out = _batched_pass_frame(dev, "atrium_passes", 4)
+    gbuf = out.gbuffer
+    cap = 256 * 128
+
+    def one():
+        ssr.ssr(gbuf.depth[0], gbuf.albedo[0], gbuf.normal[0],
+                gbuf.metallic_roughness[0], gs[0], compact_cap=cap)
+
+    def four():
+        ssr.ssr(gbuf.depth, gbuf.albedo, gbuf.normal,
+                gbuf.metallic_roughness, gb, compact_cap=cap)
+
+    one()
+    four()
+    k1, k4 = chip_smoke.cuda_kernels(one), chip_smoke.cuda_kernels(four)
+    assert 1000 < k1 and k4 <= 1.25 * k1, (k1, k4)
 
 
 # --- the row split of one frame (parallel/halo.py, parallel/mesh.py) -------
