@@ -113,6 +113,19 @@ per PNG filter type; Sponza's five materials as fifteen 1024^2 PNGs; a
   the medians of ``frame_ms`` and ``latency_ms`` from ``/metrics``, each
   kernel against its plain version on the final state's inputs, and a
   ``utils/metrics.GPUMetricPool`` table (``viewer_phase``).
+* ``bench``: the port's three measuring tools' mains in this process on
+  the same tree: ``tools/bench.py`` on ``sponza`` at 1280x736, 32
+  frames (its JSON line: ``assets`` synthetic, K1, K5, K2, K6 and K3 32
+  times each); ``tools/bench_baselines.py`` over the seven BASELINE
+  configurations at 8 frames (each row's kernels once a frame, all six
+  kernels over the table); ``tools/bench_toggle.py --config 5`` with
+  every toggle it keeps, 8 frames a run (a median delta and its spread
+  for each, its kernel gone from the toggles that remove one).
+
+The stage tables time ``raster_stage`` with the plan's grids and with
+``BinGrid.large_cap`` 0 (binning without its third tier, the JAX
+package's cut at ``med_slots`` bins) in turns, medians of six each, and
+the spread of the plan's readings: the third tier's cost against it.
 
 The atrium scenes are composed from ``Scene`` + ``scenes._finish``, as
 the JAX package composes its presets.  For each of the first three
@@ -140,6 +153,7 @@ line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -163,11 +177,11 @@ VIEWER_INPUTS = 30     # fly-camera inputs of the viewer phase
 BATCH_POSITIONS = {
     "atrium_lifted": ([-7.0, 33.8, 0.0], [-4.0, 35.0, 2.0],
                       [-8.0, 34.5, -2.5], [-2.0, 34.0, -1.0]),
-    # near the preset camera: from [20, 18, 20] a medium triangle covers
-    # more bins than the static med_slots (overflow bit 4, in the single
-    # frame as in the batch)
+    # near the preset camera; from [20, 18, 20] triangles near the camera
+    # span 72-176 bins, past med_slots: build_pairs' third tier
+    # (BinGrid.large_cap) keeps their coverage, overflow stays 0
     "terrain": ([20.0, 12.0, 20.0], [21.0, 14.0, 19.0], [19.0, 16.0, 21.0],
-                [22.0, 13.0, 21.0]),
+                [20.0, 18.0, 20.0]),
 }
 # the passes that are off by default, batched: the same views
 BATCH_POSITIONS["atrium_passes"] = BATCH_POSITIONS["atrium_lifted"]
@@ -179,6 +193,9 @@ BATCH_FRAMES = 2
 SHARD_BANDS = 4        # row bands of the sharded phase (one card)
 SHARD_FRAMES = 2
 VIEWER_SAMPLES = 20    # /metrics readings (distinct frames) it takes
+BENCH_FRAMES = 32      # tools/bench.py's default frame count
+TABLE_FRAMES = 8       # frames a run of bench_baselines and bench_toggle
+TOGGLE_CONFIG = 5      # the BASELINE config bench_toggle attributes
 ASSET_SEED = 0
 NOISE_SEED = 11
 METAL_SEED = 5
@@ -400,15 +417,8 @@ def build_scene(name, dev):
 
 def path_of(plan, batch):
     """The kernels `render_frame` launches for this plan and batch."""
-    cfg = plan.config
-    path = ["resolve", "texsample", "ssao_taps", "taa_reproject"]
-    if cfg.enable_shadows and not plan.shadow_statically_empty:
-        path.append("resolve_depth")
-    if (cfg.enable_clouds and cfg.cloud_noise_mode == "texture"
-            and batch.cloud_noise is not None
-            and cfg.cloud_impl != "perpixel"):
-        path.append("sky_lut")
-    return path
+    from soc_real_time_renderer_tpu_torch.tools.bench import kernel_path
+    return kernel_path(plan, batch)
 
 
 def skew(name, view, starts, recs, grid):
@@ -713,8 +723,22 @@ def stage_table(built, g, hist, mm, nm, reps=3, plan=None):
     st = {}
     st["whole frame"] = cuda_ms(
         lambda: fm.render_frame(plan, batch, g, hist, mm, nm), reps)
-    st["raster_stage"] = cuda_ms(
-        lambda: fm.raster_stage(plan, batch, g, mm, nm), reps)
+    # the third binning tier (BinGrid.large_cap) against the stage's
+    # spread: the plan's grids and large_cap 0 (no third tier) in turns
+    uncut = dataclasses.replace(plan, **{
+        k: dataclasses.replace(getattr(plan, k), large_cap=0)
+        for k in ("main_grid", "shadow_grid")})
+    turns = ([], [])
+    for i in range(2 * reps):
+        for j in ((0, 1) if i % 2 == 0 else (1, 0)):
+            p = (plan, uncut)[j]
+            turns[j].append(cuda_ms(
+                lambda p=p: fm.raster_stage(p, batch, g, mm, nm), 1))
+    st["raster_stage"] = statistics.median(turns[0])
+    st["  raster_stage, large_cap 0 (no third tier)"] = statistics.median(
+        turns[1])
+    st["  raster_stage's spread (max - min of its readings)"] = \
+        max(turns[0]) - min(turns[0])
     vis, recs, smap, ovf = fm.raster_stage(plan, batch, g, mm, nm)
     if smap is not None:
         world, _ = fm.transform_triangles(batch, mm, nm)
@@ -2220,6 +2244,50 @@ def viewer_phase(dev, card, results):
     return out
 
 
+def bench_phase(card):
+    """The three measuring tools' mains in this process, on the
+    synthetic tree scenes.ASSETS points at: bench on sponza, the
+    BASELINE table, the toggle attribution of config 5; each run's
+    launches (the tools check them too) and paths."""
+    from soc_real_time_renderer_tpu_torch.kernels import build as kb
+    from soc_real_time_renderer_tpu_torch.tools import bench, \
+        bench_baselines, bench_toggle
+    every = set(KERNELS)
+    line = bench.main([], {"BENCH_SCENE": "sponza", "BENCH_WIDTH": "1280",
+                           "BENCH_HEIGHT": "736",
+                           "BENCH_FRAMES": str(BENCH_FRAMES)})
+    ran = {k for k, n in kb.launches.items() if n}
+    check(line["assets"] == "synthetic" and "sponza 1280x736" in
+          line["metric"] and card.strip("[]") == line["device"]
+          and ran == {"resolve", "texsample", "ssao_taps", "sky_lut",
+                      "taa_reproject"}
+          and all(kb.launches[k] == BENCH_FRAMES for k in ran),
+          f"bench: sponza, synthetic assets, the card's name, K1, K5, K2, "
+          f"K6, K3 {BENCH_FRAMES} times each: {line}, {kb.launches}")
+    rows = bench_baselines.main(["--frames", str(TABLE_FRAMES)])
+    check([r["config"] for r in rows] == list(range(1, 8))
+          and all(r["launches"][k] == (TABLE_FRAMES if k in r["path"]
+                                       else 0)
+                  for r in rows for k in every)
+          and set().union(*(r["path"] for r in rows)) == every
+          and not any(o for r in rows for o in r["overflow"])
+          and not any(r["syncs"] for r in rows),
+          "bench_baselines: seven rows, each kernel of a row's path once "
+          "a frame and no other, all six kernels over the table, no "
+          "overflow, no call in a timed loop waited for the card")
+    toggles = bench_toggle.main(["--config", str(TOGGLE_CONFIG),
+                                 "--frames", str(TABLE_FRAMES)])
+    gone = {"ssao": "ssao_taps", "taa": "taa_reproject",
+            "clouds": "sky_lut", "tex_none": "texsample"}
+    check(sorted(toggles) == sorted(bench_toggle.KEPT)
+          and all(len(r["delta_ms"]) == bench_toggle.ROUNDS
+                  for r in toggles.values())
+          and all(k not in toggles[t]["path"] for t, k in gone.items()),
+          f"bench_toggle: every kept toggle, {bench_toggle.ROUNDS} rounds "
+          f"each, its kernel gone where it removes one")
+    return line, rows, toggles
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2296,6 +2364,10 @@ def main():
         t0 = time.perf_counter()
         viewer = viewer_phase(dev, card, results)
         seconds["viewer"] = time.perf_counter() - t0
+        # the measuring tools
+        t0 = time.perf_counter()
+        bench_line, _, _ = bench_phase(card)
+        seconds["bench"] = time.perf_counter() - t0
     log(f"summary {card}: " + ", ".join(
         f"{n} kernel path {k:.2f} ms vs plain {p:.2f} ms"
         for n, (k, p) in frames.items()) + "; " + ", ".join(
@@ -2311,6 +2383,8 @@ def main():
         f"{viewer['latency_ms']} (medians), full tier "
         f"{viewer['full_tier_s']:.2f} s, cheap tier "
         f"{viewer['cheap_tier_s']:.3f} s"
+        + f"; bench sponza 1280x736 {bench_line['value']} ms/frame "
+        f"(median {bench_line['median_ms']:.2f})"
         + "; seconds per phase " + ", ".join(
         f"{n} {v:.1f}" for n, v in seconds.items())
         + f"; total {time.perf_counter() - t_start:.0f} s")

@@ -88,6 +88,15 @@ batched_globals_from_numpy = globals_from_numpy
 batched_history_from_numpy = history_from_numpy
 
 
+def grid_from_jax(grid) -> raster2.BinGrid:
+    """The port's BinGrid from the JAX one: the fields both have (the
+    TPU record-format fields are dropped, the port's own ``large_cap``
+    keeps its default)."""
+    return raster2.BinGrid(**{f.name: getattr(grid, f.name)
+                              for f in dataclasses.fields(raster2.BinGrid)
+                              if hasattr(grid, f.name)})
+
+
 def plan_from_jax_plan(plan) -> frame_mod.FramePlan:
     """The port's FramePlan from the JAX one: same config and grids
     (the TPU record-format fields of BinGrid are dropped, the port
@@ -102,7 +111,7 @@ def plan_from_jax_plan(plan) -> frame_mod.FramePlan:
         if f.name == "config":
             return _fields(cfg.RenderConfig, v, lambda _, x: x)
         if f.name in ("main_grid", "shadow_grid"):
-            return _fields(raster2.BinGrid, v, lambda _, x: x)
+            return grid_from_jax(v)
         return v
 
     return _fields(frame_mod.FramePlan, plan, convert)

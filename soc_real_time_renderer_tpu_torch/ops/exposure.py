@@ -2,8 +2,10 @@
 ``ops/exposure.py``: 256-bin log-luminance histogram (pixels with
 luminance < 1e-3 in bin 0), weighted mean over the non-black bins,
 ``target = log2(target_luminance / 2^mean)``, exponential smoothing
-``alpha = 1 - exp(-dt * speed)``.  The histogram is an integer
-``bincount``, so it is deterministic on any device.  With a leading view
+``alpha = 1 - exp(-dt * speed)``.  The histogram is an integer count
+(``index_add_`` of ones), so it is deterministic on any device; it is
+not ``bincount``, whose CUDA version reads the indices' min and max back
+to the host, two waits for the card a frame.  With a leading view
 axis (hdr (B, 3, H, W), exposure and globals (B,)) each view has its
 own histogram and adapts on its own."""
 from __future__ import annotations
@@ -31,8 +33,10 @@ def luminance_histogram(hdr, log_min, log_max):
     idx = torch.where(lum < 1e-3, 0, idx)
     if V:       # view b counts into bins [256 b, 256 (b + 1))
         idx = idx + torch.arange(V[0], device=idx.device)[:, None] * n
-    return torch.bincount(idx.reshape(-1),
-                          minlength=n * lum.shape[:-1].numel()).reshape(*V, n)
+    idx = idx.reshape(-1)
+    hist = torch.zeros(n * lum.shape[:-1].numel(), dtype=torch.int64,
+                       device=idx.device)
+    return hist.index_add_(0, idx, torch.ones_like(idx)).reshape(*V, n)
 
 
 def resolve_exposure(hist, prev_exposure, g, num_pixels: int):

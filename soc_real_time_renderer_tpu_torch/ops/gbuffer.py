@@ -201,12 +201,18 @@ def resolve_gbuffer(vis: VisibilityBuffer, shading_records, atlas,
                            du_dy ** 2 + dv_dy ** 2) * (atlas_size ** 2)
     lod = 0.5 * torch.log2(torch.clamp(lod_sq, min=1e-12))
 
-    from .texsample import sample_atlas
-    tex = sample_atlas(atlas, mid.reshape(-1), uv.reshape(2, -1),
-                       lod.reshape(-1), size=atlas_size,
-                       layer_stride=layer_stride, n_levels=n_levels,
-                       filter_mode=filter_mode, impl=impl).reshape(
-                           11, *mid.shape)                # (11, *V, P)
+    if filter_mode == "none":
+        # attribution probe (tools/bench_toggle.py, the JAX gbuffer.py:
+        # 176-178): a constant texel, no atlas gather, K5 not launched;
+        # not a rendering mode
+        tex = torch.full((11, *mid.shape), 0.5, device=dev)
+    else:
+        from .texsample import sample_atlas
+        tex = sample_atlas(atlas, mid.reshape(-1), uv.reshape(2, -1),
+                           lod.reshape(-1), size=atlas_size,
+                           layer_stride=layer_stride, n_levels=n_levels,
+                           filter_mode=filter_mode, impl=impl).reshape(
+                               11, *mid.shape)            # (11, *V, P)
     albedo_t = _srgb_to_linear(tex[0:3])
     normal_t = tex[3:6]
     mr_gb = tex[6:8]

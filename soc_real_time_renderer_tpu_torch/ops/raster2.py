@@ -7,9 +7,15 @@ layout only:
    coverage, exact near-plane-aware screen bboxes, no clipping.
 2. **Binning** (:func:`build_pairs`): each valid triangle emits its bin
    keys ``bin * ZQ + zq`` (4 inline slots, or ``med_slots`` slots for
-   the first ``med_cap`` larger triangles), one stable ``torch.sort``
-   groups them per bin, ``torch.searchsorted`` gives the starts; the
-   ``OVERFLOW_*`` bits and the ``pair_cap`` truncation are kept exactly.
+   the first ``med_cap`` larger triangles, and for the first
+   ``large_cap`` of those that span more than ``med_slots`` bins, every
+   other bin of their bbox), one stable ``torch.sort`` groups them per
+   bin, ``torch.searchsorted`` gives the starts; the ``pair_cap``
+   truncation and the PAIRS and MED_CAP bits are the JAX package's.
+   The third tier is the port's own: the JAX package cuts a medium
+   triangle at ``med_slots`` bins and sets ``OVERFLOW_MED_SLOTS``, which
+   here is set only when more triangles need the tier than
+   ``large_cap`` holds, so a frame without it loses no coverage.
 3. **Records** (:func:`build_records`): (16, T + 1) f32 [adj 9 | z 3 |
    w 3 | id], gathered into bin order.
 4. **Resolve** (:func:`resolve`): kernel K1 (``kernels/csrc/resolve.cu``)
@@ -52,7 +58,8 @@ ZQ = 16384
 
 OVERFLOW_PAIRS = 1       # sorted pair stream exceeded BinGrid.pair_cap
 OVERFLOW_MED_CAP = 2     # more medium triangles than BinGrid.med_cap
-OVERFLOW_MED_SLOTS = 4   # a medium triangle covered > med_slots bins
+OVERFLOW_MED_SLOTS = 4   # coverage dropped: more triangles span
+#                          > med_slots bins than large_cap holds
 
 
 def _cdiv(a, b):
@@ -163,6 +170,8 @@ class BinGrid:
     bin_w: int | None = None
     bin_h: int | None = None
     n_small: int = 4            # inline small-path slots per triangle
+    large_cap: int = 64         # medium triangles given all their bins
+    #                             past med_slots (the port's own field)
 
     def __post_init__(self):
         assert self.pair_cap >= self.chunk
@@ -211,7 +220,8 @@ def build_records(setup: PlanarSetup) -> torch.Tensor:
 def build_pairs(setup: PlanarSetup, grid: BinGrid):
     """Returns (starts (*V, B+1) i32 clamped to pair_cap, sorted_tids
     (*V, S) i32, overflow (*V,) i32) with S = n_small*T +
-    med_cap*med_slots, each view's stream sorted on its own."""
+    med_cap*med_slots + large_cap*max(0, B - med_slots), each view's
+    stream sorted on its own."""
     dev = setup.adj.device
     T = setup.adj.shape[-1]
     V = setup.valid.shape[:-1]
@@ -234,10 +244,11 @@ def build_pairs(setup: PlanarSetup, grid: BinGrid):
     nb = w * h
     valid = setup.valid
 
-    def slot_keys(bx0g, by0g, wg, hg, n_slots):
-        """(n_slots, *V, N) bin keys (B = invalid)."""
-        s = torch.arange(n_slots, dtype=i32, device=dev).reshape(
-            (n_slots,) + (1,) * wg.dim())
+    def slot_keys(bx0g, by0g, wg, hg, n_slots, first=0):
+        """(n_slots - first, *V, N) bin keys of slots first.. (B =
+        invalid)."""
+        s = torch.arange(first, max(first, n_slots), dtype=i32,
+                         device=dev).reshape((-1,) + (1,) * wg.dim())
         # wg is 0 only for invalid triangles (an empty bbox on the right
         # edge of a viewport narrower than its bin row), whose keys the
         # callers mask; the CPU's integer division by 0 raises
@@ -255,36 +266,54 @@ def build_pairs(setup: PlanarSetup, grid: BinGrid):
     zmin = torch.where(w_ok, torch.clamp(zndc.amin(dim=0), 0.0, 1.0), 0.0)
     zq = (zmin * (ZQ - 1)).to(i32)
 
-    ns, mc, ms = grid.n_small, grid.med_cap, grid.med_slots
+    ns, mc, ms, lc = grid.n_small, grid.med_cap, grid.med_slots, \
+        grid.large_cap
     tri_ids = torch.arange(T, dtype=i32, device=dev)
     small = valid & (nb <= ns)
     k_small = torch.where(small[None],
                           slot_keys(bx0, by0, w, h, ns) * ZQ + zq[None],
                           B * ZQ)
 
+    def first_of(mask, cap):
+        """The ids of the first `cap` triangles of `mask` in each view
+        (id order), padded with T: triangle t goes to slot (members
+        before it), the others to a spare slot `cap` that is dropped;
+        and whether each triangle got a slot."""
+        rank = torch.cumsum(mask.to(i32), dim=-1) - 1
+        kept = mask & (rank < cap)
+        slot = torch.where(kept, rank, cap).long()
+        ids = torch.full((*V, cap + 1), T, dtype=i32, device=dev)
+        return ids.scatter(-1, slot, tri_ids.expand(*V, T))[..., :cap], kept
+
+    def tier_keys(ids, n_slots, first=0):
+        i = torch.clamp(ids, max=T - 1).long()
+
+        def at(x):
+            return torch.gather(x, -1, i)
+
+        k = slot_keys(at(bx0), at(by0), at(w), at(h), n_slots, first)
+        return torch.where((ids < T)[None], k * ZQ + at(zq)[None], B * ZQ)
+
     med = valid & (nb > ns)
-    # the first med_cap medium triangles of each view in id order, padded
-    # with T: triangle t goes to slot (medium triangles before it), the
-    # others to a spare slot med_cap that is dropped
-    rank = torch.cumsum(med.to(i32), dim=-1) - 1
-    slot = torch.where(med & (rank < mc), rank, mc).long()
-    med_ids = torch.full((*V, mc + 1), T, dtype=i32, device=dev)
-    med_ids = med_ids.scatter(-1, slot, tri_ids.expand(*V, T))[..., :mc]
-    mi = torch.clamp(med_ids, max=T - 1).long()
-    m_ok = (med_ids < T)[None]
+    med_ids, med_kept = first_of(med, mc)
+    k_med = tier_keys(med_ids, ms)
+    # the third tier: kept medium triangles past med_slots bins get their
+    # remaining bins, slots med_slots .. B - 1, so no pair repeats
+    large = med_kept & (nb > ms)
+    large_ids, _ = first_of(large, lc)
+    k_large = tier_keys(large_ids, B, first=ms)
 
-    def at_med(x):
-        return torch.gather(x, -1, mi)
+    def stream(k, ids):
+        """Per view: the tier's keys slot-major, and their ids."""
+        n = k.shape[0]
+        return (k.movedim(0, -2).reshape(*V, n * ids.shape[-1]),
+                ids.unsqueeze(-2).expand(*V, n, ids.shape[-1])
+                .reshape(*V, -1))
 
-    k_med = slot_keys(at_med(bx0), at_med(by0), at_med(w), at_med(h), ms)
-    k_med = torch.where(m_ok, k_med * ZQ + at_med(zq)[None], B * ZQ)
-
-    # per view: the small keys slot-major, then the medium ones
-    keys = torch.cat([k_small.movedim(0, -2).reshape(*V, ns * T),
-                      k_med.movedim(0, -2).reshape(*V, ms * mc)], dim=-1)
-    tids = torch.cat([tri_ids.expand(*V, ns, T).reshape(*V, ns * T),
-                      med_ids.unsqueeze(-2).expand(*V, ms, mc)
-                      .reshape(*V, ms * mc)], dim=-1)
+    parts = [stream(k_small, tri_ids.expand(*V, T)),
+             stream(k_med, med_ids), stream(k_large, large_ids)]
+    keys = torch.cat([k for k, _ in parts], dim=-1)
+    tids = torch.cat([t for _, t in parts], dim=-1)
     sk, order = torch.sort(keys, dim=-1, stable=True)
     st = torch.gather(tids, -1, order)
     edges = torch.arange(B + 1, dtype=i32, device=dev) * ZQ
@@ -292,12 +321,11 @@ def build_pairs(setup: PlanarSetup, grid: BinGrid):
     total_pairs = starts[..., B]
     starts = torch.clamp(starts, max=grid.pair_cap).to(i32)
 
-    med_count = med.to(i32).sum(dim=-1)
     zero = torch.zeros((), dtype=i32, device=dev)
     overflow = (torch.where(total_pairs > grid.pair_cap, OVERFLOW_PAIRS, zero)
-                | torch.where(med_count > grid.med_cap, OVERFLOW_MED_CAP,
-                              zero)
-                | torch.where((med & (nb > grid.med_slots)).any(dim=-1),
+                | torch.where(med.to(i32).sum(dim=-1) > mc,
+                              OVERFLOW_MED_CAP, zero)
+                | torch.where(large.to(i32).sum(dim=-1) > lc,
                               OVERFLOW_MED_SLOTS, zero))
     return starts, st, overflow.to(i32)
 

@@ -124,8 +124,10 @@ def main(argv=None):
     names = overflow_names(int(outputs.overflow))
     if names:
         print(f"WARNING: static caps overflowed ({'|'.join(names)}) — "
-              f"fragments/SSR rays were dropped; raise BinGrid caps or "
-              f"FramePlan.ssr_cap (scenes.py)")
+              f"fragments/SSR rays were dropped (MED_SLOTS: more "
+              f"triangles span > med_slots bins than BinGrid.large_cap "
+              f"holds); raise BinGrid caps or FramePlan.ssr_cap "
+              f"(scenes.py)")
     if args.dump_passes:
         base = os.path.splitext(args.out)[0]
         dump_passes(base, outputs)

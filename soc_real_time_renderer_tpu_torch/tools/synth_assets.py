@@ -20,7 +20,8 @@ absent:
 
 At the defaults the sizes are those of the real assets: the published
 DamagedHelmet has 15,452 triangles and 2048^2 maps, Sponza 1024^2 maps,
-the noise texture 64^2.
+the noise texture 64^2.  The tree's root holds a ``SYNTHETIC`` file
+(:func:`is_synthetic`), so that a measurement taken on it says so.
 """
 from __future__ import annotations
 
@@ -35,6 +36,15 @@ from ..utils.png import encode_png
 HELMET = "DamagedHelmet/glTF"
 SPONZA = "Sponza/glTF"
 NOISE = "Clouds/noise.png"
+# the files the presets read (under scenes.ASSETS)
+PRESET_FILES = (HELMET + "/DamagedHelmet.gltf", SPONZA + "/Sponza.gltf",
+                NOISE)
+MARKER = "SYNTHETIC"
+
+
+def is_synthetic(root) -> bool:
+    """Whether `root` is a tree that :func:`write_asset_tree` wrote."""
+    return os.path.exists(os.path.join(root, MARKER))
 
 
 def _smooth(rng, size, cells, channels):
@@ -241,6 +251,10 @@ def write_asset_tree(root, *, rings=60, segments=129, helmet_map=2048,
     each map has its own generator, so the bytes do not depend on the
     order the threads run in."""
     jobs = []
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, MARKER), "w") as f:
+        f.write("written by tools/synth_assets.py from a seed: stand-ins "
+                "at the real assets' sizes, not the real assets\n")
     out = {"helmet": write_helmet(root, jobs, seed, rings, segments,
                                   helmet_map)}
     if sponza:

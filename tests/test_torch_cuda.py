@@ -1088,3 +1088,35 @@ def test_sharded_frame_on_one_card(dev):
     got, _ = meshed(built.batch, gb, hb, mm, nm)
     assert (pmesh.assemble_views(got, dev) - colors).abs().max().item() \
         <= 1e-6
+
+
+@pytest.mark.parametrize("texture_filter", ["bilinear", "none"])
+def test_bench_loop_launches_once_and_never_waits(dev, texture_filter):
+    """tools/bench.py's timed loop on the card (the small terrain at
+    256x128, 3 staged frames): each kernel of the plan's path once a
+    frame and no other (texture filter "none", bench_toggle's tex_none,
+    takes K5 off it), and no call inside the loop waits for the card
+    (the exposure histogram's bincount once did, twice a frame)."""
+    from soc_real_time_renderer_tpu_torch.tools import bench
+    hm = terrain.procedural_heightmap(64)
+    model = terrain.build_terrain_model(hm, terrain.default_albedo(hm),
+                                        tess_level=1)
+    scene = Scene("terrain")
+    e = scene.create_entity("terrain")
+    e.add_component(TransformComponent())
+    e.add_component(MeshComponent()).model = model
+    built = scenes._finish(scene, [model], RenderConfig(width=256, height=128),
+                           [20.0, 12.0, 20.0], [50, 0, 50], device=dev,
+                           atlas_size=64)
+    plan = dataclasses.replace(built.plan, texture_filter=texture_filter)
+    staged = bench.stage(built, plan, 3)
+    bench.run(built, plan, staged)
+    t = bench.run(built, plan, staged)
+    want = ["resolve", "ssao_taps", "taa_reproject"]
+    if texture_filter != "none":
+        want.insert(1, "texsample")
+    assert t.path == want
+    assert t.launches == {k: (3 if k in want else 0) for k in t.launches}
+    assert t.syncs == {}
+    assert len(t.frame_ms) == 3 and t.total_ms > 0 and t.peak_mib > 0
+    assert torch.isfinite(t.outputs.color).all()

@@ -18,7 +18,6 @@ The binning keeps the reference's rule for triangles wholly behind the
 camera (valid, bbox (0, 0, 1, 1), so they land in bin 0): its starts and
 sorted ids equal the JAX package's on soups that hold such triangles.
 """
-import dataclasses
 import math
 
 import jax
@@ -30,6 +29,7 @@ import torch
 import torch_scene_kit as kit
 from raster_oracle import make_clip
 from soc_real_time_renderer_tpu.ops import raster2 as jraster
+from soc_real_time_renderer_tpu_torch import convert
 from soc_real_time_renderer_tpu_torch import scenes as pscenes
 from soc_real_time_renderer_tpu_torch.config import RenderConfig
 from soc_real_time_renderer_tpu_torch.graph import frame as pframe
@@ -364,8 +364,7 @@ def test_binning_keeps_behind_camera_triangles_as_the_reference(cull):
     jsetup = jraster.triangle_setup_planar(jnp.asarray(planar.numpy()), 64,
                                            64, cull)
     js, jt, jo = jax.jit(lambda s: jraster.build_pairs(s, JGRID))(jsetup)
-    pgrid = praster.BinGrid(**{f.name: getattr(JGRID, f.name)
-                               for f in dataclasses.fields(praster.BinGrid)})
+    pgrid = convert.grid_from_jax(JGRID)
     psetup = praster.triangle_setup_planar(planar, 64, 64, cull)
     ps, pt, po = praster.build_pairs(psetup, pgrid)
     np.testing.assert_array_equal(ps.numpy(), np.asarray(js))
@@ -388,8 +387,7 @@ def test_one_bin_starts_resolve_that_bin_alone(b):
     from 0, so it is handed the same ranges shifted by starts[b].)"""
     import kernel_ab
     planar = _planar(_soup(8, 300, z=(-4.0, 3.0), spread=1.0))
-    pgrid = praster.BinGrid(**{f.name: getattr(JGRID, f.name)
-                               for f in dataclasses.fields(praster.BinGrid)})
+    pgrid = convert.grid_from_jax(JGRID)
     setup = praster.triangle_setup_planar(planar, 64, 64, "front")
     starts, recs, ovf, grid = praster.gather_records(setup, pgrid)
     assert int(ovf) == 0 and int(starts[b + 1] - starts[b]) > 0

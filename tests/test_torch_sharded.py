@@ -37,6 +37,7 @@ from soc_real_time_renderer_tpu import config as jcfg
 from soc_real_time_renderer_tpu.graph import frame as jframe
 from soc_real_time_renderer_tpu.ops import raster2 as jraster
 from soc_real_time_renderer_tpu.parallel import mesh as jmesh
+from soc_real_time_renderer_tpu_torch import convert
 from soc_real_time_renderer_tpu_torch import scenes as pscenes
 from soc_real_time_renderer_tpu_torch.config import RenderConfig
 from soc_real_time_renderer_tpu_torch.graph import frame as pframe
@@ -175,11 +176,6 @@ def _jax_inputs(jgrid, verts, cull="none", vh=None):
     return starts, rs, dataclasses.replace(jgrid, pair_cap=cap)
 
 
-def _pgrid(jgrid):
-    return praster.BinGrid(**{f.name: getattr(jgrid, f.name)
-                              for f in dataclasses.fields(praster.BinGrid)})
-
-
 @pytest.mark.parametrize("sp", [2, 3])
 @pytest.mark.parametrize("depth_only", [False, True])
 def test_resolve_row_sharded_equals_unsplit_and_jax(sp, depth_only):
@@ -198,7 +194,7 @@ def test_resolve_row_sharded_equals_unsplit_and_jax(sp, depth_only):
     js, jr, jg = _jax_inputs(jgrid, verts, vh=96)
     starts = torch.from_numpy(np.array(js))
     recs = torch.from_numpy(np.array(jr))
-    grid = _pgrid(jg)
+    grid = convert.grid_from_jax(jg)
     pd, pt = praster.resolve_row_sharded(starts, recs, grid, cpu_mesh(sp),
                                          "sp", depth_only=depth_only)
     assert [b.shape[-2] for b in pd] == [BYp // sp * 32] * sp
@@ -231,7 +227,7 @@ def test_band_resolve_is_the_band_of_the_whole():
                              _soup(6, 80))
     starts = torch.from_numpy(np.array(js))
     recs = torch.from_numpy(np.array(jr))
-    grid = _pgrid(jg)
+    grid = convert.grid_from_jax(jg)
     d, t = praster.resolve(starts, recs, grid)
     dd = praster.resolve_depth(starts, recs, grid)
     for row0, n in ((0, 1), (1, 2), (3, 1), (0, 4)):
