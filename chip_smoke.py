@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the six hand-written CUDA kernels from
+Builds the six hand-written CUDA kernels (and K5's variants) from
 ``soc_real_time_renderer_tpu_torch/kernels/csrc`` (K1 bin resolve, K2
 SSAO taps, K3 TAA history fetch, K4 shadow depth resolve, K5 material
 texture tap, K6 noise-texture sky LUT), then renders three scenes at
@@ -99,6 +99,20 @@ per PNG filter type; Sponza's five materials as fifteen 1024^2 PNGs; a
   kernel-path frame against the plain-path frame on ``full`` and
   ``helmet_lifted``; CUDA-event frame ms; the stage tables of ``full``
   and ``helmet``.
+* ``texparts``: the texture-tap attribution path on ``full``'s build:
+  the port's ``tools/capture_texfields.py`` (frame 1's tap fields, what
+  ``resolve_gbuffer`` hands K5), ``bench_texsample.py`` (K5 in each
+  filter mode, the plain gather, the G-buffer stage),
+  ``bench_texkernel_parts.py`` and ``bench_texmm2.py`` (the K5 variants
+  that stand for the JAX tools' two TPU kernels, 16 and 7 runs) in this
+  process, each with the launch counts set to 0 before and read after;
+  then every full variant against its plain version on the capture in
+  all three filter modes, bit for bit (bf16 against PyTorch's cast),
+  and each variant's card ms beside the full kernel's and its own bound,
+  registers and SASS LDG / STG counts (none may be 0: a variant the
+  compiler emptied would time nothing).  Its two JSON rows
+  (``texsample_parts``, ``texsample_mm2``) carry the full variant's
+  numbers and a map from each run to its ms.
 * ``cli``: ``python -m soc_real_time_renderer_tpu_torch.tools.render
   --scene full ... --frames 3 --dump-passes`` in a subprocess with
   ``SOC_ASSETS`` at the tree: exit code 0, its PNG against the
@@ -164,6 +178,9 @@ import time
 import traceback
 
 import numpy as np
+
+from soc_real_time_renderer_tpu_torch.utils.metrics import cuda_ms, \
+    device_ms, l2_flush
 
 WIDTH, HEIGHT = 1920, 1088
 FRAMES = 8
@@ -239,6 +256,16 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                       "soc_real_time_renderer_tpu/ops/taa_pallas.py:30"),
 }
 # the scene whose inputs give each kernel's line in the JSON
+# the two TPU kernels that took K5 apart, as K5 variants on the card:
+# name -> (source, the TPU kernel, the port tool that times them)
+VARIANT_KERNELS = {
+    "texsample_parts": (SRC + "texsample.cu",
+                        "tools/bench_texkernel_parts.py:32",
+                        "bench_texkernel_parts"),
+    "texsample_mm2": (SRC + "texsample.cu", "tools/bench_texmm2.py:38",
+                      "bench_texmm2"),
+}
+# the scene whose inputs give each kernel's line in the JSON
 HOME = {"resolve": "terrain", "ssao_taps": "terrain",
         "taa_reproject": "terrain", "texsample": "full_nohelmet",
         "sky_lut": "full_nohelmet", "resolve_depth": "atrium_lifted"}
@@ -251,50 +278,6 @@ def log(msg):
 def check(ok, what):
     if not ok:
         raise RuntimeError(f"check failed: {what}")
-
-
-def cuda_ms(fn, reps):
-    """Median ms of fn() over `reps` runs, one CUDA-event pair each."""
-    import torch
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def device_ms(fn, reps, flush):
-    """Median device ms of fn() over `reps` calls, each after `flush`
-    (a write that evicts the 50 MB L2, so every call finds its inputs
-    in device memory, as a frame's pass does), all enqueued behind a
-    sleeping kernel (2^26 cycles, ~34 ms at 1.98 GHz): the events then
-    time the card's work alone, not the host's launch path, which costs
-    a kernel wrapper tens of microseconds, as long as the kernels it
-    times.  None when fn waits for the card (the enqueueing outlasted
-    the sleep): no number is then taken."""
-    import torch
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * reps + 2)]
-    torch.cuda.synchronize()
-    ev[-1].record()
-    torch.cuda._sleep(1 << 26)
-    ev[0].record()
-    t0 = time.perf_counter()
-    for i in range(reps):
-        flush()
-        ev[2 * i + 1].record()
-        fn()
-        ev[2 * i + 2].record()
-    host = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    if ev[-1].elapsed_time(ev[0]) <= host:
-        return None
-    return statistics.median(ev[2 * i + 1].elapsed_time(ev[2 * i + 2])
-                             for i in range(reps))
 
 
 def cuda_kernels(fn):
@@ -945,18 +928,18 @@ def scene_phase(name, dev, card, results):
 
     # kernel and library times per call (cuda_ms: the wrapper's host
     # time included) and on the card alone (device_ms)
-    l2 = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    flush = l2_flush(dev)
     for k, (call, _, (nbytes, ops), lib, bare) in cases.items():
         call("cuda")
         call("plain")
         k_ms = cuda_ms(lambda: call("cuda"), 20)
-        k_dev = device_ms(lambda: call("cuda"), 20, l2.zero_)
+        k_dev = device_ms(lambda: call("cuda"), 20, flush)
         check(k_dev is not None, f"{k} timed on the card alone: its call "
               f"must not wait for the card")
         bare_dev = None
         if bare is not None:
             bare()
-            bare_dev = device_ms(bare, 20, l2.zero_)
+            bare_dev = device_ms(bare, 20, flush)
             check(bare_dev is not None, f"{k}'s launch timed on the card "
                   f"alone")
         p_ms = cuda_ms(lambda: call("plain"), TIMED)
@@ -964,7 +947,7 @@ def scene_phase(name, dev, card, results):
         if lib is not None:
             lib()
             lib_ms = cuda_ms(lib, 20)
-            lib_dev = device_ms(lib, 20, l2.zero_)
+            lib_dev = device_ms(lib, 20, flush)
             check(lib_dev is not None, f"{k}'s library call timed on the "
                   f"card alone")
         b_ms, b_by = bound(nbytes, ops)
@@ -984,7 +967,7 @@ def scene_phase(name, dev, card, results):
             "device_ms": k_dev, "plain_ms": p_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms,
             "library_device_ms": lib_dev, "launch_device_ms": bare_dev}
-    del l2
+    del flush
 
     st = stage_table(built, g, h7, mm, nm)
     log(f"[{name}] stages (kernel path, ms, median of 3) {card}:")
@@ -1762,7 +1745,7 @@ def preset_phase(name, dev, card, results):
     frame ms; on full and helmet_lifted the kernel-path frame against the
     plain-path frame; on full and helmet (mostly sky) the stage table.
     Returns (build seconds, frame ms, the last frame's colour as sRGB
-    u8)."""
+    u8, the BuiltScene)."""
     import torch
     from soc_real_time_renderer_tpu_torch import scenes
     from soc_real_time_renderer_tpu_torch.config import RenderConfig
@@ -1816,9 +1799,9 @@ def preset_phase(name, dev, card, results):
         log(f"[{name}] stages (kernel path, ms, median of 3) {card}:")
         for s_, v in st.items():
             log(f"[{name}]   {s_}: {v:.2f}")
-    del built, out
+    del out
     torch.cuda.empty_cache()
-    return build_s, ms, srgb
+    return build_s, ms, srgb, built
 
 
 def cli_phase(tree, ref_srgb, card):
@@ -2244,6 +2227,149 @@ def viewer_phase(dev, card, results):
     return out
 
 
+def texparts_phase(built, card, tmp):
+    """The texture-tap attribution path on `full` (the preset phase's
+    build at WIDTH x HEIGHT from the synthetic tree), through the port's
+    tools in this process: capture_texfields (frame 1's tap fields, what
+    resolve_gbuffer hands K5), bench_texsample, bench_texkernel_parts and
+    bench_texmm2 on them, each with the launch counts set to 0 just
+    before and read just after (the two variant benches launch only
+    their variants, each of their runs at least once; nothing counts as
+    K5).  Then, outside those counts, every full variant against its
+    plain version on the capture in all three filter modes, bit for bit
+    (planar against sample_packed_atlas, interleaved against its
+    transpose with lane 11 zero, bf16 against that cast); each variant's
+    card ms beside the full kernel's and its bound from its own bytes
+    (texsample.variant_bytes, the distinct rows from tap_rows), its
+    registers and SASS LDG / STG counts (each must keep some: a variant
+    the compiler emptied would time nothing).  Returns the JSON rows of
+    VARIANT_KERNELS."""
+    import torch
+    from soc_real_time_renderer_tpu_torch.kernels import build as kb
+    from soc_real_time_renderer_tpu_torch.ops import texsample
+    from soc_real_time_renderer_tpu_torch.tools import \
+        bench_texkernel_parts, bench_texmm2, bench_texsample, \
+        capture_texfields
+    tools = {"bench_texkernel_parts": bench_texkernel_parts,
+             "bench_texmm2": bench_texmm2}
+    path = os.path.join(tmp, "texfields.npz")
+    size = ["--scene", "full", "--width", str(WIDTH), "--height",
+            str(HEIGHT)]
+    fields_arg = ["--fields", path]
+
+    kb.reset_launches()
+    fields = capture_texfields.main(size + ["--out", path], built=built)
+    check(kb.launches["texsample"] == 1 and not kb.variant_launches,
+          f"the capture took one K5 tap: {kb.launches}")
+    (atlas, mid, uv, lod), kw = fields["args"]
+    P = mid.numel()
+    live = float(fields["live"].mean())
+    check(P == WIDTH * HEIGHT and 0.0 < live <= 1.0
+          and np.isfinite(fields["lod"]).all(),
+          f"the capture: {P} pixels, live {live}, finite lod")
+
+    kb.reset_launches()
+    tex_rows = bench_texsample.main(size + fields_arg, built=built)
+    check(kb.launches["texsample"] > 0 and not kb.variant_launches
+          and all(r["device_ms"] for r in tex_rows
+                  if r["label"].startswith("K5")),
+          f"bench_texsample: K5 in each mode, no variant: {kb.launches}")
+    runs = {}
+    for name, (_, _, tool) in VARIANT_KERNELS.items():
+        kb.reset_launches()
+        rows = tools[tool].main(size + fields_arg, built=built)
+        counts = dict(kb.variant_launches)
+        check(set(counts) == {r["variant"] for r in rows}
+              and not any(kb.launches.values()),
+              f"{tool}: each run's variant launched, nothing counted as a "
+              f"frame's kernel: {counts}, {kb.launches}")
+        for r in rows:
+            check(r["registers"] and r["LDG"] > 0 and r["STG"] > 0,
+                  f"{tool} {r['label']}: registers, loads and stores kept "
+                  f"({r['registers']}, LDG {r['LDG']}, STG {r['STG']})")
+            if r["max_abs_err"] is not None:
+                check(r["max_abs_err"] == 0.0,
+                      f"{tool} {r['label']}: max abs {r['max_abs_err']}")
+        runs[name] = (rows, counts)
+
+    errs = {}
+    base = {k: v for k, v in kw.items() if k != "filter_mode"}
+    for mode in ("nearest", "bilinear", "trilinear"):
+        planar = texsample.sample_atlas(atlas, mid, uv, lod, impl="plain",
+                                        filter_mode=mode, **base)
+        inter = torch.cat([planar.T, torch.zeros_like(planar[:1].T)], 1)
+        want = {"planar": planar, "interleaved": inter,
+                "interleaved_bf16": inter.to(torch.bfloat16)}
+        for name, v in texsample.VARIANTS.items():
+            if not v.full:
+                continue
+            got = texsample.sample_atlas_variant(
+                atlas, mid, uv, lod, variant=name, filter_mode=mode, **base)
+            torch.cuda.synchronize()
+            w = want[v.store]
+            errs[name, mode] = (got.float() - w.float()).abs().max().item()
+            check(got.dtype == w.dtype and torch.equal(got, w),
+                  f"{name} {mode}: bit-identical to its plain version "
+                  f"(max abs {errs[name, mode]})")
+            del got
+        del planar, inter, want
+    log(f"[texparts] full variants against their plain versions on "
+        f"{P} pixels of full, nearest / bilinear / trilinear: "
+        + ", ".join(f"{n} " + " / ".join(f"{errs[n, m]:.3g}" for m in (
+            "nearest", "bilinear", "trilinear"))
+            for n in sorted({n for n, _ in errs})) + " (== 0)")
+
+    bil = {**kw, "filter_mode": "bilinear"}
+    n_rows = tap_rows(mid, uv, lod, bil)
+    plain_ms = cuda_ms(lambda: texsample.sample_atlas(
+        atlas, mid, uv, lod, impl="plain", **bil), TIMED)
+
+    def bound_of(variant):
+        v = texsample.VARIANTS[variant]
+        ops = (0 if {"unpack", "tap"} & set(v.skip)
+               else P * 11 * TEX_OPS_CHANNEL)
+        return bound(texsample.variant_bytes(variant, P, n_rows,
+                                             atlas.shape[0]), ops)
+
+    out = []
+    for name, (src, replaces, tool) in VARIANT_KERNELS.items():
+        rows, counts = runs[name]
+        full = rows[1]           # the run after the warm-up: production
+        check(full["variant"] == "planar", f"{tool}'s second run is K5")
+        variants = {}
+        for r in rows:
+            b_ms, b_by = bound_of(r["variant"])
+            variants[r["label"]] = {
+                "variant": r["variant"], "device_ms": r["device_ms"],
+                "ms": r["ms"], "bound_ms": b_ms, "bound_by": b_by,
+                "registers": r["registers"], "LDG": r["LDG"],
+                "STG": r["STG"]}
+            ratio = r["device_ms"] / full["device_ms"]
+            log(f"[texparts] {tool} {r['label']:30s} {r['variant']:17s} "
+                f"card {r['device_ms']:.4f} ms ({ratio:.2f}x full), "
+                f"bound {b_ms:.4f} ms by "
+                f"{b_by} ({b_ms / r['device_ms']:.0%} of it), per call "
+                f"{r['ms']:.4f} ms, regs {r['registers']} LDG {r['LDG']} "
+                f"STG {r['STG']} {card}")
+        b_ms, b_by = bound_of("planar")
+        out.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "scene": "full",
+            "launches": sum(counts.values()), "band_launches": 0,
+            "max_abs_err": max(errs.values()), "ms": full["ms"],
+            "device_ms": full["device_ms"], "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library_device_ms": None, "launch_device_ms": None,
+            "variant_launches": counts, "variants": variants})
+    log(f"[texparts] full {WIDTH}x{HEIGHT} frame 1: {P} pixels, live "
+        f"{live:.4f}, "
+        f"{n_rows} distinct atlas rows (bilinear), plain gather {plain_ms:.4f}"
+        f" ms per call; bench_texsample: " + ", ".join(
+            f"{r['label']} {r['device_ms'] or r['ms']}" for r in tex_rows
+            if r["ms"] is not None) + f" {card}")
+    return out
+
+
 def bench_phase(card):
     """The three measuring tools' mains in this process, on the
     synthetic tree scenes.ASSETS points at: bench on sponza, the
@@ -2355,8 +2481,15 @@ def main():
         scenes.ASSETS = tree
         for name in PRESETS:
             t0 = time.perf_counter()
-            _, preset_ms[name], srgb = preset_phase(name, dev, card, results)
+            _, preset_ms[name], srgb, built = preset_phase(name, dev, card,
+                                                           results)
             seconds[name] = time.perf_counter() - t0
+        # the texture-tap attribution path on full's build (PRESETS' last)
+        t0 = time.perf_counter()
+        tex_kernels = texparts_phase(built, card, tree)
+        seconds["texparts"] = time.perf_counter() - t0
+        del built
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         cli_phase(tree, srgb, card)
         seconds["cli"] = time.perf_counter() - t0
@@ -2402,6 +2535,8 @@ def main():
                                     "library_ms", "library_device_ms",
                                     "launch_device_ms")},
             "by_scene": results[name]})
+    kernels.extend(tex_kernels)
+    check(len(kernels) == 8, "the JSON lists all eight TPU kernels")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

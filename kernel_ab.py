@@ -23,7 +23,7 @@ Per scene (``chip_smoke``'s builds at 1920x1088) and kernel (default
 K1, K4, K6 and K2; any of the six by name): the kernel's case from
 ``chip_smoke.kernel_cases`` on the frame's own inputs, each build
 compared with the plain version there (``chip_smoke``'s tolerances) and
-timed by ``chip_smoke.device_ms`` (median of 20 calls, L2 evicted before
+timed by ``utils/metrics.device_ms`` (median of 20 calls, L2 evicted before
 each) and per wrapper call, twice each; the library call where the case
 has one, between the builds.  For K1 and K4 also
 the this-build's time on the frame's records with every bin but one made
@@ -49,6 +49,8 @@ import sys
 import traceback
 
 import chip_smoke as cs
+from soc_real_time_renderer_tpu_torch.utils.metrics import cuda_ms, \
+    device_ms, l2_flush
 
 REPS = 20
 
@@ -65,7 +67,8 @@ def other_library(csrc, flags=()):
     for ln in report.splitlines():
         if "registers" in ln or "Compiling entry" in ln:
             cs.log(f"  other build, ptxas: {ln.strip()}")
-    return kb.load(lib)
+    # an older tree lacks K5's variants (they are not A/B'd here)
+    return kb.load(lib, optional={"texsample_variant_launch"})
 
 
 def only_bin(starts, b):
@@ -100,7 +103,7 @@ def resolve_tail(name, k, fn, starts, recs, grid, flush):
     out = {}
     for what, s in runs.items():
         fn(s, recs, grid, impl="cuda")
-        t = cs.device_ms(lambda: fn(s, recs, grid, impl="cuda"), REPS, flush)
+        t = device_ms(lambda: fn(s, recs, grid, impl="cuda"), REPS, flush)
         cs.check(t is not None, f"{k} timed on the card alone")
         cs.log(f"[{name}] {k} tail, {what}: {t:.4f} ms")
         out[what] = t
@@ -142,7 +145,7 @@ def path_ab(name, built, dev, libs, card):
             for lab in ("other", "this", "this", "other"):
                 kb._lib = libs[lab]
                 fn()
-                times[lab].append(cs.cuda_ms(fn, REPS))
+                times[lab].append(cuda_ms(fn, REPS))
             cs.log(f"[{name}] {what}, ms per call (median of {REPS} each, "
                    f"runs other, this, this, other): other "
                    f"{times['other']}, this {times['this']} {card}")
@@ -172,7 +175,7 @@ def scene_ab(name, dev, libs, kernels, card):
         setattr(raster2, k, spy(k))
     try:
         out = {}
-        l2 = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+        flush = l2_flush(dev)
         for k in kernels:
             if k not in cases:
                 continue
@@ -189,17 +192,17 @@ def scene_ab(name, dev, libs, kernels, card):
                     _, msg, ok = cmp(got, want)
                     cs.log(f"[{name}] {k} {lab}: {msg}")
                     cs.check(ok, f"{name} {k} {lab} parity")
-                    t = cs.device_ms(lambda: call("cuda"), REPS, l2.zero_)
+                    t = device_ms(lambda: call("cuda"), REPS, flush)
                     cs.check(t is not None, f"{k} timed on the card alone")
                     times[lab].append(t)
-                    per_call[lab].append(cs.cuda_ms(lambda: call("cuda"),
+                    per_call[lab].append(cuda_ms(lambda: call("cuda"),
                                                     REPS))
                     if bare is not None:
-                        launch[lab].append(cs.device_ms(bare, REPS,
-                                                        l2.zero_))
+                        launch[lab].append(device_ms(bare, REPS,
+                                                        flush))
                     if lib is not None and lab == order[0]:
                         lib()
-                        lib_times.append(cs.device_ms(lib, REPS, l2.zero_))
+                        lib_times.append(device_ms(lib, REPS, flush))
             kb._lib = libs["this"]
             cs.log(f"[{name}] {k} on the card (ms, median of {REPS} each, "
                    f"runs other, this, this, other): other "
@@ -220,7 +223,7 @@ def scene_ab(name, dev, libs, kernels, card):
                    / statistics.median(times["other"])}
             if k in real:
                 rec["tail_ms"] = resolve_tail(name, k, real[k], *seen[k],
-                                              l2.zero_)
+                                              flush)
             out[k] = rec
     finally:
         for k in real:

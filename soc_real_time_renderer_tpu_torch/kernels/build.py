@@ -26,9 +26,11 @@ CPU tensor raises.  There is no fallback from a failed build or launch.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import glob
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -45,6 +47,10 @@ NVCC_FLAGS = [*ARCH, "-O3", "-std=c++17", "--fmad=false", "-Xptxas", "-v",
 # launch counts per kernel: each wrapper adds one where it launches
 launches = {"resolve": 0, "resolve_depth": 0, "texsample": 0,
             "ssao_taps": 0, "sky_lut": 0, "taa_reproject": 0}
+# launches of K5's variants (ops/texsample.VARIANTS, the texture-tap
+# benches), by variant: apart from `launches`, whose kernels are the
+# frame's
+variant_launches: collections.Counter = collections.Counter()
 
 _lib = None
 build_log = ""        # nvcc's output (ptxas register / smem report)
@@ -64,6 +70,9 @@ _SIGNATURES = {
     # atlas, mid, uv, lod, out, P, rows, size, layer_stride, n_levels,
     # filter mode, stream
     "texsample_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # as texsample_launch, then the variant (ops/texsample.VARIANTS' id)
+    "texsample_variant_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _I, _P],
     # planes, depth, params, kern, out, h, w, H, W, k, views, stream
     "ssao_taps_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # params, noise, out, lut_w, lut_h, views, stream
@@ -76,6 +85,7 @@ _SIGNATURES = {
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    variant_launches.clear()
 
 
 def _nvcc() -> str:
@@ -124,10 +134,14 @@ def build(sources, lib: str = LIB, extra_flags=()) -> str:
     return "".join(log)
 
 
-def load(lib: str) -> ctypes.CDLL:
-    """The kernel library at `lib`, its launch functions typed."""
+def load(lib: str, optional=()) -> ctypes.CDLL:
+    """The kernel library at `lib`, its launch functions typed; a
+    function named in `optional` may be missing (an older tree's
+    sources, kernel_ab.py)."""
     cdll = ctypes.CDLL(lib)
     for name, argtypes in _SIGNATURES.items():
+        if name in optional and not hasattr(cdll, name):
+            continue
         fn = getattr(cdll, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -153,6 +167,42 @@ def library() -> ctypes.CDLL:
         build_seconds = time.perf_counter() - t0
     _lib = load(LIB)
     return _lib
+
+
+def kernel_resources(lib: str = LIB) -> dict:
+    """Per kernel function of `lib` (its mangled name): "REG", the
+    registers a thread (cuobjdump -res-usage), and "LDG" and "STG", the
+    number of its global load and store SASS instructions (cuobjdump
+    -sass), so a reader sees which loads and stores the compiler kept."""
+    ops = ("LDG", "STG")
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_nvcc()), "cuobjdump")
+    out: dict[str, dict] = {}
+
+    def run(flag):
+        return subprocess.run([tool, flag, lib], capture_output=True,
+                              text=True, check=True, timeout=600).stdout
+
+    fn = None
+    for ln in run("-res-usage").splitlines():
+        m = re.match(r"\s*Function (\S+?):?(\s|$)", ln)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"\bREG:(\d+)", ln)
+        if m and fn is not None:
+            out.setdefault(fn, dict.fromkeys(ops, 0))["REG"] = int(m.group(1))
+    fn = None
+    opcode = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)")
+    for ln in run("-sass").splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, dict.fromkeys(ops, 0))
+            continue
+        m = opcode.search(ln)
+        if fn is not None and m and m.group(1) in ops:
+            out[fn][m.group(1)] += 1
+    return out
 
 
 def check(code: int, what: str) -> None:

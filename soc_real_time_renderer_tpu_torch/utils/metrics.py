@@ -8,9 +8,16 @@ readback) and plots them grouped by category (``renderer.cpp:517-588,
 two CUDA events around `iters` calls after one warm call; only a caller
 that asks for ``device="cpu"`` gets the host clock instead.  A missing
 card raises (``config.resolve_device``).
+
+:func:`cuda_ms`, :func:`device_ms` and :func:`l2_flush` time one call on
+the card, per call (the host's launch path included) and on the card
+alone; ``chip_smoke.py``, ``kernel_ab.py`` and the texture-tap benches
+(``tools/bench_texsample.py``, ``bench_texkernel_parts.py``,
+``bench_texmm2.py``) share them.
 """
 from __future__ import annotations
 
+import statistics
 import time
 from collections import deque
 
@@ -18,6 +25,58 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+
+
+L2_FLUSH_BYTES = 96 << 20   # twice the H100's 50 MB L2
+
+
+def cuda_ms(fn, reps):
+    """Median ms of fn() over `reps` runs, one CUDA-event pair each (the
+    host's launch path included where it outlasts the card's work)."""
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def l2_flush(device):
+    """A callable that writes L2_FLUSH_BYTES on `device`: after it, a
+    call finds its inputs in device memory, as a frame's pass does."""
+    return torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
+                       device=device).zero_
+
+
+def device_ms(fn, reps, flush):
+    """Median device ms of fn() over `reps` calls, each after `flush`
+    (:func:`l2_flush`), all enqueued behind a sleeping kernel (2^26
+    cycles, ~34 ms at 1.98 GHz): the events then time the card's work
+    alone, not the host's launch path, which costs a kernel wrapper tens
+    of microseconds, as long as the kernels it times.  None when fn
+    waits for the card (the enqueueing outlasted the sleep): no number
+    is then taken."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * reps + 2)]
+    torch.cuda.synchronize()
+    ev[-1].record()
+    torch.cuda._sleep(1 << 26)
+    ev[0].record()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        flush()
+        ev[2 * i + 1].record()
+        fn()
+        ev[2 * i + 2].record()
+    host = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    if ev[-1].elapsed_time(ev[0]) <= host:
+        return None
+    return statistics.median(ev[2 * i + 1].elapsed_time(ev[2 * i + 2])
+                             for i in range(reps))
 
 
 class ScrollingBuffer:

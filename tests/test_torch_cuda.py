@@ -336,6 +336,7 @@ def test_small_frame_kernel_path_matches_plain(dev):
     torch.cuda.synchronize()
     assert kb.launches == {"resolve": 3, "resolve_depth": 0, "texsample": 3,
                            "ssao_taps": 3, "sky_lut": 0, "taa_reproject": 3}
+    assert not kb.variant_launches
     assert torch.isfinite(ok.color).all()
     assert (ok.color - op.color).abs().max().item() < 1e-5
 
@@ -478,6 +479,99 @@ def test_texsample_kernel_asserts_past_the_atlas(dev):
                          capture_output=True, text=True, timeout=600)
     assert res.returncode != 0 and "no error" not in res.stdout
     assert "device-side assert" in res.stderr, res.stderr[-2000:]
+
+
+def _tap_inputs(dev, n, seed=3):
+    atlas = _toy_atlas()
+    table = torch.from_numpy(expand_atlas_bilinear(atlas)).to(dev)
+    rng = np.random.default_rng(seed)
+    mid = torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(dev)
+    uv = torch.from_numpy(rng.uniform(-3, 4, (2, n)).astype(np.float32)
+                          ).to(dev)
+    lod = torch.from_numpy(rng.uniform(-1, 8, n).astype(np.float32)).to(dev)
+    return (table, mid, uv, lod), dict(size=atlas.size,
+                                       layer_stride=atlas.layer_stride,
+                                       n_levels=atlas.n_levels)
+
+
+@pytest.mark.parametrize("mode", ["nearest", "bilinear", "trilinear"])
+@pytest.mark.parametrize("n", [1, 3, 5, 1029, 50_001])
+def test_texsample_full_variants_match_plain(dev, mode, n):
+    """Every K5 variant that computes the whole tap and stores all of it
+    (planar, interleaved f32 and bf16, the 3-lane split, 2 and 4 pixels a
+    thread) equals its plain version bit for bit: the interleaved ones
+    the plain tap transposed with lane 11 zero, bf16 that cast with
+    PyTorch's round to nearest even; at P = 1, 3, 5 and sizes that no
+    pixel group (256, 512, 1024 pixels; 64 and 256 lane groups)
+    divides.  One launch each, counted under the variant, none as K5."""
+    args, kw = _tap_inputs(dev, n)
+    kb.reset_launches()
+    full = [name for name, v in texsample.VARIANTS.items() if v.full]
+    for name in full:
+        k = texsample.sample_atlas_variant(*args, variant=name,
+                                           filter_mode=mode, **kw)
+        p = texsample.sample_atlas_variant(*args, variant=name,
+                                           filter_mode=mode, impl="plain",
+                                           **kw)
+        torch.cuda.synchronize()
+        assert k.dtype == p.dtype and k.shape == p.shape, name
+        assert torch.equal(k, p), (name, (k.float() - p.float()).abs().max())
+    assert dict(kb.variant_launches) == {name: 1 for name in full}
+    assert kb.launches["texsample"] == 0
+
+
+@pytest.mark.parametrize("mode", ["nearest", "bilinear", "trilinear"])
+def test_texsample_ablated_variants_launch_once(dev, mode):
+    """Each timing-only variant (a stage switched off, or one f32 a pixel
+    stored) launches once a call and runs without a fault, at a size no
+    pixel group divides; its output has its store's shape."""
+    args, kw = _tap_inputs(dev, 50_001)
+    kb.reset_launches()
+    ablated = [name for name, v in texsample.VARIANTS.items() if not v.full]
+    for name in ablated:
+        out = texsample.sample_atlas_variant(*args, variant=name,
+                                             filter_mode=mode, **kw)
+        torch.cuda.synchronize()
+        assert out.shape == (50_001,) or out.shape == (11, 50_001), name
+    assert dict(kb.variant_launches) == {name: 1 for name in ablated}
+    assert kb.launches["texsample"] == 0
+
+
+def test_texture_benches_on_the_card(dev, tmp_path):
+    """The capture and the three texture-tap benches on the small
+    terrain at 256x128: the capture equals the frame's tap inputs; every
+    full variant at max abs 0 in the benches; each run's variant
+    launched; registers, LDG and STG read for every variant's kernel,
+    with loads and stores kept; K5's rows in bench_texsample."""
+    from soc_real_time_renderer_tpu_torch.tools import bench_texkernel_parts, \
+        bench_texmm2, bench_texsample, capture_texfields
+    hm = terrain.procedural_heightmap(64)
+    model = terrain.build_terrain_model(hm, terrain.default_albedo(hm),
+                                        tess_level=1)
+    scene = Scene("terrain")
+    e = scene.create_entity("terrain")
+    e.add_component(TransformComponent())
+    e.add_component(MeshComponent()).model = model
+    built = scenes._finish(scene, [model], RenderConfig(width=256, height=128),
+                           [20.0, 12.0, 20.0], [50, 0, 50], device=dev,
+                           atlas_size=64)
+    size = ["--width", "256", "--height", "128", "--fields",
+            str(tmp_path / "f.npz")]
+    fields = capture_texfields.main(size[:4] + ["--out", size[5]],
+                                    built=built)
+    assert 0 < fields["live"].mean() <= 1
+    rows = bench_texsample.main(size + ["--reps", "3"], built=built)
+    assert all(r["device_ms"] > 0 for r in rows if r["label"][:2] == "K5")
+    for tool, n in ((bench_texkernel_parts, 16), (bench_texmm2, 7)):
+        kb.reset_launches()
+        rows = tool.main(size + ["--reps", "3"], built=built)
+        assert len(rows) == n
+        assert set(kb.variant_launches) == {r["variant"] for r in rows}
+        for r in rows:
+            assert r["device_ms"] > 0 and r["ms"] > 0, r
+            assert r["registers"] and r["LDG"] > 0 and r["STG"] > 0, r
+            if r["full"] and "+" not in r["label"]:
+                assert r["max_abs_err"] == 0.0, r
 
 
 SKY_CASES = {
