@@ -11,7 +11,8 @@ per module:
   models/     host asset pipeline: glTF loader, image decoding, terrain,
               procedural atrium, atlas packing, scene batch
   utils/      PNG (no PIL), EXR, image dumps, native helpers, matrices,
-              per-pass timing (CUDA events)
+              per-pass timing (CUDA events), host spans per pass and
+              copy counters (trace.py)
   tools/      the headless render CLI, the interactive viewer; a
               synthetic asset tree
   ui/         the viewer: HTTP server + render loop, scene hierarchy

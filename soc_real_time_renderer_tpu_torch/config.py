@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .utils import mathutil as mu
+from .utils import trace
 
 MAX_POINT_LIGHTS = 128  # shared.inl:84
 MAX_SPOT_LIGHTS = 128   # shared.inl:85
@@ -46,16 +47,20 @@ def resolve_device(device=None) -> torch.device:
 
 def tree_to(obj, device):
     """Dataclass of arrays -> the same dataclass with every leaf a tensor
-    on `device` (numpy leaves keep their dtype; None stays None)."""
+    on `device` (numpy leaves keep their dtype; None stays None).  Each
+    leaf copied from the host to a device counts in trace.counters."""
     if obj is None:
         return None
+    device = torch.device(device)
     if dataclasses.is_dataclass(obj):
         return dataclasses.replace(obj, **{
             f.name: tree_to(getattr(obj, f.name), device)
             for f in dataclasses.fields(obj)})
-    if isinstance(obj, torch.Tensor):
-        return obj.to(device)
-    return torch.from_numpy(np.array(obj, order="C")).to(device)
+    if not isinstance(obj, torch.Tensor):
+        obj = torch.from_numpy(np.array(obj, order="C"))
+    if obj.device.type == "cpu" and device.type != "cpu":
+        trace.count_h2d(obj)
+    return obj.to(device)
 
 
 def tree_map(fn, *objs):

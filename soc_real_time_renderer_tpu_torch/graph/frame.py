@@ -59,6 +59,7 @@ from ..ops import ssr as ssr_ops
 from ..ops import taa as taa_ops
 from ..ops import tonemap as tonemap_ops
 from ..parallel import halo
+from ..utils import trace
 
 
 @dataclass(frozen=True)
@@ -199,41 +200,52 @@ def raster_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
     visibility buffer comes back cut into the shade's row bands
     (halo.band_starts), the shading records and the whole shadow map as
     {device: tensor} replicas."""
+    with trace.span("frame.raster"):
+        return _raster(plan, batch, g, model_mats, normal_mats, impl)
+
+
+def _raster(plan, batch, g, model_mats, normal_mats, impl):
     cfg = plan.config
     shard = _shard(plan)
-    if shard is not None:
-        devices = shard[0].band_devices(shard[1])
-        lead = devices[0]
-        batch = (batch[lead] if isinstance(batch, dict)
-                 else halo.move(batch, lead))
-        g = halo.move(g, lead)
-        model_mats, normal_mats = (m.to(lead)
-                                   for m in (model_mats, normal_mats))
-    world, wnrm = transform_triangles(batch, model_mats, normal_mats)
-    clip = _clip_of(world, g.camera.projection_view)
-    vis, setup = raster2.rasterize(clip, plan.main_grid, cull="front",
-                                   impl=impl, shard=shard)
-    if shard is not None:
-        # the resolve's bands are whole bin rows: cut again into the shade's
-        starts = halo.band_starts(cfg.height, len(devices))
-        vis = raster2.VisibilityBuffer(**{
-            f: [halo.rows_of(getattr(vis, f), a, b, d)
-                for a, b, d in zip(starts, starts[1:], devices)]
-            for f in ("depth", "tri_id")}, overflow=vis.overflow)
+    with trace.span("raster.transform"):
+        if shard is not None:
+            devices = shard[0].band_devices(shard[1])
+            lead = devices[0]
+            batch = (batch[lead] if isinstance(batch, dict)
+                     else halo.move(batch, lead))
+            g = halo.move(g, lead)
+            model_mats, normal_mats = (m.to(lead)
+                                       for m in (model_mats, normal_mats))
+        world, wnrm = transform_triangles(batch, model_mats, normal_mats)
+        clip = _clip_of(world, g.camera.projection_view)
+    with trace.span("raster.main"):
+        vis, setup = raster2.rasterize(clip, plan.main_grid, cull="front",
+                                       impl=impl, shard=shard)
+        if shard is not None:
+            # the resolve's bands are whole bin rows: cut again into the
+            # shade's
+            starts = halo.band_starts(cfg.height, len(devices))
+            vis = raster2.VisibilityBuffer(**{
+                f: [halo.rows_of(getattr(vis, f), a, b, d)
+                    for a, b, d in zip(starts, starts[1:], devices)]
+                for f in ("depth", "tri_id")}, overflow=vis.overflow)
     shadow_map = None
     overflow = vis.overflow
     if cfg.enable_shadows and not plan.shadow_statically_empty:
-        sclip = _clip_of(world, g.sun.projection_view)
-        svis, _ = raster2.rasterize(sclip, plan.shadow_grid, cull="back",
-                                    impl=impl, depth_only=True, shard=shard)
-        # split: the ESM tap reads anywhere in the map (or its crop)
-        shadow_map = (svis.depth if shard is None
-                      else halo.gather(svis.depth))
-        overflow = overflow | svis.overflow
-    records = gbuf_ops.build_shading_records(
-        setup, world, wnrm, batch.tri_uv, batch.static_rows)
-    if shard is not None:
-        records = halo.replicate(records, devices)
+        with trace.span("raster.shadow"):
+            sclip = _clip_of(world, g.sun.projection_view)
+            svis, _ = raster2.rasterize(sclip, plan.shadow_grid, cull="back",
+                                        impl=impl, depth_only=True,
+                                        shard=shard)
+            # split: the ESM tap reads anywhere in the map (or its crop)
+            shadow_map = (svis.depth if shard is None
+                          else halo.gather(svis.depth))
+            overflow = overflow | svis.overflow
+    with trace.span("raster.records"):
+        records = gbuf_ops.build_shading_records(
+            setup, world, wnrm, batch.tri_uv, batch.static_rows)
+        if shard is not None:
+            records = halo.replicate(records, devices)
     return vis, records, shadow_map, overflow
 
 
@@ -244,7 +256,7 @@ def _ssr_mix(hdr, ssr_img, metallic_roughness):
     return hdr + (ssr_img - hdr) * (metal * (1.0 - rough)).unsqueeze(-3)
 
 
-def _cloud_args(cfg: RenderConfig, noise, stacklevel: int = 3):
+def _cloud_args(cfg: RenderConfig, noise, stacklevel: int = 4):
     """(half width, half height, the QUADRANT quirk's full sizes) of the
     clouds pass, after warning where a texture-noise path falls back
     (stacklevel: shade_stage's caller)."""
@@ -271,9 +283,10 @@ def _cloud_args(cfg: RenderConfig, noise, stacklevel: int = 3):
 def _sky_lut(cfg: RenderConfig, g, noise, impl):
     """The sky LUT of the frame: K6 over the noise texture, or the
     procedural one."""
-    if cfg.cloud_noise_mode == "texture" and noise is not None:
-        return sky_ops.render_sky_lut_noise(g, noise, impl=impl)
-    return clouds_ops.render_sky_lut(g)
+    with trace.span("shade.sky_lut"):
+        if cfg.cloud_noise_mode == "texture" and noise is not None:
+            return sky_ops.render_sky_lut_noise(g, noise, impl=impl)
+        return clouds_ops.render_sky_lut(g)
 
 
 def shade_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
@@ -283,109 +296,129 @@ def shade_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
     """Screen-space half of the frame.  With the plan's row split it runs
     over row bands (parallel/mesh.make_sharded_shade_fn); its inputs may
     then be raster_stage's bands and replicas or whole tensors."""
-    if _shard(plan) is not None:
-        return _shade_sharded(plan, batch, g, history, vis, records,
-                              shadow_map, overflow, impl)
+    with trace.span("frame.shade"):
+        shade = _shade if _shard(plan) is None else _shade_sharded
+        return shade(plan, batch, g, history, vis, records, shadow_map,
+                     overflow, impl)
+
+
+def _shade(plan, batch, g, history, vis, records, shadow_map, overflow,
+           impl):
+    """shade_stage on one device."""
     cfg = plan.config
     dev = vis.depth.device
     V = vis.depth.shape[:-2]
 
     hiz_min = hiz_max = None
     if cfg.enable_hiz:
-        hiz_min = hiz_ops.build_hiz(vis.depth, "min")
-        hiz_max = hiz_ops.build_hiz(vis.depth, "max")
+        with trace.span("shade.hiz"):
+            hiz_min = hiz_ops.build_hiz(vis.depth, "min")
+            hiz_max = hiz_ops.build_hiz(vis.depth, "max")
 
-    gbuf = gbuf_ops.resolve_gbuffer(
-        vis, records, batch.atlas_packed, g.camera_prev.projection_view,
-        atlas_size=plan.atlas_size, layer_stride=plan.atlas_layer_stride,
-        n_levels=plan.atlas_n_levels, filter_mode=plan.texture_filter,
-        impl=impl)
+    with trace.span("shade.gbuffer"):
+        gbuf = gbuf_ops.resolve_gbuffer(
+            vis, records, batch.atlas_packed, g.camera_prev.projection_view,
+            atlas_size=plan.atlas_size, layer_stride=plan.atlas_layer_stride,
+            n_levels=plan.atlas_n_levels, filter_mode=plan.texture_filter,
+            impl=impl)
 
     emissive = gbuf.emissive
     bloom = None
     if cfg.enable_bloom:
-        emissive = bloom_ops.bloom(emissive, cfg.bloom_mip_count)
+        with trace.span("shade.bloom"):
+            emissive = bloom_ops.bloom(emissive, cfg.bloom_mip_count)
         bloom = emissive
 
     ssao = None
-    if cfg.enable_ssao:
-        ssao_half = ssao_ops.ssao_generate(vis.depth, gbuf.normal, g,
-                                           cfg.ssao_kernel_size, impl=impl)
-        ssao = ssao_ops.ssao_blur(ssao_half)
-        ssao_full = sampling.upsample_bilinear(ssao, cfg.height, cfg.width)
-    else:
-        ssao_full = torch.ones_like(vis.depth)
+    with trace.span("shade.ssao"):
+        if cfg.enable_ssao:
+            ssao_half = ssao_ops.ssao_generate(vis.depth, gbuf.normal, g,
+                                               cfg.ssao_kernel_size,
+                                               impl=impl)
+            ssao = ssao_ops.ssao_blur(ssao_half)
+            ssao_full = sampling.upsample_bilinear(ssao, cfg.height,
+                                                   cfg.width)
+        else:
+            ssao_full = torch.ones_like(vis.depth)
 
     # SSR: computed, composited only behind composite_ssr (below)
     ssr_img = None
-    ssr_active = torch.full(V, -1, dtype=torch.int32, device=dev)
-    if cfg.enable_ssr:
-        ssr_img, ssr_overflow, ssr_active = ssr_ops.ssr(
-            vis.depth, gbuf.albedo, gbuf.normal, gbuf.metallic_roughness, g,
-            compact_cap=plan.ssr_cap)
-        overflow = overflow | ssr_overflow
+    with trace.span("shade.ssr"):
+        ssr_active = torch.full(V, -1, dtype=torch.int32, device=dev)
+        if cfg.enable_ssr:
+            ssr_img, ssr_overflow, ssr_active = ssr_ops.ssr(
+                vis.depth, gbuf.albedo, gbuf.normal, gbuf.metallic_roughness,
+                g, compact_cap=plan.ssr_cap)
+            overflow = overflow | ssr_overflow
 
     clouds_full = None
     clouds_half = None
     if cfg.enable_clouds:
         noise = batch.cloud_noise
         hw, hh, quadrant = _cloud_args(cfg, noise)
-        if cfg.cloud_impl == "perpixel" and noise is not None:
-            # the exact per-pixel march: no LUT is made
-            clouds_half = clouds_ops.render_clouds(g, vis.depth, noise, hw,
-                                                   hh, **quadrant)
-        else:
-            lut = _sky_lut(cfg, g, noise, impl)
-            clouds_half = clouds_ops.sky_from_lut(g, lut, vis.depth, hw, hh,
-                                                  **quadrant)
-        clouds_full = sampling.upsample_bilinear(clouds_half, cfg.height,
-                                                 cfg.width)
+        # the exact per-pixel march makes no LUT
+        march = cfg.cloud_impl == "perpixel" and noise is not None
+        lut = None if march else _sky_lut(cfg, g, noise, impl)
+        with trace.span("shade.clouds"):
+            if march:
+                clouds_half = clouds_ops.render_clouds(g, vis.depth, noise,
+                                                       hw, hh, **quadrant)
+            else:
+                clouds_half = clouds_ops.sky_from_lut(g, lut, vis.depth, hw,
+                                                      hh, **quadrant)
+            clouds_full = sampling.upsample_bilinear(clouds_half, cfg.height,
+                                                     cfg.width)
 
-    hdr = comp_ops.compose(
-        g, vis.depth, gbuf.albedo, emissive, gbuf.normal, ssao_full,
-        shadow_map, clouds_full,
-        enable_volumetric=cfg.enable_volumetric_light,
-        enable_shadow=cfg.enable_shadows,
-        max_point_lights=cfg.max_point_lights,
-        max_spot_lights=cfg.max_spot_lights,
-        empty_shadow_map=cfg.enable_shadows and plan.shadow_statically_empty,
-        shadow_crop=plan.shadow_crop)
-    if cfg.composite_ssr and ssr_img is not None:
-        hdr = _ssr_mix(hdr, ssr_img, gbuf.metallic_roughness)
+    with trace.span("shade.compose"):
+        hdr = comp_ops.compose(
+            g, vis.depth, gbuf.albedo, emissive, gbuf.normal, ssao_full,
+            shadow_map, clouds_full,
+            enable_volumetric=cfg.enable_volumetric_light,
+            enable_shadow=cfg.enable_shadows,
+            max_point_lights=cfg.max_point_lights,
+            max_spot_lights=cfg.max_spot_lights,
+            empty_shadow_map=(cfg.enable_shadows
+                              and plan.shadow_statically_empty),
+            shadow_crop=plan.shadow_crop)
+        if cfg.composite_ssr and ssr_img is not None:
+            hdr = _ssr_mix(hdr, ssr_img, gbuf.metallic_roughness)
 
     # depth of field blurs the composed colour before the luminance
     # histogram and TAA, so it feeds the history once and does not
     # compound (renderer.cpp:1119-1153)
     if cfg.enable_depth_of_field:
-        hdr = dof_ops.depth_of_field(hdr, vis.depth, g)
+        with trace.span("shade.dof"):
+            hdr = dof_ops.depth_of_field(hdr, vis.depth, g)
 
+    exposure = history.exposure
     if cfg.enable_auto_exposure:
-        exposure = exposure_ops.auto_exposure(hdr, history.exposure, g)
-    else:
-        exposure = history.exposure
+        with trace.span("shade.exposure"):
+            exposure = exposure_ops.auto_exposure(hdr, history.exposure, g)
 
     velocity = gbuf.velocity
+    resolved = hdr
     if cfg.enable_taa:
-        resolved = taa_ops.taa(hdr, vis.depth, velocity,
-                               history.previous_color,
-                               history.previous_velocity, g.frame_counter,
-                               impl=impl)
-    else:
-        resolved = hdr
+        with trace.span("shade.taa"):
+            resolved = taa_ops.taa(hdr, vis.depth, velocity,
+                                   history.previous_color,
+                                   history.previous_velocity,
+                                   g.frame_counter, impl=impl)
 
-    color = tonemap_ops.tone_map(resolved, exposure, g)
+    with trace.span("shade.tonemap"):
+        color = tonemap_ops.tone_map(resolved, exposure, g)
 
-    new_history = RenderHistory(
-        previous_color=resolved.to(torch.bfloat16),
-        previous_velocity=velocity.to(torch.bfloat16),
-        exposure=exposure,
-    )
-    outputs = FrameOutputs(
-        color=color, hdr=hdr, gbuffer=gbuf, shadow_map=shadow_map, ssao=ssao,
-        clouds=clouds_half, bloom=bloom, ssr=ssr_img, hiz_min=hiz_min,
-        hiz_max=hiz_max, overflow=overflow,
-        tex_dirty=torch.full(V, -1, dtype=torch.int32, device=dev),
-        ssr_active=ssr_active)
+    with trace.span("shade.history"):
+        new_history = RenderHistory(
+            previous_color=resolved.to(torch.bfloat16),
+            previous_velocity=velocity.to(torch.bfloat16),
+            exposure=exposure,
+        )
+        outputs = FrameOutputs(
+            color=color, hdr=hdr, gbuffer=gbuf, shadow_map=shadow_map,
+            ssao=ssao, clouds=clouds_half, bloom=bloom, ssr=ssr_img,
+            hiz_min=hiz_min, hiz_max=hiz_max, overflow=overflow,
+            tex_dirty=torch.full(V, -1, dtype=torch.int32, device=dev),
+            ssr_active=ssr_active)
     return outputs, new_history
 
 
@@ -421,129 +454,145 @@ def _shade_sharded(plan, batch, g, history, vis, records, shadow_map,
     def whole(x):
         return halo.assemble(x, lead)
 
-    depth, tri_id = bands(vis.depth), bands(vis.tri_id)
-    V = depth[0].shape[:-2]
-    gs = halo.replicate(g, devices)
-    batches = halo.replicate(batch, devices)
-    recs = halo.replicate(records, devices)
-    smaps = None if shadow_map is None else halo.replicate(shadow_map,
-                                                           devices)
-    overflow = overflow.to(lead)
-    # K2's taps, the clouds' QUADRANT taps and HiZ read the whole screen
-    depth_full = halo.gather(depth)
+    with trace.span("shade.bands"):
+        depth, tri_id = bands(vis.depth), bands(vis.tri_id)
+        V = depth[0].shape[:-2]
+        gs = halo.replicate(g, devices)
+        batches = halo.replicate(batch, devices)
+        recs = halo.replicate(records, devices)
+        smaps = None if shadow_map is None else halo.replicate(shadow_map,
+                                                               devices)
+        overflow = overflow.to(lead)
+        # K2's taps, the clouds' QUADRANT taps and HiZ read the whole
+        # screen
+        depth_full = halo.gather(depth)
 
     hiz_min = hiz_max = None
     if cfg.enable_hiz:
-        hiz_min = hiz_ops.build_hiz(depth_full[lead], "min")
-        hiz_max = hiz_ops.build_hiz(depth_full[lead], "max")
+        with trace.span("shade.hiz"):
+            hiz_min = hiz_ops.build_hiz(depth_full[lead], "min")
+            hiz_max = hiz_ops.build_hiz(depth_full[lead], "max")
 
-    gbuf = _gbuffer_bands([gbuf_ops.resolve_gbuffer(
-        raster2.VisibilityBuffer(depth=depth[i], tri_id=tri_id[i],
-                                 overflow=overflow),
-        recs[d], batches[d].atlas_packed,
-        gs[d].camera_prev.projection_view, atlas_size=plan.atlas_size,
-        layer_stride=plan.atlas_layer_stride, n_levels=plan.atlas_n_levels,
-        filter_mode=plan.texture_filter, impl=impl, row0=a, full_h=H)
-        for i, ((a, _), d) in enumerate(zip(band_rows, devices))])
+    with trace.span("shade.gbuffer"):
+        gbuf = _gbuffer_bands([gbuf_ops.resolve_gbuffer(
+            raster2.VisibilityBuffer(depth=depth[i], tri_id=tri_id[i],
+                                     overflow=overflow),
+            recs[d], batches[d].atlas_packed,
+            gs[d].camera_prev.projection_view, atlas_size=plan.atlas_size,
+            layer_stride=plan.atlas_layer_stride,
+            n_levels=plan.atlas_n_levels, filter_mode=plan.texture_filter,
+            impl=impl, row0=a, full_h=H)
+            for i, ((a, _), d) in enumerate(zip(band_rows, devices))])
 
     emissive = gbuf.emissive
     bloom = None
     if cfg.enable_bloom:
-        # the mip chain's reach grows with each level: the whole screen
-        bloom = bloom_ops.bloom(whole(emissive), cfg.bloom_mip_count)
-        emissive = bands(bloom)
+        with trace.span("shade.bloom"):
+            # the mip chain's reach grows with each level: the whole screen
+            bloom = bloom_ops.bloom(whole(emissive), cfg.bloom_mip_count)
+            emissive = bands(bloom)
 
-    if cfg.enable_ssao:
-        ssao_full = ssao_ops.ssao_row_bands(
-            mesh, axis, depth, gbuf.normal, depth_full, gs,
-            cfg.ssao_kernel_size, impl=impl)
-    else:
-        ssao_full = [torch.ones_like(d) for d in depth]
+    with trace.span("shade.ssao"):
+        if cfg.enable_ssao:
+            ssao_full = ssao_ops.ssao_row_bands(
+                mesh, axis, depth, gbuf.normal, depth_full, gs,
+                cfg.ssao_kernel_size, impl=impl)
+        else:
+            ssao_full = [torch.ones_like(d) for d in depth]
 
     ssr_img = None
-    ssr_active = torch.full(V, -1, dtype=torch.int32, device=lead)
-    if cfg.enable_ssr:
-        ssr_img, ssr_overflow, ssr_active = ssr_ops.ssr(
-            depth_full[lead], whole(gbuf.albedo), whole(gbuf.normal),
-            whole(gbuf.metallic_roughness), gs[lead],
-            compact_cap=plan.ssr_cap)
-        overflow = overflow | ssr_overflow
+    with trace.span("shade.ssr"):
+        ssr_active = torch.full(V, -1, dtype=torch.int32, device=lead)
+        if cfg.enable_ssr:
+            ssr_img, ssr_overflow, ssr_active = ssr_ops.ssr(
+                depth_full[lead], whole(gbuf.albedo), whole(gbuf.normal),
+                whole(gbuf.metallic_roughness), gs[lead],
+                compact_cap=plan.ssr_cap)
+            overflow = overflow | ssr_overflow
 
     clouds_full = [None] * len(devices)
     if cfg.enable_clouds:
         noise = batches[lead].cloud_noise
-        hw, hh, quadrant = _cloud_args(cfg, noise, stacklevel=4)
-        if cfg.cloud_impl == "perpixel" and noise is not None:
-            # the per-pixel march on the whole screen, then cut
-            half = clouds_ops.render_clouds(gs[lead], depth_full[lead], noise,
-                                            hw, hh, **quadrant)
-            clouds_full = bands(sampling.upsample_bilinear(half, H, W))
-        else:
-            # the LUT once per distinct device; each band looks up its
-            # half-res rows and one more either side for the upsample
-            luts = {d: _sky_lut(cfg, gs[d], batches[d].cloud_noise, impl)
-                    for d in halo.distinct(devices)}
-            clouds_full = []
-            for (a, b), d in zip(band_rows, devices):
-                lo, hi = max(a // 2 - 1, 0), min(b // 2 + 1, hh)
-                half = clouds_ops.sky_from_lut(
-                    gs[d], luts[d], depth_full[d], hw, hh, rows=(lo, hi),
-                    **quadrant)
-                clouds_full.append(sampling.upsample_bilinear(
-                    half, H, W, rows=(a, b), src_row0=lo, src_h=hh))
+        hw, hh, quadrant = _cloud_args(cfg, noise)
+        march = cfg.cloud_impl == "perpixel" and noise is not None
+        # the LUT once per distinct device
+        luts = None if march else {
+            d: _sky_lut(cfg, gs[d], batches[d].cloud_noise, impl)
+            for d in halo.distinct(devices)}
+        with trace.span("shade.clouds"):
+            if march:
+                # the per-pixel march on the whole screen, then cut
+                half = clouds_ops.render_clouds(gs[lead], depth_full[lead],
+                                                noise, hw, hh, **quadrant)
+                clouds_full = bands(sampling.upsample_bilinear(half, H, W))
+            else:
+                # each band looks up its half-res rows and one more either
+                # side for the upsample
+                clouds_full = []
+                for (a, b), d in zip(band_rows, devices):
+                    lo, hi = max(a // 2 - 1, 0), min(b // 2 + 1, hh)
+                    half = clouds_ops.sky_from_lut(
+                        gs[d], luts[d], depth_full[d], hw, hh, rows=(lo, hi),
+                        **quadrant)
+                    clouds_full.append(sampling.upsample_bilinear(
+                        half, H, W, rows=(a, b), src_row0=lo, src_h=hh))
 
-    hdr = [comp_ops.compose(
-        gs[d], depth[i], gbuf.albedo[i], emissive[i], gbuf.normal[i],
-        ssao_full[i], None if smaps is None else smaps[d], clouds_full[i],
-        enable_volumetric=cfg.enable_volumetric_light,
-        enable_shadow=cfg.enable_shadows,
-        max_point_lights=cfg.max_point_lights,
-        max_spot_lights=cfg.max_spot_lights,
-        empty_shadow_map=cfg.enable_shadows and plan.shadow_statically_empty,
-        shadow_crop=plan.shadow_crop, row0=a, full_h=H)
-        for i, ((a, _), d) in enumerate(zip(band_rows, devices))]
-    if cfg.composite_ssr and ssr_img is not None:
-        hdr = [_ssr_mix(*a) for a in zip(hdr, bands(ssr_img),
-                                         gbuf.metallic_roughness)]
+    with trace.span("shade.compose"):
+        hdr = [comp_ops.compose(
+            gs[d], depth[i], gbuf.albedo[i], emissive[i], gbuf.normal[i],
+            ssao_full[i], None if smaps is None else smaps[d],
+            clouds_full[i], enable_volumetric=cfg.enable_volumetric_light,
+            enable_shadow=cfg.enable_shadows,
+            max_point_lights=cfg.max_point_lights,
+            max_spot_lights=cfg.max_spot_lights,
+            empty_shadow_map=(cfg.enable_shadows
+                              and plan.shadow_statically_empty),
+            shadow_crop=plan.shadow_crop, row0=a, full_h=H)
+            for i, ((a, _), d) in enumerate(zip(band_rows, devices))]
+        if cfg.composite_ssr and ssr_img is not None:
+            hdr = [_ssr_mix(*a) for a in zip(hdr, bands(ssr_img),
+                                             gbuf.metallic_roughness)]
 
     if cfg.enable_depth_of_field:
-        hdr = bands(dof_ops.depth_of_field(whole(hdr), depth_full[lead],
-                                           gs[lead]))
+        with trace.span("shade.dof"):
+            hdr = bands(dof_ops.depth_of_field(whole(hdr), depth_full[lead],
+                                               gs[lead]))
 
-    prev_exposure = history.exposure.to(lead)
-    if cfg.enable_auto_exposure:
-        # a sum of the bands' integer histograms: exact
-        hist = sum(exposure_ops.luminance_histogram(
-            x, gs[d].log_min_luminance, gs[d].log_max_luminance).to(lead)
-            for x, d in zip(hdr, devices))
-        exposure = exposure_ops.resolve_exposure(hist, prev_exposure,
-                                                 gs[lead], H * W)
-    else:
-        exposure = prev_exposure
-    exposures = halo.replicate(exposure, devices)
+    with trace.span("shade.exposure"):
+        exposure = history.exposure.to(lead)
+        if cfg.enable_auto_exposure:
+            # a sum of the bands' integer histograms: exact
+            hist = sum(exposure_ops.luminance_histogram(
+                x, gs[d].log_min_luminance, gs[d].log_max_luminance).to(lead)
+                for x, d in zip(hdr, devices))
+            exposure = exposure_ops.resolve_exposure(hist, exposure,
+                                                     gs[lead], H * W)
+        exposures = halo.replicate(exposure, devices)
 
     velocity = gbuf.velocity
+    resolved = hdr
     if cfg.enable_taa:
-        resolved = taa_ops.taa(
-            hdr, depth, velocity, bands(history.previous_color),
-            bands(history.previous_velocity),
-            {d: gs[d].frame_counter for d in gs}, impl=impl, shard=shard)
-    else:
-        resolved = hdr
+        with trace.span("shade.taa"):
+            resolved = taa_ops.taa(
+                hdr, depth, velocity, bands(history.previous_color),
+                bands(history.previous_velocity),
+                {d: gs[d].frame_counter for d in gs}, impl=impl, shard=shard)
 
-    color = [tonemap_ops.tone_map(r, exposures[d], gs[d])
-             for r, d in zip(resolved, devices)]
-    new_history = RenderHistory(
-        previous_color=[r.to(torch.bfloat16) for r in resolved],
-        previous_velocity=[v.to(torch.bfloat16) for v in velocity],
-        exposure=exposure)
-    outputs = FrameOutputs(
-        color=color, hdr=hdr, gbuffer=gbuf,
-        shadow_map=None if smaps is None else smaps[lead], ssao=None,
-        clouds=None, bloom=bloom, ssr=ssr_img, hiz_min=hiz_min,
-        hiz_max=hiz_max, overflow=overflow,
-        tex_dirty=torch.full(V, -1, dtype=torch.int32, device=lead),
-        ssr_active=ssr_active)
+    with trace.span("shade.tonemap"):
+        color = [tonemap_ops.tone_map(r, exposures[d], gs[d])
+                 for r, d in zip(resolved, devices)]
+    with trace.span("shade.history"):
+        new_history = RenderHistory(
+            previous_color=[r.to(torch.bfloat16) for r in resolved],
+            previous_velocity=[v.to(torch.bfloat16) for v in velocity],
+            exposure=exposure)
+        outputs = FrameOutputs(
+            color=color, hdr=hdr, gbuffer=gbuf,
+            shadow_map=None if smaps is None else smaps[lead], ssao=None,
+            clouds=None, bloom=bloom, ssr=ssr_img, hiz_min=hiz_min,
+            hiz_max=hiz_max, overflow=overflow,
+            tex_dirty=torch.full(V, -1, dtype=torch.int32, device=lead),
+            ssr_active=ssr_active)
     return outputs, new_history
 
 
@@ -556,12 +605,14 @@ def render_frame(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
     versions (comparisons only); "cuda" demands the kernels.  Globals
     and history with a leading view axis render that batch of views
     (see the module docstring; parallel/mesh.make_batched_render_fn)."""
-    check_sun_proof(plan, g)
-    check_shadow_crop(plan, model_mats)
-    vis, records, shadow_map, overflow = raster_stage(
-        plan, batch, g, model_mats, normal_mats, impl=impl)
-    return shade_stage(plan, batch, g, history, vis, records, shadow_map,
-                       overflow, impl=impl)
+    with trace.span("frame.render"):
+        with trace.span("frame.proofs"):
+            check_sun_proof(plan, g)
+            check_shadow_crop(plan, model_mats)
+        vis, records, shadow_map, overflow = raster_stage(
+            plan, batch, g, model_mats, normal_mats, impl=impl)
+        return shade_stage(plan, batch, g, history, vis, records,
+                           shadow_map, overflow, impl=impl)
 
 
 def make_render_fn(plan: FramePlan, impl: str | None = None):
@@ -583,7 +634,7 @@ def check_sun_proof(plan: FramePlan, g: ShaderGlobals):
         return
     proved = np.asarray(plan.proved_sun_pv, np.float32).reshape(4, 4)
     # (4, 4) or (B, 4, 4): np.allclose broadcasts the proof to each view
-    pv = g.sun.projection_view.detach().cpu().numpy()
+    pv = trace.read_back(g.sun.projection_view, "check_sun_proof")
     if not np.allclose(pv, proved, atol=1e-6):
         raise ValueError(
             "FramePlan.shadow_statically_empty was proved for a different "
@@ -598,7 +649,8 @@ def check_shadow_crop(plan: FramePlan, model_mats):
     if plan.shadow_crop is None or plan.proved_crop_mats is None:
         return
     proved = np.asarray(plan.proved_crop_mats, np.float32)
-    mm = np.asarray(model_mats.detach().cpu().numpy(), np.float32).ravel()
+    mm = np.asarray(trace.read_back(model_mats, "check_shadow_crop"),
+                    np.float32).ravel()
     if mm.shape != proved.shape or not np.allclose(mm, proved, atol=1e-6):
         raise ValueError(
             "FramePlan.shadow_crop was proved for different model "

@@ -32,7 +32,8 @@ import numpy as np
 import torch
 
 from .camera import Camera3D, ControlledCamera3D, camera_matrices
-from .config import RenderConfig, ShaderGlobals, SunInfo, resolve_device
+from .config import (RenderConfig, ShaderGlobals, SunInfo, resolve_device,
+                     tree_to)
 from .graph import frame as frame_mod
 from .models import gltf, proc
 from .models.scene_batch import SceneBatch, build_scene_batch
@@ -41,6 +42,7 @@ from .ops import raster2
 from .scene.components import MeshComponent, TransformComponent
 from .scene.scene import Scene
 from .utils import mathutil as mu
+from .utils import trace
 
 # the asset tree (SOC_ASSETS, default: assets/ of the checkout)
 ASSETS = os.environ.get("SOC_ASSETS", os.path.join(
@@ -68,17 +70,18 @@ class BuiltScene:
         """Fly-camera input (ControlledCamera3D) from the viewer.  The
         first call starts the fly camera at camera_position, looking at
         camera_target, and stops the preset's animation."""
-        if not hasattr(self, "_fly"):
-            self._fly = ControlledCamera3D(camera=self.camera)
-            self._fly.position = np.asarray(self.camera_position,
-                                            np.float32).copy()
-            rel = self.camera_target - self.camera_position
-            self._fly.rotation = np.array(
-                [np.arctan2(rel[2], rel[0]),
-                 -np.arcsin(rel[1] / max(np.linalg.norm(rel), 1e-6)), 0.0],
-                np.float32)
-            self.animate = False
-        self._fly.update(inp, dt)
+        with trace.span("scene.apply_input"):
+            if not hasattr(self, "_fly"):
+                self._fly = ControlledCamera3D(camera=self.camera)
+                self._fly.position = np.asarray(self.camera_position,
+                                                np.float32).copy()
+                rel = self.camera_target - self.camera_position
+                self._fly.rotation = np.array(
+                    [np.arctan2(rel[2], rel[0]),
+                     -np.arcsin(rel[1] / max(np.linalg.norm(rel), 1e-6)),
+                     0.0], np.float32)
+                self.animate = False
+            self._fly.update(inp, dt)
 
     def set_sun(self, position=None, angle_direction_deg=None) -> None:
         """Live sun edit (the reference's sun-position control,
@@ -185,36 +188,48 @@ class BuiltScene:
         scene's lights and transforms -> (g, model_mats, normal_mats) on
         the scene's device.  peek=True reads without advancing the
         prev-camera roll (the viewer's /schema must not zero a frame's
-        TAA reprojection velocity)."""
-        if hasattr(self, "_fly"):
-            pos = self._fly.position      # update() wrote camera.view_mat
-        else:
-            pos = self.camera_position
-            if self.animate:
-                ang = 0.25 * frame_index * dt
-                c, s = np.cos(ang), np.sin(ang)
-                rel = self.camera_position - self.camera_target
-                pos = self.camera_target + np.array(
-                    [c * rel[0] - s * rel[2], rel[1],
-                     s * rel[0] + c * rel[2]], np.float32)
-            self.camera.view_mat = mu.look_at(
-                pos, self.camera_target, np.array([0., 1., 0.], np.float32))
-        cam = camera_matrices(self.camera, pos, frame_index,
-                              self.plan.config.width,
-                              self.plan.config.height, device=self.device)
-        cam_prev = getattr(self, "_prev_cam", cam)
+        TAA reprojection velocity).  Every host-to-device copy of the
+        frame is made in one place, after the host work (the span
+        ``globals.upload``)."""
+        with trace.span("scene.frame_globals"):
+            return self._frame_globals(frame_index, dt, peek)
+
+    def _frame_globals(self, frame_index, dt, peek):
+        with trace.span("globals.camera"):
+            if hasattr(self, "_fly"):
+                pos = self._fly.position  # update() wrote camera.view_mat
+            else:
+                pos = self.camera_position
+                if self.animate:
+                    ang = 0.25 * frame_index * dt
+                    c, s = np.cos(ang), np.sin(ang)
+                    rel = self.camera_position - self.camera_target
+                    pos = self.camera_target + np.array(
+                        [c * rel[0] - s * rel[2], rel[1],
+                         s * rel[0] + c * rel[2]], np.float32)
+                self.camera.view_mat = mu.look_at(
+                    pos, self.camera_target,
+                    np.array([0., 1., 0.], np.float32))
+            cam = camera_matrices(self.camera, pos, frame_index,
+                                  self.plan.config.width,
+                                  self.plan.config.height)
+        with trace.span("globals.lights"):
+            lights = self.scene.update(dt)
+            mm, nm = self.scene.transform_matrices()
+        with trace.span("globals.upload"):
+            cam = tree_to(cam, self.device)
+            g = ShaderGlobals.create(
+                camera=cam, camera_prev=getattr(self, "_prev_cam", cam),
+                lights=lights, sun=self.sun,
+                near_clip=self.camera.near_clip,
+                far_clip=self.camera.far_clip,
+                elapsed_time=np.float32(frame_index * dt),
+                delta_time=np.float32(dt),
+                frame_counter=np.int32(frame_index), device=self.device)
+            mats = tuple(tree_to(m, self.device) for m in (mm, nm))
         if not peek:
             self._prev_cam = cam
-        lights = self.scene.update(dt)
-        g = ShaderGlobals.create(
-            camera=cam, camera_prev=cam_prev, lights=lights, sun=self.sun,
-            near_clip=self.camera.near_clip, far_clip=self.camera.far_clip,
-            elapsed_time=np.float32(frame_index * dt),
-            delta_time=np.float32(dt),
-            frame_counter=np.int32(frame_index), device=self.device)
-        mm, nm = self.scene.transform_matrices()
-        return (g, torch.from_numpy(mm).to(self.device),
-                torch.from_numpy(nm).to(self.device))
+        return (g, *mats)
 
 
 def _prove_shadow(pos, ent, model_mats, sun_pv,
@@ -314,29 +329,35 @@ def _finish(scene: Scene, models, config: RenderConfig, camera_pos,
     lights = scene.update(0.0)
     config = config.replace(max_point_lights=int(lights.point_count),
                             max_spot_lights=int(lights.spot_count))
-    batch, atlas = build_scene_batch(models, atlas_size=atlas_size,
-                                     device=device)
+    with trace.span("scenes.pack"):
+        batch, atlas = build_scene_batch(models, atlas_size=atlas_size,
+                                         device=device)
     # the reference's tiled cloud-noise texture (cloud_rendering.inl:
     # 219-233), K6's input; without it the procedural sky LUT runs
     noise_path = os.path.join(ASSETS, "Clouds/noise.png")
     if config.enable_clouds and os.path.exists(noise_path):
-        with open(noise_path, "rb") as f:
-            img = decode_image(f.read())
-        batch = dataclasses.replace(batch, cloud_noise=torch.from_numpy(
-            img[..., 0].astype(np.float32) / 255.0).to(device))
-    plan = frame_mod.FramePlan.create(config, atlas)
-    T = batch.num_triangles
-    plan = dataclasses.replace(plan, main_grid=_cap_grid(plan.main_grid, T),
-                               shadow_grid=_cap_grid(plan.shadow_grid, T))
-    mm, nm = scene.transform_matrices()
-    plan = _with_proof(plan, batch.tri_pos.cpu().numpy(),
-                       batch.tri_entity.cpu().numpy(), mm, sun)
-    if config.enable_ssr:
-        # the SSR march runs on (cap,)-shaped arrays: 5% of the screen,
-        # rounded up to 1,024 (the JAX package's sizing); past it,
-        # OVERFLOW_SSR_CAP is set and the rays over the cap go black
-        scap = -(-int(0.05 * config.width * config.height) // 1024) * 1024
-        plan = dataclasses.replace(plan, ssr_cap=scap)
+        with trace.span("scenes.noise"):
+            with open(noise_path, "rb") as f:
+                img = decode_image(f.read())
+            batch = dataclasses.replace(batch, cloud_noise=torch.from_numpy(
+                img[..., 0].astype(np.float32) / 255.0).to(device))
+    with trace.span("scenes.prove"):
+        plan = frame_mod.FramePlan.create(config, atlas)
+        T = batch.num_triangles
+        plan = dataclasses.replace(
+            plan, main_grid=_cap_grid(plan.main_grid, T),
+            shadow_grid=_cap_grid(plan.shadow_grid, T))
+        mm, nm = scene.transform_matrices()
+        plan = _with_proof(plan, batch.tri_pos.cpu().numpy(),
+                           batch.tri_entity.cpu().numpy(), mm, sun)
+        if config.enable_ssr:
+            # the SSR march runs on (cap,)-shaped arrays: 5% of the
+            # screen, rounded up to 1,024 (the JAX package's sizing); past
+            # it, OVERFLOW_SSR_CAP is set and the rays over the cap go
+            # black
+            scap = -(-int(0.05 * config.width * config.height)
+                     // 1024) * 1024
+            plan = dataclasses.replace(plan, ssr_cap=scap)
     cam = Camera3D()
     cam.resize(config.width, config.height)
     bs = BuiltScene(scene=scene, batch=batch, plan=plan, camera=cam,
@@ -379,8 +400,9 @@ def build_helmet(config: RenderConfig, device=None, **kw) -> BuiltScene:
     """BASELINE config 1/2: DamagedHelmet (application.cpp:22-28)."""
     device = resolve_device(device)
     scene = Scene("helmet")
-    model = _entity(scene, "damaged helmet model",
-                    gltf.load_model(helmet_path()))
+    with trace.span("scenes.models"):
+        model = _entity(scene, "damaged helmet model",
+                        gltf.load_model(helmet_path()))
     return _finish(scene, [model], config, camera_pos=[0.0, 0.0, 2.5],
                    camera_target=[0, 0, 0], device=device, **kw)
 
@@ -392,8 +414,10 @@ def build_helmet_lifted(config: RenderConfig, device=None,
     shadow raster is not elidable and its cost is paid."""
     device = resolve_device(device)
     scene = Scene("helmet_lifted")
-    model = _entity(scene, "damaged helmet model",
-                    gltf.load_model(helmet_path()), position=[0.0, 32.0, 0.0])
+    with trace.span("scenes.models"):
+        model = _entity(scene, "damaged helmet model",
+                        gltf.load_model(helmet_path()),
+                        position=[0.0, 32.0, 0.0])
     built = _finish(scene, [model], config, camera_pos=[0.0, 32.0, 2.5],
                     camera_target=[0, 32, 0], device=device, **kw)
     if built.plan.shadow_statically_empty:
@@ -407,10 +431,12 @@ def build_sponza(config: RenderConfig, device=None, **kw) -> BuiltScene:
     14-28's two-entity layout)."""
     device = resolve_device(device)
     scene = Scene("sponza")
-    atrium = _entity(scene, "sponza model", proc.build_atrium(
-        texture_dir=os.path.join(ASSETS, "Sponza/glTF")), scale=[0.01] * 3)
-    helmet = _entity(scene, "damaged helmet model",
-                     gltf.load_model(helmet_path()))
+    with trace.span("scenes.models"):
+        atrium = _entity(scene, "sponza model", proc.build_atrium(
+            texture_dir=os.path.join(ASSETS, "Sponza/glTF")),
+            scale=[0.01] * 3)
+        helmet = _entity(scene, "damaged helmet model",
+                         gltf.load_model(helmet_path()))
     return _finish(scene, [atrium, helmet], config,
                    camera_pos=[-7.0, 1.8, 0.0], camera_target=[0, 1.5, 0],
                    device=device, **kw)
@@ -442,7 +468,8 @@ def build_terrain(config: RenderConfig, device=None, **kw) -> BuiltScene:
     """BASELINE config 4: terrain + (elided) shadow + atmosphere sky."""
     device = resolve_device(device)
     scene = Scene("terrain")
-    model = _entity(scene, "terrain", _terrain_model())
+    with trace.span("scenes.models"):
+        model = _entity(scene, "terrain", _terrain_model())
     return _finish(scene, [model], config, camera_pos=[20.0, 12.0, 20.0],
                    camera_target=[50, 0, 50], device=device, **kw)
 
@@ -452,12 +479,14 @@ def build_full(config: RenderConfig, device=None, **kw) -> BuiltScene:
     camera."""
     device = resolve_device(device)
     scene = Scene("full")
-    atrium = _entity(scene, "sponza model", proc.build_atrium(
-        texture_dir=os.path.join(ASSETS, "Sponza/glTF")), scale=[0.01] * 3)
-    helmet = _entity(scene, "damaged helmet model",
-                     gltf.load_model(helmet_path()))
-    terrain = _entity(scene, "terrain", _terrain_model(),
-                      position=[0.0, -8.0, 0.0])
+    with trace.span("scenes.models"):
+        atrium = _entity(scene, "sponza model", proc.build_atrium(
+            texture_dir=os.path.join(ASSETS, "Sponza/glTF")),
+            scale=[0.01] * 3)
+        helmet = _entity(scene, "damaged helmet model",
+                         gltf.load_model(helmet_path()))
+        terrain = _entity(scene, "terrain", _terrain_model(),
+                          position=[0.0, -8.0, 0.0])
     return _finish(scene, [atrium, helmet, terrain], config,
                    camera_pos=[-7.0, 1.8, 0.0], camera_target=[0, 1.5, 0],
                    animate=True, device=device, **kw)
@@ -473,4 +502,5 @@ def build(name: str, config: RenderConfig, device=None, **kw) -> BuiltScene:
     (atlas_size, sun)."""
     if name not in PRESETS:
         raise ValueError(name)
-    return PRESETS[name](config, device=device, **kw)
+    with trace.span("scenes.build"):
+        return PRESETS[name](config, device=device, **kw)

@@ -1,0 +1,228 @@
+"""``utils/trace``: the port's spans per pass and its copy counters.
+
+A span keeps host totals always and makes a profiler event only while a
+profiler records; a CPU frame of a small preset runs every span of the
+passes it runs; ``config.tree_to`` counts only the host leaves that
+cross to a device, and a frame's globals cross in one span.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from soc_real_time_renderer_tpu_torch import config as pconfig
+from soc_real_time_renderer_tpu_torch import scenes as pscenes
+from soc_real_time_renderer_tpu_torch.camera import InputState
+from soc_real_time_renderer_tpu_torch.config import RenderConfig
+from soc_real_time_renderer_tpu_torch.graph import frame as fm
+from soc_real_time_renderer_tpu_torch.kernels import build as kb
+from soc_real_time_renderer_tpu_torch.parallel import mesh as pmesh
+from soc_real_time_renderer_tpu_torch.utils import trace
+
+import torch_scene_kit as kit
+
+HOST = {"scene.apply_input", "scene.frame_globals", "globals.camera",
+        "globals.lights", "globals.upload"}
+FRAME = {"frame.render", "frame.proofs", "frame.raster", "raster.transform",
+         "raster.main", "raster.records", "frame.shade", "shade.hiz",
+         "shade.gbuffer", "shade.bloom", "shade.ssao", "shade.ssr",
+         "shade.sky_lut", "shade.clouds", "shade.compose", "shade.exposure",
+         "shade.taa", "shade.tonemap", "shade.history"}
+BUILD = {"scenes.build", "scenes.models", "scenes.pack", "scenes.noise",
+         "scenes.prove"}
+
+
+def _cfg(**kw):
+    return RenderConfig(width=64, height=32, shadow_resolution=256, **kw)
+
+
+@pytest.fixture(scope="module")
+def terrain(tmp_path_factory):
+    """The terrain preset from the small asset tree (its cloud noise)
+    and the reduced terrain, built on the CPU with totals from zero."""
+    tree = kit.small_tree(tmp_path_factory.mktemp("assets"))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pscenes, "ASSETS", tree)
+        mp.setattr(pscenes, "_terrain_model",
+                   lambda **kw: kit.small_terrain("port", **kw))
+        trace.reset()
+        built = pscenes.build("terrain", _cfg(), device="cpu")
+        return built, trace.snapshot()
+
+
+@pytest.fixture(autouse=True)
+def _fresh():
+    trace.reset()
+    yield
+    trace.reset()
+
+
+def _frame(built, k=1):
+    """One frame under a CPU profiler: (the soc: events' names, the
+    outputs)."""
+    history = fm.RenderHistory.create(built.plan.config, device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        built.apply_input(InputState(cursor_dx=2.0), 1 / 60)
+        g, mm, nm = built.frame_globals(k)
+        out, _ = fm.render_frame(built.plan, built.batch, g, history, mm,
+                                 nm)
+    names = [e.name for e in prof.events()
+             if e.name.startswith(trace.PREFIX)]
+    return [n[len(trace.PREFIX):] for n in names], out
+
+
+def test_span_enters_no_profiler_event_while_none_records(monkeypatch):
+    made = []
+    monkeypatch.setattr(trace, "_Event", lambda *a: made.append(a))
+    assert not torch._C._autograd._profiler_enabled()
+    for _ in range(3):
+        with trace.span("outer"):
+            with trace.span("inner"):
+                pass
+    assert made == []
+    tot = trace.snapshot()["totals"]
+    assert tot["outer"]["calls"] == tot["inner"]["calls"] == 3
+    assert tot["outer"]["host_s"] >= tot["inner"]["host_s"] > 0
+    assert trace.profiled() is None
+
+
+def test_span_under_a_profiler_makes_nested_function_scope_events():
+    with trace.span("before"):
+        pass
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with trace.span("outer"):
+            with trace.span("inner"):
+                torch.ones(4).add_(1)
+    ev = {e.name: e for e in prof.events()}
+    outer, inner = ev["soc:outer"], ev["soc:inner"]
+    assert inner.cpu_parent is outer
+    assert any(c.name == "aten::add_" for c in inner.cpu_children)
+    # FUNCTION scope, not a user annotation: the profiler mirrors a user
+    # annotation on the device line, where it would read as device work
+    for e in (outer, inner):
+        assert not e.is_user_annotation and e.scope == 0
+    assert "soc:before" not in ev
+    tot = trace.snapshot()["totals"]
+    assert {n: tot[n]["calls"] for n in ("before", "outer", "inner")} \
+        == {"before": 1, "outer": 1, "inner": 1}
+
+
+def test_profiled_holds_the_latest_recorded_stretch():
+    with trace.span("untraced"):
+        trace.counters["h2d_copies"] += 5
+    for copies in (3, 2):
+        with profile(activities=[ProfilerActivity.CPU]):
+            for _ in range(copies):
+                with trace.span("traced"):
+                    trace.counters["h2d_copies"] += 1
+                    kb.launches["taa_reproject"] += 1
+        p = trace.profiled()               # open until a span sees the stop
+        assert p["totals"]["traced"]["calls"] == copies
+        assert p["counters"] == {"h2d_copies": copies}
+        assert p["launches"] == {"taa_reproject": copies}
+        with trace.span("untraced"):
+            trace.counters["h2d_copies"] += 7
+        p = trace.profiled()
+        assert set(p["totals"]) == {"traced"}
+        assert p["counters"] == {"h2d_copies": copies}
+    kb.reset_launches()
+    snap = trace.snapshot()
+    assert snap["counters"]["h2d_copies"] == 5 + 5 + 14
+    assert snap["totals"]["untraced"]["calls"] == 3
+    assert set(snap) == {"totals", "counters", "launches"}
+    trace.reset()
+    assert trace.snapshot()["totals"] == {} and trace.profiled() is None
+
+
+@pytest.mark.parametrize("case", ["terrain", "lifted_dof", "sharded"])
+def test_a_cpu_frame_runs_every_span_of_its_passes(terrain, case):
+    built, build_totals = terrain
+    want = HOST | FRAME
+    if case == "lifted_dof":
+        built = kit.build_port("atrium_lifted",
+                               _cfg(enable_depth_of_field=True), "cpu")
+        assert not built.plan.shadow_statically_empty
+        want = want | {"raster.shadow", "shade.dof"}
+    elif case == "sharded":
+        built = dataclasses.replace(built)
+        built.plan = dataclasses.replace(
+            built.plan, shard_mesh=pmesh.make_mesh(2, dp=1,
+                                                   devices=["cpu"] * 2),
+            shard_axis="sp")
+        want = want | {"shade.bands"}
+    else:
+        assert set(build_totals["totals"]) == BUILD
+        assert all(v["calls"] == 1 for v in build_totals["totals"].values())
+    names, out = _frame(built)
+    assert set(names) == want
+    assert len(names) == len(want)                 # each once a frame
+    assert torch.isfinite(torch.as_tensor(
+        out.color if case != "sharded" else out.color[0])).all()
+    p = trace.profiled()["totals"]
+    assert set(p) == want
+    # the stages hold their passes
+    for stage, prefix in (("frame.raster", "raster."),
+                          ("frame.shade", "shade.")):
+        inner = sum(v["host_s"] for n, v in p.items()
+                    if n.startswith(prefix))
+        assert inner <= p[stage]["host_s"] <= p["frame.render"]["host_s"]
+
+
+def test_a_cpu_frame_copies_nothing_across(terrain):
+    built, _ = terrain
+    _frame(built)
+    assert trace.profiled()["counters"] == {}
+    assert not any(k.startswith(("h2d", "d2h"))
+                   for k in trace.snapshot()["counters"])
+
+
+@pytest.mark.parametrize("target, crossing", [
+    ("meta", 3), (torch.device("meta"), 3), ("cpu", 0)])
+def test_tree_to_counts_the_host_leaves_that_cross(target, crossing):
+    on = torch.device(target)
+    tree = pconfig.SunInfo(
+        projection=np.eye(4, dtype=np.float32),
+        view=torch.eye(4),                               # a CPU tensor
+        projection_view=torch.eye(4, device=on),         # already there
+        terrain_y_clip_trick=None, position=np.zeros(3, np.float32),
+        direction=torch.zeros(3, device=on),
+        exponential_factor=None, darkening_factor=None, bias=None,
+        intensity=None)
+    out = pconfig.tree_to(tree, target)
+    assert {getattr(out, f).device.type for f in (
+        "projection", "view", "projection_view", "position",
+        "direction")} == {on.type}
+    c = trace.snapshot()["counters"]
+    assert c.get("h2d_copies", 0) == crossing
+    assert c.get("h2d_bytes", 0) == (64 + 64 + 12 if crossing else 0)
+
+
+def test_frame_globals_uploads_every_leaf_inside_globals_upload(
+        terrain, monkeypatch):
+    """On a device (meta here), a frame's globals and its two matrices
+    cross in 62 copies, each inside the span globals.upload."""
+    built, _ = terrain
+    built = dataclasses.replace(built, device=torch.device("meta"))
+    open_spans, at = [], []
+    enter, exit_ = trace.span.__enter__, trace.span.__exit__
+
+    def entering(self):
+        open_spans.append(self.name)
+        return enter(self)
+
+    def exiting(self, *exc):
+        open_spans.pop()
+        return exit_(self, *exc)
+
+    count = trace.count_h2d
+    monkeypatch.setattr(trace.span, "__enter__", entering)
+    monkeypatch.setattr(trace.span, "__exit__", exiting)
+    monkeypatch.setattr(trace, "count_h2d",
+                        lambda t: (at.append(open_spans[-1]), count(t)))
+    for k in (1, 2):
+        g, mm, nm = built.frame_globals(k)
+    assert g.camera.view.device.type == "meta" and mm.device.type == "meta"
+    assert trace.snapshot()["counters"]["h2d_copies"] == 2 * 62
+    assert set(at) == {"globals.upload"}
