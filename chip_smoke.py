@@ -2,15 +2,16 @@
 
     python3 chip_smoke.py
 
-Builds the six hand-written CUDA kernels (and K5's variants) from
+Builds the seven hand-written CUDA kernels (and K5's variants) from
 ``soc_real_time_renderer_tpu_torch/kernels/csrc`` (K1 bin resolve, K2
 SSAO taps, K3 TAA history fetch, K4 shadow depth resolve, K5 material
-texture tap, K6 noise-texture sky LUT), then renders three scenes at
-1920x1088 with every other RenderConfig default (4096^2 shadow map):
+texture tap, K6 noise-texture sky LUT, K6p procedural sky LUT), then
+renders three scenes at 1920x1088 with every other RenderConfig default
+(4096^2 shadow map):
 
 * ``terrain``: ``scenes.build("terrain")``, BASELINE config 4.  Its
-  path runs K1, K2, K3 and K5 (the sun shadow is proved empty, there is
-  no cloud noise).
+  path runs K1, K2, K3, K5 and K6p (the sun shadow is proved empty,
+  there is no cloud noise, so the sky LUT is the procedural one).
 * ``full_nohelmet``: BASELINE config 5 without its helmet: the
   procedural atrium (five flat materials) at scale 0.01 plus the
   terrain at y = -8, animated camera, and a (64, 64) cloud-noise field
@@ -19,7 +20,8 @@ texture tap, K6 noise-texture sky LUT), then renders three scenes at
 * ``atrium_lifted``: BASELINE config 6 with the atrium in the helmet's
   place at y = 32, inside the sun's volume, so the 4096^2 shadow view
   is rastered and sampled through its proved crop; given the same
-  noise field.  All six kernels.
+  noise field.  All six kernels of the noise path (every kernel but
+  K6p).
 
 Then the passes that are off by default, two frames each, same size:
 
@@ -38,7 +40,7 @@ the frame, each kernel launched once for the four views), four distinct
 camera positions each, on two scenes at the same size:
 
 * ``atrium_lifted``: all six kernels, K4 rastering each view's sun view;
-* ``terrain``: the procedural sky LUT (plain PyTorch, a LUT per view),
+* ``terrain``: the procedural sky LUT (K6p, one launch for the views),
   the shadow elided, the sun proof checked over the batch (a batch with
   one view under another sun is refused before anything launches);
 * ``atrium_passes`` (the atrium_lifted views; ``ssr_cap`` sized from
@@ -238,6 +240,9 @@ TAA_OPS_CHANNEL = 9    # bilinear blend of one channel
 TEX_OPS_CHANNEL = 10   # unpack 4 corners, bilinear blend, / 255
 SKY_OPS_ATMOS = 3400   # atmosphere of one texel: 16 x (8 + 1) samples
 SKY_OPS_DENSITY = 250  # one cloud density: 4 octaves x 2 slices x 4 taps
+SKY_OPS_DENSITY_HASHED = 490   # one density over the value noise: 4
+#                        octaves x 2 slices x (4 hashes of 7: 2 mul, add,
+#                        sin, mul, fmod, wrap; 23 lattice and blend ops)
 SKY_OPS_SAMPLE = 40    # one march sample's phase, powder, scatter terms
 
 SRC = "soc_real_time_renderer_tpu_torch/kernels/csrc/"
@@ -252,6 +257,13 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                   "soc_real_time_renderer_tpu/ops/ssao.py:244"),
     "sky_lut": (SRC + "sky.cu",
                 "soc_real_time_renderer_tpu/ops/sky_pallas.py:149"),
+    # replaces no TPU kernel: the JAX package marches the procedural LUT
+    # in XLA (ops/clouds.py render_sky_lut); added for the card's
+    # measurement of the plain march (PERF.md section 5: half of the
+    # terrain frame, thousands of launches)
+    "sky_lut_procedural": (SRC + "sky.cu",
+                           "none (soc_real_time_renderer_tpu/ops/clouds.py "
+                           "render_sky_lut, XLA)"),
     "taa_reproject": (SRC + "taa.cu",
                       "soc_real_time_renderer_tpu/ops/taa_pallas.py:30"),
 }
@@ -268,7 +280,10 @@ VARIANT_KERNELS = {
 # the scene whose inputs give each kernel's line in the JSON
 HOME = {"resolve": "terrain", "ssao_taps": "terrain",
         "taa_reproject": "terrain", "texsample": "full_nohelmet",
-        "sky_lut": "full_nohelmet", "resolve_depth": "atrium_lifted"}
+        "sky_lut": "full_nohelmet", "resolve_depth": "atrium_lifted",
+        "sky_lut_procedural": "terrain"}
+# the kernels of a scene with the cloud-noise texture: all but K6p
+NOISE_PATH = sorted(k for k in KERNELS if k != "sky_lut_procedural")
 
 
 def log(msg):
@@ -575,6 +590,29 @@ def kernel_cases(name, built, dev, min_lit=0.1):
              + n_hit * 10 * SKY_OPS_DENSITY), None,
             lambda: sky.launch_sky_lut(sky_block, noise))
 
+    # K6p: the sky LUT over the procedural value noise
+    if "sky_lut_procedural" in path:
+        n_tex, n_up, n_hit = sky_counts(g1, None)
+
+        def cmp_sky_p(k, p):
+            nan = torch.isnan(p)
+            same_nan = bool(torch.equal(torch.isnan(k), nan))
+            d = (k - p)[~nan].abs()
+            e = d.max().item() if d.numel() else 0.0
+            return e, (f"{tuple(k.shape)}: max abs {e:.3g} (== 0), NaN "
+                       f"texels {int(nan.sum())} at the same places "
+                       f"{same_nan}, {n_hit} of {n_up * 24} march samples "
+                       f"hold cloud"), e == 0.0 and same_nan
+
+        block_p = sky.sky_params(g1)
+        cases["sky_lut_procedural"] = (
+            lambda i: sky.render_sky_lut_procedural(g1, impl=i), cmp_sky_p,
+            ((16 + 3 * n_tex) * 4,
+             n_tex * SKY_OPS_ATMOS
+             + n_up * 24 * (SKY_OPS_DENSITY_HASHED + SKY_OPS_SAMPLE)
+             + n_hit * 10 * SKY_OPS_DENSITY_HASHED), None,
+            lambda: sky.launch_sky_lut(block_p))
+
     # K3: TAA history fetch
     *_, vel_s = taa.neighbourhood(out0.hdr, depth, out0.gbuffer.velocity)
     packed = torch.cat([hist1.previous_color, hist1.previous_velocity], 0)
@@ -649,12 +687,13 @@ def tap_rows(mid, uv, lod, kw):
 
 def sky_counts(g, noise, lut_w=256, lut_h=128, steps=24):
     """(LUT texels, texels above the horizon, march samples above the
-    horizon that hold cloud): the work of the noise-texture sky LUT for
-    these globals, by the plain version's own march positions."""
+    horizon that hold cloud): the work of the sky LUT over the noise
+    texture (K6; noise None: over the value noise, K6p) for these
+    globals, by the plain version's own march positions."""
     import math
     import torch
     from soc_real_time_renderer_tpu_torch.ops import clouds
-    dev = noise.device
+    dev = g.sun.direction.device
     az = ((torch.arange(lut_w, dtype=torch.float32, device=dev) + 0.5)
           / lut_w * 2.0 * math.pi - math.pi)
     el = ((torch.arange(lut_h, dtype=torch.float32, device=dev) + 0.5)
@@ -778,8 +817,8 @@ def stage_table(built, g, hist, mm, nm, reps=3, plan=None):
         st["sky LUT (K6, noise texture)"] = cuda_ms(lut_fn, reps)
     else:
         def lut_fn():
-            return clouds.render_sky_lut(g)
-        st["sky LUT (procedural, plain PyTorch)"] = cuda_ms(lut_fn, reps)
+            return sky.render_sky_lut_procedural(g)
+        st["sky LUT (K6p, procedural noise)"] = cuda_ms(lut_fn, reps)
     if lut_fn is not None:
         lut = lut_fn()
 
@@ -853,8 +892,9 @@ def scene_phase(name, dev, card, results):
         f"{plan.shadow_crop}, build {time.perf_counter() - t0:.1f} s; path "
         f"{path}")
     if name == "terrain":
-        check(path == ["resolve", "texsample", "ssao_taps", "taa_reproject"],
-              "terrain runs K1, K5, K2, K3")
+        check(path == ["resolve", "texsample", "ssao_taps", "taa_reproject",
+                       "sky_lut_procedural"],
+              "terrain runs K1, K5, K2, K3, K6p")
     elif name == "full_nohelmet":
         check(plan.atlas_num_materials >= 2 and batch.cloud_noise is not None
               and plan.shadow_statically_empty,
@@ -1018,7 +1058,7 @@ def passes_phase(dev, card, results):
     plan, batch = built.plan, built.batch
     cfg = plan.config
     path = path_of(plan, batch)
-    check(sorted(path) == sorted(KERNELS), f"{name} runs all six: {path}")
+    check(sorted(path) == NOISE_PATH, f"{name} runs all six: {path}")
     P = WIDTH * HEIGHT
 
     def frame(g, hist, mm, nm, cap, impl=None, **off):
@@ -1118,7 +1158,7 @@ def perpixel_phase(dev, card, results):
     plan, batch = built.plan, built.batch
     path = path_of(plan, batch)
     check(path == ["resolve", "texsample", "ssao_taps", "taa_reproject"],
-          f"{name} runs K1, K5, K2, K3 and not K6: {path}")
+          f"{name} runs K1, K5, K2, K3 and neither K6 nor K6p: {path}")
     out, (g, hist, mm, nm), counts = run_frames(built, plan, path,
                                                 PASS_FRAMES, dev)
     for k in counts:
@@ -1166,6 +1206,7 @@ def recorded_inputs(fn, every=False):
                 "texsample": (texsample, "sample_atlas"),
                 "ssao_taps": (ssao, "ssao_taps"),
                 "sky_lut": (sky, "render_sky_lut_noise"),
+                "sky_lut_procedural": (sky, "render_sky_lut_procedural"),
                 "taa_reproject": (taa, "reproject_history")}
     seen, real = {}, {}
     for k, (mod, attr) in wrappers.items():
@@ -1228,9 +1269,10 @@ def batched_phase(name, dev, card, results):
     step = pmesh.make_batched_render_fn(plan)
 
     if name.startswith("terrain"):
-        check(plan.shadow_statically_empty and "sky_lut" not in path,
-              f"{name}: the shadow elided, no K6 (the procedural LUT or "
-              f"the per-pixel march)")
+        check(plan.shadow_statically_empty and "sky_lut" not in path
+              and ("sky_lut_procedural" in path) == (name == "terrain"),
+              f"{name}: the shadow elided, no K6 (K6p, the procedural LUT, "
+              f"or the per-pixel march)")
     if name == "terrain":
         gs, mm, nm = pmesh.view_globals(built, positions, 0)
         gs[1] = dataclasses.replace(gs[1], sun=SunInfo.create(
@@ -1247,7 +1289,7 @@ def batched_phase(name, dev, card, results):
     elif not name.startswith("terrain"):
         check(not plan.shadow_statically_empty
               and plan.shadow_crop is not None
-              and sorted(path) == sorted(KERNELS),
+              and sorted(path) == NOISE_PATH,
               f"{name}: the shadow paid through its crop, all six kernels")
 
     # BATCH_FRAMES consecutive batched frames, the launch counts around them
@@ -1470,7 +1512,7 @@ def sharded_phase(dev, card, results):
     built = build_scene("atrium_lifted", dev)
     plan, batch = built.plan, built.batch
     path = path_of(plan, batch)
-    check(sorted(path) == sorted(KERNELS), "atrium_lifted runs all six")
+    check(sorted(path) == NOISE_PATH, "atrium_lifted runs all six")
     n = SHARD_BANDS
     mesh = pmesh.make_mesh(n, dp=1, devices=[dev] * n)
     splan = dataclasses.replace(plan, shard_mesh=mesh, shard_axis="sp")
@@ -1508,7 +1550,8 @@ def sharded_phase(dev, card, results):
                                                 zip(starts, starts[1:])]
               and all(c.device == dev for c in colour),
               f"{n} colour bands of {starts}")
-    want = {k: (1 if k == "sky_lut" else n) for k in KERNELS}
+    want = {k: (1 if k == "sky_lut" else n if k in path else 0)
+            for k in KERNELS}
     log(f"[sharded] atrium_lifted {WIDTH}x{HEIGHT} in {n} row bands "
         f"{starts} over {[str(d) for d in mesh.band_devices('sp')]}: "
         f"launches per frame {per_frame} (want {want}: once per band, K6 "
@@ -1531,7 +1574,8 @@ def sharded_phase(dev, card, results):
     g, h_in, hu_in, mm, nm = frames[-1]
     seen = recorded_inputs(lambda: split(g, h_in, mm, nm, impl="plain"),
                            every=True)
-    check({k: len(v) for k, v in seen.items()} == want,
+    check({k: len(v) for k, v in seen.items()}
+          == {k: c for k, c in want.items() if c},
           f"inputs recorded for every band: "
           f"{ {k: len(v) for k, v in seen.items()} }")
     parity = {}
@@ -1669,10 +1713,14 @@ def sharded_phase(dev, card, results):
                           .item())
     log(f"[sharded] terrain, {B} views over a (dp 2, sp 2) mesh of the "
         f"card, {BATCH_FRAMES} frames: launches per step {counts} (K1, K5, "
-        f"K2, K3 once per band of each group); each view against the "
-        f"unmeshed batched step, max abs {worst_m:.3g} (<= 1e-6) {card}")
-    check(all(c == {k: (4 if k in path_of(built.plan, built.batch) else 0)
-                    for k in KERNELS} for c in counts),
+        f"K2, K3 once per band of each group, K6p once per group); each "
+        f"view against the unmeshed batched step, max abs {worst_m:.3g} "
+        f"(<= 1e-6) {card}")
+    path_t = path_of(built.plan, built.batch)
+    # the sky LUT once per distinct device of each view group
+    check(all(c == {k: ((2 if k.startswith("sky_lut") else 4)
+                        if k in path_t else 0) for k in KERNELS}
+              for c in counts),
           "the meshed step launches once per band of each view group")
     check(worst_m <= 1e-6, "meshed views equal the unmeshed step")
     del built, hb, hm, colors, colors_m, got, hist
@@ -2107,13 +2155,15 @@ def viewer_phase(dev, card, results):
     for k in counts:
         results[k][name] = {"launches": counts[k]}
 
-    # launches: every frame runs K1, K5, K2, K6, K3; K4 where the plan
-    # does not elide the shadow, i.e. from step 5 on
+    # launches: every frame runs K1, K5, K2, K6, K3 (the noise texture:
+    # never K6p); K4 where the plan does not elide the shadow, i.e. from
+    # step 5 on
     n = len(per_frame)
     summed = {k: sum(d[k] for _, d in per_frame) for k in counts}
     check(summed == counts, f"every launch came from a frame: {summed} "
           f"vs {counts}")
-    check(all(d == {k: 0 if (k == "resolve_depth" and elided) else 1
+    check(all(d == {k: 0 if k == "sky_lut_procedural"
+                    or (k == "resolve_depth" and elided) else 1
                     for k in counts} for elided, d in per_frame),
           "each frame launched its path's kernels once")
     k4_before = sum(d["resolve_depth"] for _, d in per_frame[:k5])
@@ -2161,7 +2211,7 @@ def viewer_phase(dev, card, results):
     check(not plan.shadow_statically_empty and plan.config.width == WIDTH,
           "the final state rasters the shadow at full size")
     path_k, cases = kernel_cases(name, built, dev, min_lit=0.0)
-    check(sorted(path_k) == sorted(KERNELS), f"all six on the path: {path_k}")
+    check(sorted(path_k) == NOISE_PATH, f"all six on the path: {path_k}")
     for k, (call, cmp, _, _, _) in cases.items():
         got, want = call("cuda"), call("plain")
         torch.cuda.synchronize()
@@ -2378,7 +2428,7 @@ def bench_phase(card):
     from soc_real_time_renderer_tpu_torch.kernels import build as kb
     from soc_real_time_renderer_tpu_torch.tools import bench, \
         bench_baselines, bench_toggle
-    every = set(KERNELS)
+    every = set(NOISE_PATH)      # the synthetic tree's noise: K6, not K6p
     line = bench.main([], {"BENCH_SCENE": "sponza", "BENCH_WIDTH": "1280",
                            "BENCH_HEIGHT": "736",
                            "BENCH_FRAMES": str(BENCH_FRAMES)})
@@ -2394,7 +2444,7 @@ def bench_phase(card):
     check([r["config"] for r in rows] == list(range(1, 8))
           and all(r["launches"][k] == (TABLE_FRAMES if k in r["path"]
                                        else 0)
-                  for r in rows for k in every)
+                  for r in rows for k in KERNELS)
           and set().union(*(r["path"] for r in rows)) == every
           and not any(o for r in rows for o in r["overflow"])
           and not any(r["syncs"] for r in rows),
@@ -2536,7 +2586,8 @@ def main():
                                     "launch_device_ms")},
             "by_scene": results[name]})
     kernels.extend(tex_kernels)
-    check(len(kernels) == 8, "the JSON lists all eight TPU kernels")
+    check(len(kernels) == 9, "the JSON lists all eight TPU kernels' "
+          "counterparts and K6p")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

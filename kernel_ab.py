@@ -67,8 +67,9 @@ def other_library(csrc, flags=()):
     for ln in report.splitlines():
         if "registers" in ln or "Compiling entry" in ln:
             cs.log(f"  other build, ptxas: {ln.strip()}")
-    # an older tree lacks K5's variants (they are not A/B'd here)
-    return kb.load(lib, optional={"texsample_variant_launch"})
+    # an older tree lacks K5's variants and K6p (neither is A/B'd here)
+    return kb.load(lib, optional={"texsample_variant_launch",
+                                  "sky_lut_procedural_launch"})
 
 
 def only_bin(starts, b):

@@ -4,8 +4,8 @@ history')``, counterpart of the JAX package's ``graph/frame.py``.
 Pass order matches the reference graph:
 
   raster (visibility, K1; sun shadow, K4) -> HiZ -> G-buffer (K5) ->
-  bloom -> SSAO (K2) + blur -> [SSR] -> sky LUT (K6) + lookup, or the
-  per-pixel cloud march -> composition [+ volumetric light] -> [SSR mix]
+  bloom -> SSAO (K2) + blur -> [SSR] -> sky LUT (K6 or K6p) + lookup, or
+  the per-pixel cloud march -> composition [+ volumetric light] -> [SSR mix]
   -> [depth of field] -> exposure -> TAA (K3) -> tone mapping
 
 Cross-frame state rides in :class:`RenderHistory` (bf16 colour and
@@ -13,10 +13,12 @@ velocity, f32 exposure).  PyTorch runs eagerly: no jit, no
 ``torch.compile``.  The hand-written kernels on the path: K1 (main-view
 resolve), K4 (the sun shadow view's depth resolve, unless the build
 proved the map empty), K5 (the material tap), K2 (SSAO taps), K6 (the
-sky LUT over the cloud-noise texture) and K3 (TAA history fetch).  The
-bracketed passes are off by default (``RenderConfig.enable_ssr``,
-``composite_ssr``, ``enable_depth_of_field``,
-``enable_volumetric_light``, ``cloud_impl="perpixel"``) and run as plain
+sky LUT over the cloud-noise texture) or K6p (the sky LUT over the
+procedural value noise, where there is no texture) and K3 (TAA history
+fetch).  The bracketed passes are off by default
+(``RenderConfig.enable_ssr``, ``composite_ssr``,
+``enable_depth_of_field``, ``enable_volumetric_light``,
+``cloud_impl="perpixel"``) and run as plain
 PyTorch.
 
 Views: ``render_frame`` also renders B views of one scene at once
@@ -281,12 +283,12 @@ def _cloud_args(cfg: RenderConfig, noise, stacklevel: int = 4):
 
 
 def _sky_lut(cfg: RenderConfig, g, noise, impl):
-    """The sky LUT of the frame: K6 over the noise texture, or the
-    procedural one."""
+    """The sky LUT of the frame: K6 over the noise texture, or K6p over
+    the procedural value noise."""
     with trace.span("shade.sky_lut"):
         if cfg.cloud_noise_mode == "texture" and noise is not None:
             return sky_ops.render_sky_lut_noise(g, noise, impl=impl)
-        return clouds_ops.render_sky_lut(g)
+        return sky_ops.render_sky_lut_procedural(g, impl=impl)
 
 
 def shade_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,

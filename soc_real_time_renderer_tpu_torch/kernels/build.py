@@ -46,7 +46,8 @@ NVCC_FLAGS = [*ARCH, "-O3", "-std=c++17", "--fmad=false", "-Xptxas", "-v",
 
 # launch counts per kernel: each wrapper adds one where it launches
 launches = {"resolve": 0, "resolve_depth": 0, "texsample": 0,
-            "ssao_taps": 0, "sky_lut": 0, "taa_reproject": 0}
+            "ssao_taps": 0, "sky_lut": 0, "sky_lut_procedural": 0,
+            "taa_reproject": 0}
 # launches of K5's variants (ops/texsample.VARIANTS, the texture-tap
 # benches), by variant: apart from `launches`, whose kernels are the
 # frame's
@@ -77,6 +78,8 @@ _SIGNATURES = {
     "ssao_taps_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # params, noise, out, lut_w, lut_h, views, stream
     "sky_lut_launch": [_P, _P, _P, _I, _I, _I, _P],
+    # params, out, lut_w, lut_h, views, stream
+    "sky_lut_procedural_launch": [_P, _P, _I, _I, _I, _P],
     # history, velocity, out, C, H, W, views, row0, full_h, stream
     "taa_reproject_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }

@@ -1,6 +1,7 @@
-// K6: the sky LUT over the tiled cloud-noise texture.
+// K6: the sky LUT over the tiled cloud-noise texture, and K6p: the same
+// LUT over the procedural value noise.
 //
-// Replaces soc_real_time_renderer_tpu/ops/sky_pallas.py `_sky_kernel`
+// K6 replaces soc_real_time_renderer_tpu/ops/sky_pallas.py `_sky_kernel`
 // (Pallas, TPU; launched by `render_sky_lut_pallas`).  The TPU kernel
 // keeps the 64x64 noise tile in VMEM and takes each bilinear-repeat tap
 // as a soft-one-hot MXU product in bf16.  This kernel computes the JAX
@@ -13,12 +14,21 @@
 // horizon factor is applied by the wrapper (ops/sky.py), as
 // sky_pallas.py:391-394 does.
 //
+// K6p replaces no TPU kernel: without the noise texture both packages
+// march in plain array code (the JAX package's LUT is XLA, not Pallas),
+// and on the card that march was thousands of small PyTorch kernels a
+// frame, half of the terrain frame.  Its plain version is
+// clouds.render_sky_lut(g): the same march, each slice of the fBm four
+// hashes of the integer lattice (_value_noise2 over _hash2) in place of
+// four texture taps.  The noise source is the kernel's template
+// parameter; everything else is shared.
+//
 // Inputs: `params` 16 f32 [sun_dir 3 | atmosphere origin 3 | camera x, z
 // | elapsed | cloud drift | sky light * 0.25 / pi 3 | pad], computed by
 // the wrapper with the plain version's own PyTorch operations; `noise`
-// (64, 64) f32.  Output (3, lut_h, lut_w) f32.  Views: `views` parameter
-// rows and LUTs back to back, one launch, blockIdx.y the view (the noise
-// is shared).
+// (64, 64) f32 (K6 alone).  Output (3, lut_h, lut_w) f32.  Views:
+// `views` parameter rows and LUTs back to back, one launch, blockIdx.y
+// the view (the noise is shared).
 //
 // What held the first design back: one thread per texel in 128 blocks
 // put two warps on a scheduler, with nothing to hide the latency of a
@@ -29,10 +39,10 @@
 //
 // Design: a warp per texel (each warp takes every (number of warps)-th
 // texel in row-major order, so it gets rows below and above the horizon
-// alike), the 16 KB noise tile in shared memory once per block, and one
-// texel's independent samples spread over the lanes; only the sums stay
-// serial, replayed in the plain version's order, because f32 addition
-// is not associative and the result is held bit for bit:
+// alike), the 16 KB noise tile in shared memory once per block (K6), and
+// one texel's independent samples spread over the lanes; only the sums
+// stay serial, replayed in the plain version's order, because f32
+// addition is not associative and the result is held bit for bit:
 // * atmosphere: lane l takes primary step l / 2 and four of its eight
 //   light samples; the light sum passes from the even lane to the odd
 //   one in order; the optical-depth prefix over the 16 steps runs by
@@ -41,22 +51,27 @@
 // * clouds, for rays above the horizon: lanes 0-23 take the 24 primary
 //   densities; a ballot finds the samples that hold cloud (a sample
 //   with zero optical depth adds nothing, so its sun march, 80 of its
-//   88 noise taps, is skipped as the plain version's `where` discards
-//   it); the (hit sample, sun step) pairs are dealt over the 32 lanes
-//   and their densities parked in shared memory; each hit lane sums its
-//   own ten in order and forms its scatter term; the scatter and
-//   transmittance recurrence walks the hit samples in order by shuffles.
+//   88 noise evaluations, is skipped as the plain version's `where`
+//   discards it); the (hit sample, sun step) pairs are dealt over the
+//   32 lanes and their densities parked in shared memory; each hit lane
+//   sums its own ten in order and forms its scatter term; the scatter
+//   and transmittance recurrence walks the hit samples in order by
+//   shuffles.
 // Bound: operations (the same count as before: this run's data decides
-// how many sun marches there are); the noise reads hit shared memory.
+// how many sun marches there are).  K6's noise reads hit shared memory;
+// K6p's density is 32 hashes, each a sinf whose argument passes sinf's
+// fast range (|x| > 105615) on the top octave's far samples, where it
+// takes the slow reduction: that is the function PyTorch's sin calls,
+// and the hash turns any other rounding into a different value.
 //
 // Rounding: written in the plain version's operation order, built with
 // --fmad=false, with the same CUDA math functions PyTorch's kernels call
-// (expf, sqrtf, powf, sinf, cosf); constants that the plain version
-// forms in double (Python floats) are formed in double here and rounded
-// once; a division of a tensor by a Python scalar is PyTorch's multiply
-// by the f32 reciprocal on the card (`x * (1.0f / s)` below).  The rays
-// graze the cloud shells, where `_rsi` subtracts ~4e13-sized squares
-// (ROADMAP fault C6): that is why the order matters.
+// (expf, sqrtf, powf, sinf, cosf, fmodf); constants that the plain
+// version forms in double (Python floats) are formed in double here and
+// rounded once; a division of a tensor by a Python scalar is PyTorch's
+// multiply by the f32 reciprocal on the card (`x * (1.0f / s)` below).
+// The rays graze the cloud shells, where `_rsi` subtracts ~4e13-sized
+// squares (ROADMAP fault C6): that is why the order matters.
 #include "common.cuh"
 
 namespace {
@@ -151,19 +166,56 @@ __device__ __forceinline__ float sample_repeat(const float* tex, float u,
            + (c01 * (1.0f - fx) + c11 * fx) * fy;
 }
 
-// clouds._get_3d_noise
+// clouds._hash2: sin(x * 12.9898 + y * 78.233) * 43758.5453 modulo 1
+// (sampling.mod: the truncated remainder, plus 1 where it is negative)
+constexpr float kHashX = (float)12.9898;
+constexpr float kHashY = (float)78.233;
+constexpr float kHashScale = (float)43758.5453;
+
+__device__ __forceinline__ float hash2(float x, float y) {
+    const float r = fmodf(sinf(x * kHashX + y * kHashY) * kHashScale, 1.0f);
+    return r < 0.0f ? r + 1.0f : r;
+}
+
+// clouds._value_noise2: smoothstep-weighted bilinear value noise over the
+// integer lattice
+__device__ __forceinline__ float value_noise2(float u, float v) {
+    const float iu = floorf(u);
+    const float iv = floorf(v);
+    float fu = u - iu;
+    float fv = v - iv;
+    fu = fu * fu * (3.0f - 2.0f * fu);
+    fv = fv * fv * (3.0f - 2.0f * fv);
+    const float a = hash2(iu, iv);
+    const float b = hash2(iu + 1.0f, iv);
+    const float c = hash2(iu, iv + 1.0f);
+    const float d = hash2(iu + 1.0f, iv + 1.0f);
+    return (a + (b - a) * fu) * (1.0f - fv) + (c + (d - c) * fu) * fv;
+}
+
+// clouds._get_3d_noise: two z slices of the tiled texture (K6) or of the
+// value noise at the same lattice coordinates times 64 (K6p)
+template <bool kProcedural>
 __device__ __forceinline__ float noise3(const float* tex, float x, float y,
                                         float z) {
     const float p = floorf(z);
     const float f = z - p;
     const float cu = x * kInvRes + p * kZStretch;
     const float cv = y * kInvRes + p * kZStretch;
-    const float n0 = sample_repeat(tex, cu, cv);
-    const float n1 = sample_repeat(tex, cu + kZStretch, cv + kZStretch);
+    float n0, n1;
+    if constexpr (kProcedural) {
+        n0 = value_noise2(cu * 64.0f, cv * 64.0f);
+        n1 = value_noise2((cu + kZStretch) * 64.0f,
+                          (cv + kZStretch) * 64.0f);
+    } else {
+        n0 = sample_repeat(tex, cu, cv);
+        n1 = sample_repeat(tex, cu + kZStretch, cv + kZStretch);
+    }
     return n0 + (n1 - n0) * f;
 }
 
 // clouds._get_clouds: density at a ray-relative position
+template <bool kProcedural>
 __device__ float get_clouds(const float* tex, float px, float py, float pz,
                             float cam_x, float cam_z, float drift) {
     const float qy = py + kEarth;
@@ -174,13 +226,14 @@ __device__ float get_clouds(const float* tex, float px, float py, float pz,
     const float cx = wx * 0.001f + drift;
     const float cy = h * 0.001f + 0.0f;
     const float cz = wz * 0.001f + drift;
-    float n = noise3(tex, cx, cy, cz) * 0.5f;
-    n = n + noise3(tex, cx * 2.0f + drift, cy * 2.0f + 0.0f,
-                   cz * 2.0f + drift) * 0.25f;
-    n = n + noise3(tex, cx * 7.0f - drift, cy * 7.0f - 0.0f,
-                   cz * 7.0f - drift) * 0.125f;
-    n = n + noise3(tex, (cx + drift) * 16.0f, (cy + 0.0f) * 16.0f,
-                   (cz + drift) * 16.0f) * 0.0625f;
+    float n = noise3<kProcedural>(tex, cx, cy, cz) * 0.5f;
+    n = n + noise3<kProcedural>(tex, cx * 2.0f + drift, cy * 2.0f + 0.0f,
+                                cz * 2.0f + drift) * 0.25f;
+    n = n + noise3<kProcedural>(tex, cx * 7.0f - drift, cy * 7.0f - 0.0f,
+                                cz * 7.0f - drift) * 0.125f;
+    n = n + noise3<kProcedural>(tex, (cx + drift) * 16.0f,
+                                (cy + 0.0f) * 16.0f,
+                                (cz + drift) * 16.0f) * 0.0625f;
     const float hh = h - kCloudMin;
     const float thresh = (1.0f - expf(-0.01f * hh)) * expf(-0.004f * hh);
     const float t = fminf(fmaxf((n - 0.55f) * (1.0f / 0.05f), 0.0f), 1.0f);
@@ -197,18 +250,22 @@ static_assert(kISteps * 2 == 32 && kJSteps == 8,
               "atmosphere: two lanes a primary step, four samples a lane");
 static_assert(kSteps <= 32, "clouds: a lane a primary sample");
 
+// kProcedural: K6p (the value noise, `noise` unread) or K6 (the texture)
+template <bool kProcedural>
 __global__ void __launch_bounds__(kWarps * 32)
 sky_lut_kernel(const float* __restrict__ params,
                const float* __restrict__ noise, float* __restrict__ out,
                int lut_w, int lut_h) {
-    __shared__ float tex[kN * kN];
+    __shared__ float tex[kProcedural ? 1 : kN * kN];
     // per warp: the sun-march densities [sample][sun step]; before them
     // the atmosphere's products [step][channel, Rayleigh | Mie]
     __shared__ float scratch[kWarps][kSteps * kSunSteps];
     static_assert(kISteps * 6 <= kSteps * kSunSteps, "scratch is shared");
-    for (int i = threadIdx.x; i < kN * kN; i += kWarps * 32)
-        tex[i] = noise[i];
-    __syncthreads();
+    if constexpr (!kProcedural) {
+        for (int i = threadIdx.x; i < kN * kN; i += kWarps * 32)
+            tex[i] = noise[i];
+        __syncthreads();
+    }
     const int warp = threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
     float* park = scratch[warp];
@@ -376,8 +433,9 @@ sky_lut_kernel(const float* __restrict__ params,
         float od = 0.0f;
         if (lane < kSteps) {
             const float fi = (float)lane;
-            od = get_clouds(tex, px0 + incx * fi, py0 + incy * fi,
-                            pz0 + incz * fi, cam_x, cam_z, drift)
+            od = get_clouds<kProcedural>(tex, px0 + incx * fi,
+                                         py0 + incy * fi, pz0 + incz * fi,
+                                         cam_x, cam_z, drift)
                  * step_len;
         }
         const unsigned hits = __ballot_sync(kFull, od > 0.0f);
@@ -397,8 +455,8 @@ sky_lut_kernel(const float* __restrict__ params,
             const float qy0 = cpy + siy * 0.5f;
             const float qz0 = cpz + siz * 0.5f;
             park[i * kSunSteps + j] =
-                get_clouds(tex, qx0 + six * fj, qy0 + siy * fj,
-                           qz0 + siz * fj, cam_x, cam_z, drift);
+                get_clouds<kProcedural>(tex, qx0 + six * fj, qy0 + siy * fj,
+                                        qz0 + siz * fj, cam_x, cam_z, drift);
         }
         __syncwarp();
         // each hit sample's scatter term and transmittance factor
@@ -441,11 +499,9 @@ sky_lut_kernel(const float* __restrict__ params,
     }
 }
 
-}  // namespace
-
-SOC_EXPORT int sky_lut_launch(const void* params, const void* noise,
-                              void* out, int lut_w, int lut_h, int views,
-                              void* stream) {
+template <bool kProcedural>
+int launch(const void* params, const void* noise, void* out, int lut_w,
+           int lut_h, int views, void* stream) {
     if (lut_w <= 0 || lut_h <= 0 || views > 65535)
         return (int)cudaErrorInvalidValue;
     if (views <= 0) return 0;
@@ -453,9 +509,23 @@ SOC_EXPORT int sky_lut_launch(const void* params, const void* noise,
     if (texels > 0x7fffffff) return (int)cudaErrorInvalidValue;
     const long long per_block = kWarps * kTexelsPerWarp;
     const int grid = (int)((texels + per_block - 1) / per_block);
-    sky_lut_kernel<<<dim3(grid, views), kWarps * 32, 0,
-                     (cudaStream_t)stream>>>(
+    sky_lut_kernel<kProcedural><<<dim3(grid, views), kWarps * 32, 0,
+                                  (cudaStream_t)stream>>>(
         (const float*)params, (const float*)noise, (float*)out, lut_w,
         lut_h);
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+SOC_EXPORT int sky_lut_launch(const void* params, const void* noise,
+                              void* out, int lut_w, int lut_h, int views,
+                              void* stream) {
+    return launch<false>(params, noise, out, lut_w, lut_h, views, stream);
+}
+
+SOC_EXPORT int sky_lut_procedural_launch(const void* params, void* out,
+                                         int lut_w, int lut_h, int views,
+                                         void* stream) {
+    return launch<true>(params, nullptr, out, lut_w, lut_h, views, stream);
 }

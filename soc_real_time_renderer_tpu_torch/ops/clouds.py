@@ -5,7 +5,8 @@ Counterpart of the JAX package's ``ops/clouds.py`` on its LUT path:
 atmosphere, 24-step cloud march with a 10-step sun march, 4-octave fBm,
 two-lobe HG, powder/Beer, scatter integral), over the (64, 64) tiled
 noise texture when given one (the plain version of kernel K6,
-``ops/sky.py``) or procedural value noise without it, and
+``ops/sky.py``) or procedural value noise without it (the plain version
+of K6p), and
 ``sky_from_lut`` (the per-pixel bayer16-dithered lookup with the
 reference's QUADRANT quirk), and the exact per-pixel march
 ``render_clouds`` (``RenderConfig.cloud_impl="perpixel"``).
@@ -373,8 +374,8 @@ def render_sky_lut(g, lut_w: int = 256, lut_h: int = 128, noise_tex=None):
     (3, lut_h, lut_w): azimuth in [-pi, pi) across width, elevation in
     [-pi/2, pi/2] across height.  noise_tex: the (64, 64) tiled cloud
     noise (the exact texture branch, K6's plain version); None takes
-    procedural value noise.  Batched globals give (B, 3, lut_h, lut_w),
-    a LUT per view."""
+    procedural value noise (K6p's plain version).  Batched globals give
+    (B, 3, lut_h, lut_w), a LUT per view."""
     dev = g.sun.direction.device
     az = ((torch.arange(lut_w, dtype=torch.float32, device=dev) + 0.5)
           / lut_w * 2.0 * math.pi - math.pi)

@@ -291,9 +291,10 @@ def make_sharded_shade_fn(plan: frame_mod.FramePlan, mesh: Mesh,
     * as a reduction summed over bands: the exposure histogram (int64
       counts, so the sum is exact), resolved once.
 
-    The sky LUT (K6, or the procedural one) is made once per distinct
-    device from the replicated globals; the raster's K1 and K4 run once
-    per band of bin rows (raster_stage, raster2.resolve_row_sharded).
+    The sky LUT (K6, or K6p over the procedural noise) is made once per
+    distinct device from the replicated globals; the raster's K1 and K4
+    run once per band of bin rows (raster_stage,
+    raster2.resolve_row_sharded).
     Each band's values are the unsplit frame's rows."""
     plan = dataclasses.replace(plan, shard_mesh=mesh, shard_axis=row_axis)
     mesh.band_devices(row_axis)

@@ -333,7 +333,7 @@ def _finish(scene: Scene, models, config: RenderConfig, camera_pos,
         batch, atlas = build_scene_batch(models, atlas_size=atlas_size,
                                          device=device)
     # the reference's tiled cloud-noise texture (cloud_rendering.inl:
-    # 219-233), K6's input; without it the procedural sky LUT runs
+    # 219-233), K6's input; without it the procedural sky LUT (K6p) runs
     noise_path = os.path.join(ASSETS, "Clouds/noise.png")
     if config.enable_clouds and os.path.exists(noise_path):
         with trace.span("scenes.noise"):

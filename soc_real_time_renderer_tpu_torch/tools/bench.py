@@ -116,10 +116,10 @@ def kernel_path(plan, batch) -> list[str]:
         path.append("taa_reproject")
     if cfg.enable_shadows and not plan.shadow_statically_empty:
         path.append("resolve_depth")
-    if (cfg.enable_clouds and cfg.cloud_noise_mode == "texture"
-            and batch.cloud_noise is not None
-            and cfg.cloud_impl != "perpixel"):
-        path.append("sky_lut")
+    noise = batch.cloud_noise is not None
+    if cfg.enable_clouds and not (cfg.cloud_impl == "perpixel" and noise):
+        texture = cfg.cloud_noise_mode == "texture" and noise
+        path.append("sky_lut" if texture else "sky_lut_procedural")
     return path
 
 

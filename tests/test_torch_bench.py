@@ -220,6 +220,31 @@ def test_configurations_equal_the_jax_tools(path, name, port):
             assert getattr(pc, f.name) == getattr(jc, f.name), (n, f.name)
 
 
+@pytest.mark.parametrize("noise,switches,sky", [
+    (False, {}, "sky_lut_procedural"),
+    (True, {}, "sky_lut"),
+    (True, {"cloud_noise_mode": "procedural"}, "sky_lut_procedural"),
+    (True, {"cloud_impl": "perpixel"}, None),
+    (False, {"cloud_impl": "perpixel"}, "sky_lut_procedural"),
+    (False, {"enable_clouds": False}, None)],
+    ids=["procedural", "texture", "procedural_mode", "perpixel",
+         "perpixel_without_noise", "no_clouds"])
+def test_kernel_path_names_the_frames_sky_kernel(noise, switches, sky):
+    """bench.kernel_path names the sky kernel the frame launches, as
+    graph/frame picks it: K6 over the noise texture, K6p without it (or
+    in the procedural noise mode), neither under the per-pixel march
+    (which falls back to the LUT without the noise) or with the clouds
+    off."""
+    from types import SimpleNamespace
+    plan = SimpleNamespace(config=RenderConfig(**switches),
+                           texture_filter="bilinear",
+                           shadow_statically_empty=True)
+    batch = SimpleNamespace(cloud_noise=torch.zeros(64, 64) if noise
+                            else None)
+    want = ["resolve", "texsample", "ssao_taps", "taa_reproject"]
+    assert bench.kernel_path(plan, batch) == want + ([sky] if sky else [])
+
+
 def test_tex_none_matches_jax(monkeypatch):
     """The attribution probe filter_mode="none" (tex_none): the port's
     resolve_gbuffer against the JAX one on the reduced terrain's frame

@@ -1,5 +1,6 @@
 """The CUDA kernels (K1 resolve, K2 SSAO taps, K3 TAA reprojection, K4
-shadow depth resolve, K5 texture tap, K6 noise sky LUT) against their
+shadow depth resolve, K5 texture tap, K6 noise sky LUT, K6p procedural
+sky LUT) against their
 plain PyTorch versions on the card, at small sizes, and small frames of
 the terrain and of the two multi-entity scenes through both paths.
 Marked ``cuda``: they skip where ``torch.cuda.is_available()`` is false
@@ -335,7 +336,8 @@ def test_small_frame_kernel_path_matches_plain(dev):
                                  impl="plain")
     torch.cuda.synchronize()
     assert kb.launches == {"resolve": 3, "resolve_depth": 0, "texsample": 3,
-                           "ssao_taps": 3, "sky_lut": 0, "taa_reproject": 3}
+                           "ssao_taps": 3, "sky_lut": 0,
+                           "sky_lut_procedural": 3, "taa_reproject": 3}
     assert not kb.variant_launches
     assert torch.isfinite(ok.color).all()
     assert (ok.color - op.color).abs().max().item() < 1e-5
@@ -601,16 +603,7 @@ def test_sky_kernel_matches_plain(dev, case):
     no march sample holds cloud (0) or every sample inside the shell
     does (1)."""
     lut_w, lut_h, sun, elapsed, field = SKY_CASES[case]
-    cam = Camera3D()
-    cam.resize(256, 128)
-    g = ShaderGlobals.create(
-        camera=camera_matrices(cam, [0.0, 2.0, 0.0], 1, 256, 128),
-        elapsed_time=np.float32(elapsed), device=dev)
-    if sun is not None:
-        d = np.asarray(sun, np.float32)
-        d = torch.from_numpy(d / np.linalg.norm(d)).to(dev)
-        g = dataclasses.replace(g, sun=dataclasses.replace(g.sun,
-                                                           direction=d))
+    g = _sky_globals(dev, sun, elapsed)
     if field == "field":
         noise = torch.from_numpy(kit.cloud_noise()).to(dev)
     else:
@@ -635,23 +628,97 @@ def test_sky_kernel_matches_plain(dev, case):
         assert not torch.equal(bare, k)
 
 
-def test_sky_call_does_not_wait_for_the_card(dev):
-    """A K6 call enqueued behind a sleeping kernel returns before the
-    sleep ends: the wrapper makes no blocking copy of host values (its
-    constants are cached per device)."""
-    import time
+def _sky_globals(dev, sun, elapsed, position=(0.0, 2.0, 0.0)):
+    """One frame's globals for the sky LUT tests: the camera at
+    `position`, `elapsed` seconds, the default sun or one from the
+    direction `sun` (normalised)."""
     cam = Camera3D()
     cam.resize(256, 128)
     g = ShaderGlobals.create(
-        camera=camera_matrices(cam, [0.0, 2.0, 0.0], 1, 256, 128),
-        elapsed_time=np.float32(3.0), device=dev)
+        camera=camera_matrices(cam, list(position), 1, 256, 128),
+        elapsed_time=np.float32(elapsed), device=dev)
+    if sun is not None:
+        d = np.asarray(sun, np.float32)
+        d = torch.from_numpy(d / np.linalg.norm(d)).to(dev)
+        g = dataclasses.replace(g, sun=dataclasses.replace(g.sun,
+                                                           direction=d))
+    return g
+
+
+SKY_PROCEDURAL_CASES = {
+    # name: (lut_w, lut_h, sun direction or None, elapsed times, one a view)
+    "frame": (256, 128, None, (3.0,)),
+    "ragged_100x37": (100, 37, None, (3.0,)),
+    "sun_below_horizon": (256, 128, (0.3, 0.5, -0.2), (3.0,)),
+    "sun_at_zenith": (256, 128, (0.0, -1.0, 0.0), (3.0,)),
+    "elapsed_ten_minutes": (256, 128, None, (600.0,)),
+    "elapsed_ten_hours": (256, 128, None, (36000.0,)),
+    "four_views": (256, 128, None, (3.0, 41.0, 600.0, 36000.0)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SKY_PROCEDURAL_CASES))
+def test_sky_procedural_kernel_matches_plain(dev, case):
+    """K6p bit-identical to its plain version clouds.render_sky_lut(g)
+    (the plain version's order and functions, see sky.cu; the hash turns
+    a one-ulp difference in sinf into noise), in the cases of
+    test_sky_kernel_matches_plain: the frame's 256x128 LUT, a size that
+    no block or warp count divides, the sun below the horizon and at the
+    zenith, ten minutes and ten hours of elapsed time (NaN texels of the
+    plain version NaN in the kernel too); and four views from distinct
+    cameras and times in one launch, each view the single view's LUT.
+    One launch a call."""
+    lut_w, lut_h, sun, times = SKY_PROCEDURAL_CASES[case]
+    gs = [_sky_globals(dev, sun, t, (3.0 * i, 2.0 + 5.0 * i, -2.0 * i))
+          for i, t in enumerate(times)]
+    if len(gs) == 1:
+        g = gs[0]
+    else:
+        from soc_real_time_renderer_tpu_torch.parallel import mesh as pmesh
+        g = pmesh.batched_globals(gs)
+    n0 = kb.launches["sky_lut_procedural"]
+    k = sky.render_sky_lut_procedural(g, lut_w, lut_h)
+    assert kb.launches["sky_lut_procedural"] == n0 + 1
+    p = sky.render_sky_lut_procedural(g, lut_w, lut_h, impl="plain")
+    assert kb.launches["sky_lut_procedural"] == n0 + 1
+    torch.cuda.synchronize()
+    V = (len(gs),) if len(gs) > 1 else ()
+    assert k.shape == (*V, 3, lut_h, lut_w)
+    nan = torch.isnan(p)
+    assert not bool(nan.any()) or max(times) >= 600.0
+    assert torch.isfinite(p[~nan]).all() and not bool(nan.all())
+    assert torch.equal(torch.isnan(k), nan)
+    assert torch.equal(k[~nan], p[~nan])
+    ref = clouds.render_sky_lut(g, lut_w, lut_h)
+    assert torch.equal(p[~nan], ref[~nan])
+    if V:
+        for i, gi in enumerate(gs):
+            one = sky.render_sky_lut_procedural(gi, lut_w, lut_h)
+            assert torch.equal(torch.isnan(one), torch.isnan(k[i]))
+            assert torch.equal(one.nan_to_num(), k[i].nan_to_num()), i
+    elif case == "frame":
+        # the procedural clouds change the upper half against the
+        # cloudless LUT (K6 over an all-zero noise field)
+        bare = sky.render_sky_lut_noise(g, torch.zeros((64, 64), device=dev),
+                                        lut_w, lut_h)
+        assert not torch.equal(bare, k)
+
+
+def test_sky_call_does_not_wait_for_the_card(dev):
+    """A K6 call and a K6p call enqueued behind a sleeping kernel return
+    before the sleep ends: the wrappers make no blocking copy of host
+    values (their constants are cached per device)."""
+    import time
+    g = _sky_globals(dev, None, 3.0)
     noise = torch.from_numpy(kit.cloud_noise()).to(dev)
     sky.render_sky_lut_noise(g, noise)       # build, caches
+    sky.render_sky_lut_procedural(g)
     torch.cuda.synchronize()
     done = torch.cuda.Event()
     torch.cuda._sleep(1 << 28)               # ~0.14 s at 1.98 GHz
     t0 = time.perf_counter()
     sky.render_sky_lut_noise(g, noise)
+    sky.render_sky_lut_procedural(g)
     host = time.perf_counter() - t0
     done.record()
     assert not done.query(), "the sleep ended before the check"
@@ -675,7 +742,7 @@ def test_small_scene_kernel_path_matches_plain(dev, name):
                                  impl="plain")
     torch.cuda.synchronize()
     want = {"resolve": 3, "texsample": 3, "ssao_taps": 3, "sky_lut": 3,
-            "taa_reproject": 3,
+            "sky_lut_procedural": 0, "taa_reproject": 3,
             "resolve_depth": 0 if name == "full_nohelmet" else 3}
     assert kb.launches == want
     assert torch.isfinite(ok.color).all()
@@ -688,7 +755,8 @@ def test_passes_scene_on_the_card(dev):
     512^2 map) through the kernels: all six launch on every frame, the
     colour equals the plain path's within 1e-5, the compacted SSR target
     equals the dense one bit for bit, and a cap at half of the
-    reflective pixels sets bit 16."""
+    reflective pixels sets bit 16.  K6p never launches (the scene has
+    the noise texture)."""
     cfg = RenderConfig(width=256, height=128, shadow_resolution=512,
                        enable_ssr=True, composite_ssr=True,
                        enable_depth_of_field=True,
@@ -713,7 +781,8 @@ def test_passes_scene_on_the_card(dev):
             assert torch.equal(ok.ssr, dense.ssr)
             assert torch.equal(ok.color, dense.color)
     torch.cuda.synchronize()
-    assert kb.launches == {k: 2 for k in kb.launches}
+    assert kb.launches == {k: (0 if k == "sky_lut_procedural" else 2)
+                           for k in kb.launches}
     assert torch.isfinite(ok.color).all()
     assert (ok.color - op.color).abs().max().item() < 1e-5
     g, mm, nm = built.frame_globals(0, peek=True)
@@ -723,8 +792,8 @@ def test_passes_scene_on_the_card(dev):
 
 
 def test_perpixel_clouds_on_the_card(dev):
-    """The per-pixel cloud march on the reduced terrain: K6 does not
-    launch, the clouds target is finite where the camera sees sky, and
+    """The per-pixel cloud march on the reduced terrain: neither K6 nor
+    K6p launches, the clouds target is finite where the camera sees sky, and
     the row chunking is exact on the card."""
     cfg = RenderConfig(width=256, height=128, shadow_resolution=512,
                        cloud_impl="perpixel")
@@ -734,7 +803,8 @@ def test_perpixel_clouds_on_the_card(dev):
     kb.reset_launches()
     out, _ = fm.render_frame(built.plan, built.batch, g, hist, mm, nm)
     torch.cuda.synchronize()
-    assert kb.launches["sky_lut"] == 0 and kb.launches["ssao_taps"] == 1
+    assert kb.launches["sky_lut"] == kb.launches["sky_lut_procedural"] == 0
+    assert kb.launches["ssao_taps"] == 1
     clear = clouds._vec([0.2, 0.4, 1.0], dev)[:, None, None]
     sky_px = (out.clouds != clear).any(0)
     assert float(sky_px.float().mean()) > 0.1
@@ -787,8 +857,8 @@ def test_preset_frame_kernel_path_matches_plain(dev, tmp_path, monkeypatch):
     """Three frames of `helmet_lifted` from a small synthetic asset tree
     (500-triangle helmet, 64^2 maps, 64^2 noise PNG) at 256x128 with a
     512^2 shadow map: all six kernels launch on every frame (K6 fed from
-    Clouds/noise.png, K4 on the lifted helmet) and the colour equals the
-    plain path's within 1e-5."""
+    Clouds/noise.png, K4 on the lifted helmet), K6p never, and the colour
+    equals the plain path's within 1e-5."""
     from soc_real_time_renderer_tpu_torch.tools import synth_assets
     synth_assets.write_asset_tree(str(tmp_path), rings=10, segments=25,
                                   helmet_map=64, sponza=False)
@@ -805,7 +875,8 @@ def test_preset_frame_kernel_path_matches_plain(dev, tmp_path, monkeypatch):
         op, hp = fm.render_frame(built.plan, built.batch, g, hp, mm, nm,
                                  impl="plain")
     torch.cuda.synchronize()
-    assert kb.launches == {k: 3 for k in kb.launches}
+    assert kb.launches == {k: (0 if k == "sky_lut_procedural" else 3)
+                           for k in kb.launches}
     assert torch.isfinite(ok.color).all()
     assert (ok.color - op.color).abs().max().item() < 1e-5
 
@@ -813,7 +884,8 @@ def test_preset_frame_kernel_path_matches_plain(dev, tmp_path, monkeypatch):
 def test_viewer_on_the_card(dev, tmp_path, monkeypatch):
     """The viewer's server on `helmet_lifted` from a small synthetic tree
     at 128x64 (512^2 shadow map) with the real make_render_fn: JPEGs
-    arrive, each of the six kernels launches once in every frame, and a
+    arrive, each of the six kernels launches once in every frame (K6p,
+    the noise texture being there, never), and a
     resize to 160x96 brings frames of that size with a history on the
     card."""
     import io
@@ -881,7 +953,8 @@ def test_viewer_on_the_card(dev, tmp_path, monkeypatch):
         server.server_close()
         loop.join(timeout=120)
     assert not loop.is_alive() and len(per_frame) > 6
-    assert all(d == {k: 1 for k in kb.launches} for d in per_frame)
+    assert all(d == {k: (0 if k == "sky_lut_procedural" else 1)
+                     for k in kb.launches} for d in per_frame)
 
 
 # --- B views in one step (parallel/mesh.py) --------------------------------
@@ -917,7 +990,8 @@ def test_batched_kernels_match_plain(dev, B):
     step = pmesh.make_batched_render_fn(built.plan, impl="plain")
     seen = chip_smoke.recorded_inputs(
         lambda: step(built.batch, gb, hb, mm, nm))
-    assert sorted(seen) == sorted(kb.launches)
+    assert sorted(seen) == sorted(k for k in kb.launches
+                                  if k != "sky_lut_procedural")
     for k, (fn, a, kw) in seen.items():
         got, want = fn(*a, impl="cuda", **kw), fn(*a, impl="plain", **kw)
         torch.cuda.synchronize()
@@ -936,7 +1010,8 @@ def test_batched_kernels_match_plain(dev, B):
 
 def test_batched_step_launches_each_kernel_once(dev):
     """One batched step of three views launches each of the six kernels
-    once, and view i equals render_frame of view i."""
+    once (K6p never: the scene has the noise texture), and view i equals
+    render_frame of view i."""
     from soc_real_time_renderer_tpu_torch.config import select_view
     from soc_real_time_renderer_tpu_torch.parallel import mesh as pmesh
     built = kit.build_port("atrium_lifted",
@@ -947,7 +1022,8 @@ def test_batched_step_launches_each_kernel_once(dev):
     kb.reset_launches()
     colors, hb2 = step(built.batch, gb, hb, mm, nm)
     torch.cuda.synchronize()
-    assert kb.launches == {k: 1 for k in kb.launches}
+    assert kb.launches == {k: (0 if k == "sky_lut_procedural" else 1)
+                           for k in kb.launches}
     for i in range(3):
         out, h = fm.render_frame(
             built.plan, built.batch, select_view(gb, i),
@@ -1165,6 +1241,7 @@ def test_sharded_frame_on_one_card(dev):
         torch.cuda.synchronize()
         assert kb.launches == {"resolve": 4, "resolve_depth": 4,
                                "texsample": 4, "ssao_taps": 4, "sky_lut": 1,
+                               "sky_lut_procedural": 0,
                                "taa_reproject": 4}, kb.launches
         want, hu = fm.render_frame(built.plan, built.batch, g, hu, mm, nm)
         assert [b.shape for b in out.color] == [(3, 32, 256)] * 4
@@ -1206,7 +1283,7 @@ def test_bench_loop_launches_once_and_never_waits(dev, texture_filter):
     staged = bench.stage(built, plan, 3)
     bench.run(built, plan, staged)
     t = bench.run(built, plan, staged)
-    want = ["resolve", "ssao_taps", "taa_reproject"]
+    want = ["resolve", "ssao_taps", "taa_reproject", "sky_lut_procedural"]
     if texture_filter != "none":
         want.insert(1, "texsample")
     assert t.path == want

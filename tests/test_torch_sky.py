@@ -2,8 +2,18 @@
 with the synthetic noise field of tests/test_sky_pallas.py: the port's
 ``clouds.render_sky_lut(g, noise_tex=...)`` (K6's plain version, and
 what ``sky.render_sky_lut_noise`` runs on CPU tensors) against the JAX
-exact LUT and the JAX Pallas kernel in interpret mode.
+exact LUT and the JAX Pallas kernel in interpret mode.  Then the
+procedural LUT's kernel (K6p) as far as the CPU reaches it: its wrapper
+takes ``clouds.render_sky_lut(g)`` on CPU tensors, the frame routes a
+scene without the noise texture to it, and the kernels' ctypes
+signatures match the exported launch functions of ``kernels/csrc``.
 """
+import ctypes
+import dataclasses
+import glob
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,8 +26,12 @@ from soc_real_time_renderer_tpu.camera import Camera3D, camera_matrices
 from soc_real_time_renderer_tpu.ops import clouds as jclouds
 from soc_real_time_renderer_tpu.ops import sky_pallas
 from soc_real_time_renderer_tpu_torch import convert
+from soc_real_time_renderer_tpu_torch.config import RenderConfig
+from soc_real_time_renderer_tpu_torch.graph import frame as pframe
+from soc_real_time_renderer_tpu_torch.kernels import build as kb
 from soc_real_time_renderer_tpu_torch.ops import clouds as pclouds
 from soc_real_time_renderer_tpu_torch.ops import sky as psky
+from soc_real_time_renderer_tpu_torch.parallel import mesh as pmesh
 
 LUT_W, LUT_H = 128, 16
 
@@ -135,3 +149,85 @@ def test_sky_params_block_keeps_its_bits(inputs):
     assert torch.equal(p[3:6], origin)
     assert torch.equal(p[10:13], light)
     assert torch.equal(p[13:], torch.zeros(3))
+
+
+def _batched(g, n):
+    """n copies of one frame's globals as batched globals, each view
+    with its own elapsed time and camera height."""
+    gs = []
+    for i in range(n):
+        cam = dataclasses.replace(
+            g.camera, position=g.camera.position + torch.tensor(
+                [0.0, 3.0 * i, 0.0]))
+        gs.append(dataclasses.replace(g, camera=cam,
+                                      elapsed_time=g.elapsed_time + 40.0 * i))
+    return pmesh.batched_globals(gs)
+
+
+@pytest.mark.parametrize("impl", [None, "plain"], ids=["auto", "plain"])
+@pytest.mark.parametrize("views", [0, 2], ids=["single", "batched"])
+def test_procedural_sky_lut_takes_the_plain_version_on_cpu(inputs, views,
+                                                           impl):
+    """K6p's wrapper on CPU tensors (impl None or "plain") is
+    clouds.render_sky_lut(g) bit for bit, for one frame's globals and
+    for batched ones, and launches nothing."""
+    _, g, _ = inputs
+    if views:
+        g = _batched(g, views)
+    kb.reset_launches()
+    got = psky.render_sky_lut_procedural(g, 32, 16, impl=impl)
+    want = pclouds.render_sky_lut(g, 32, 16)
+    assert got.shape == (*((views,) if views else ()), 3, 16, 32)
+    assert torch.equal(got, want) and torch.isfinite(got).all()
+    assert not any(kb.launches.values())
+    with pytest.raises(ValueError):
+        psky.render_sky_lut_procedural(g, 32, 16, impl="cuda")
+
+
+@pytest.mark.parametrize("noise,mode,want", [
+    (None, "texture", "procedural"),
+    ("field", "procedural", "procedural"),
+    ("field", "texture", "noise")])
+def test_frame_sky_lut_routes_by_the_noise(inputs, monkeypatch, noise, mode,
+                                           want):
+    """graph/frame._sky_lut: without the noise texture, or with the
+    procedural noise mode, the frame's LUT is K6p's wrapper; with the
+    texture, K6's; the impl is handed on."""
+    _, g, field = inputs
+    calls = []
+    monkeypatch.setattr(psky, "render_sky_lut_procedural",
+                        lambda g_, **k: calls.append(("procedural", k)))
+    monkeypatch.setattr(psky, "render_sky_lut_noise",
+                        lambda g_, n, **k: calls.append(("noise", k)))
+    tex = None if noise is None else torch.from_numpy(field)
+    pframe._sky_lut(RenderConfig(cloud_noise_mode=mode), g, tex, "plain")
+    assert calls == [(want, {"impl": "plain"})]
+
+
+def _exports():
+    """{name: [ctypes type of each argument]} of every launch function
+    the CUDA sources export (`void*` a pointer, `int` an int)."""
+    out = {}
+    for path in glob.glob(os.path.join(kb.CSRC, "*.cu")):
+        with open(path) as f:
+            src = f.read()
+        for name, args in re.findall(
+                r"SOC_EXPORT\s+int\s+(\w+)\s*\(([^)]*)\)", src):
+            out[name] = [ctypes.c_void_p if "*" in a else ctypes.c_int
+                         for a in args.split(",")]
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(kb._SIGNATURES))
+def test_launch_signatures_match_the_sources(name):
+    """Each launch function's ctypes argtypes in kernels/build.py are its
+    exported C signature's, argument by argument; every exported launch
+    function is declared.  K6p's entry takes params and out, three ints
+    (lut_w, lut_h, views) and the stream."""
+    exports = _exports()
+    assert sorted(exports) == sorted(kb._SIGNATURES)
+    assert kb._SIGNATURES[name] == exports[name]
+    if name == "sky_lut_procedural_launch":
+        P, I = ctypes.c_void_p, ctypes.c_int
+        assert kb._SIGNATURES[name] == [P, P, I, I, I, P]
+        assert "sky_lut_procedural" in kb.launches
