@@ -11,10 +11,14 @@ this, other.
 
 The other tree's launch functions must take this tree's arguments (the
 view count of the batched render and the row band of K1, K4 and K3
-included): a tree from before those does not load.  Without ``--other`` the other build is the checkout's
-own sources, which
-with ``--other-flags`` times a compile-time variant against the default
-(K4's region of 32x8 pixels against its default 32x16):
+included): a tree from before those does not load.  K1 and K4 of the
+other tree must also read this tree's records (``raster2.REC_ROWS``
+rows, the pixel box among them): a tree whose kernels read 16-row
+records misreads them, and its comparison with the plain version
+fails.  Without ``--other`` the other build is the checkout's own
+sources, which with ``--other-flags`` times a compile-time variant
+against the default (K4's region of 32x8 pixels against its default
+32x16):
 
     python3 kernel_ab.py --kernels resolve_depth --scenes atrium_lifted \\
         --other-flags=-DSOC_K4_TILES=1

@@ -235,10 +235,14 @@ def _raster(plan, batch, g, model_mats, normal_mats, impl):
     overflow = vis.overflow
     if cfg.enable_shadows and not plan.shadow_statically_empty:
         with trace.span("raster.shadow"):
-            sclip = _clip_of(world, g.sun.projection_view)
-            svis, _ = raster2.rasterize(sclip, plan.shadow_grid, cull="back",
-                                        impl=impl, depth_only=True,
-                                        shard=shard)
+            with trace.span("shadow.setup"):
+                sclip = _clip_of(world, g.sun.projection_view)
+                binned = raster2.bin_triangles(sclip, plan.shadow_grid,
+                                               cull="back", shard=shard)
+            with trace.span("shadow.resolve"):
+                svis = raster2.resolve_binned(binned, impl=impl,
+                                              depth_only=True, shard=shard)
+            trace.counters["shadow_texels"] += _shadow_texels(plan, sclip)
             # split: the ESM tap reads anywhere in the map (or its crop)
             shadow_map = (svis.depth if shard is None
                           else halo.gather(svis.depth))
@@ -249,6 +253,16 @@ def _raster(plan, batch, g, model_mats, normal_mats, impl):
         if shard is not None:
             records = halo.replicate(records, devices)
     return vis, records, shadow_map, overflow
+
+
+def _shadow_texels(plan: FramePlan, sclip) -> int:
+    """The texels of the sun's map that the shadow view can cover, over
+    its views: the proved crop's area, or the whole map without a crop
+    (K4 writes the rest of the map as the 1.0 clear)."""
+    views = sclip.shape[0] if sclip.dim() == 4 else 1
+    if plan.shadow_crop is not None:
+        return views * plan.shadow_crop[2] * plan.shadow_crop[3]
+    return views * plan.config.shadow_resolution ** 2
 
 
 def _ssr_mix(hdr, ssr_img, metallic_roughness):

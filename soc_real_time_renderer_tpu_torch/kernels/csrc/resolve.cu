@@ -14,11 +14,16 @@
 // id, so no tie rule (the minimum of a set does not depend on order).
 //
 // Inputs: `starts` (num_bins + 1) int32 offsets into the bin-sorted pair
-// records `recs` (16, cap) float32, rows [adjugate 3x3 | z0..2 | w0..2 |
-// id as an exact float] (K4 reads rows 0-14).  Outputs `depth` f32 and,
-// for K1, `tri_id` i32, both (band_by * bh, out_w) with out_w = bins per
-// row * bw.  Views: `views` such sets back to back, (views, num_bins + 1)
-// starts, (views, 16, cap) records, (views, band_by * bh, out_w)
+// records `recs` (20, cap) float32, rows [adjugate 3x3 | z0..2 | w0..2 |
+// pixel box x0, y0, x1, y1 | id as an exact float] (K4 reads rows 0-18).
+// A record covers a pixel only inside its box (x0 < px < x1, y0 < py <
+// y1 at the pixel's centre; the setup's bbox, whole pixels): the
+// Pallas kernels have no box, and a sliver's float32 edge functions can
+// pass at pixels past its triangle, where they pick it.  Outputs `depth`
+// f32 and, for K1, `tri_id` i32, both (band_by * bh, out_w) with out_w =
+// bins per row * bw.  Views: `views` such sets back to back, (views,
+// num_bins + 1) starts, (views, 20, cap) records, (views, band_by * bh,
+// out_w)
 // outputs, resolved by one launch whose blockIdx.y is the view (the B
 // views of parallel/mesh.py; one frame is views = 1).
 //
@@ -56,9 +61,10 @@
 //    takes one record of the staged window and keeps it only if some
 //    w > 0 (a record with no w > 0 covers nothing: with every e >= 0 and
 //    every w <= 0 or NaN, each e*w is <= 0 or NaN and so is their sum,
-//    so `ew > 0` fails at every pixel in f32) and it may cover the
-//    region (edge_may_cover at the region's corners, with a stated
-//    rounding margin); the kept records are compacted into a shared
+//    so `ew > 0` fails at every pixel in f32), its box holds a pixel
+//    centre of the region, and it may cover the region (edge_may_cover
+//    at the region's corners, with a stated rounding margin); the kept
+//    records are compacted into a shared
 //    list by ballots.  Then each warp owns kTiles tiles of 8x4 pixels,
 //    8 rows apart (one pixel of each per lane): its 32 lanes test 32
 //    listed records against a tile's corners, and the warp walks the
@@ -113,6 +119,7 @@
 
 namespace {
 
+constexpr int kRec = 20;               // rows of a record
 constexpr int kThreads = 256;
 constexpr int kWindow = 256;           // records per staged window
 constexpr int kTileW = 8, kTileH = 4;  // a warp's tile, lane = pixel
@@ -189,7 +196,7 @@ __device__ __forceinline__ bool edge_may_cover(float a0, float a1, float a2,
 }
 
 // kIds: K1 (the id row is staged, ties go to the lower id, tri_id is
-// written); else K4 (15 rows, the minimum z alone).  kTiles: 8x4 tiles a
+// written); else K4 (19 rows, the minimum z alone).  kTiles: 8x4 tiles a
 // warp owns, 8 rows apart; the block's region is 32 x (8 * kTiles).
 template <bool kIds, int kTiles>
 __global__ void __launch_bounds__(kThreads)
@@ -197,14 +204,14 @@ resolve_body(const int* __restrict__ starts, const float* __restrict__ recs,
              int cap, int vec, int num_bins, int bx, int bw, int bh,
              int row0, int parts_x, int parts, int out_w, size_t out_view,
              float* __restrict__ depth, int* __restrict__ tri_id) {
-    constexpr int kR = kIds ? 16 : 15;
+    constexpr int kR = kIds ? kRec : kRec - 1;
     constexpr int kRegionH = kBlockH * kTiles;
     __shared__ __align__(16) float s[2][kR][kWindow];
     __shared__ int kept[kWindow];             // window columns kept
     __shared__ int kept_by_warp[kThreads / 32];
     // this block's view: its starts, records and output planes
     starts += (size_t)blockIdx.y * (num_bins + 1);
-    recs += (size_t)blockIdx.y * 16 * cap;
+    recs += (size_t)blockIdx.y * kRec * cap;
     depth += blockIdx.y * out_view;
     if (kIds) tri_id += blockIdx.y * out_view;
     // the band's bin bl, global bin b: output rows from the band's first
@@ -281,6 +288,8 @@ resolve_body(const int* __restrict__ starts, const float* __restrict__ recs,
         const bool keep =
             c >= start && c < end
             && (r[12][j] > 0.0f || r[13][j] > 0.0f || r[14][j] > 0.0f)
+            && r[15][j] < rxh && r[17][j] > rxl && r[16][j] < ryh
+            && r[18][j] > ryl
             && edge_may_cover(r[0][j], r[1][j], r[2][j], rxl, rxh, ryl, ryh)
             && edge_may_cover(r[3][j], r[4][j], r[5][j], rxl, rxh, ryl, ryh)
             && edge_may_cover(r[6][j], r[7][j], r[8][j], rxl, rxh, ryl, ryh);
@@ -318,7 +327,9 @@ resolve_body(const int* __restrict__ starts, const float* __restrict__ recs,
                     const float e0 = r[0][u] * px + r[1][u] * py[t] + r[2][u];
                     const float e1 = r[3][u] * px + r[4][u] * py[t] + r[5][u];
                     const float e2 = r[6][u] * px + r[7][u] * py[t] + r[8][u];
-                    if (e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f) {
+                    if (e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f
+                        && px > r[15][u] && px < r[17][u]
+                        && py[t] > r[16][u] && py[t] < r[18][u]) {
                         const float ez =
                             e0 * r[9][u] + e1 * r[10][u] + e2 * r[11][u];
                         const float ew =
@@ -374,7 +385,7 @@ int launch(const void* starts, const void* recs, void* depth, void* tri_id,
     if ((long long)band_bins * parts > 0x7fffffff) {
         return (int)cudaErrorInvalidValue;
     }
-    // a view's records start 16 * cap floats apart: aligned alike
+    // a view's records start kRec * cap floats apart: aligned alike
     const int vec = cap % 4 == 0 && (uintptr_t)recs % 16 == 0;
     const size_t out_view = (size_t)band_by * bh * out_w;
     resolve_body<kIds, kTiles>

@@ -16,8 +16,11 @@ layout only:
    triangle at ``med_slots`` bins and sets ``OVERFLOW_MED_SLOTS``, which
    here is set only when more triangles need the tier than
    ``large_cap`` holds, so a frame without it loses no coverage.
-3. **Records** (:func:`build_records`): (16, T + 1) f32 [adj 9 | z 3 |
-   w 3 | id], gathered into bin order.
+3. **Records** (:func:`build_records`): (20, T + 1) f32 [adj 9 | z 3 |
+   w 3 | box 4 | id], gathered into bin order.  The box rows are the
+   port's own: a record covers a pixel only inside its triangle's pixel
+   box (the setup's bbox), where the JAX package's records (16 rows)
+   let a sliver's float32 edge functions leak past it.
 4. **Resolve** (:func:`resolve`): kernel K1 (``kernels/csrc/resolve.cu``)
    on a card, :func:`resolve_plain` on the CPU: per pixel the minimum-z
    covering record of its bin, ties to the lower id, clear 1.0 / -1.
@@ -37,7 +40,7 @@ Views: every step takes an optional leading view axis (B views of one
 scene, ``parallel/mesh.py``).  Clip positions (B, 3, 4, T) give a setup
 whose rows are (k, B, T), per-view pair streams (B, S) sorted along
 their last axis (each view's stream is its single-view stream), starts
-(B, bins + 1), records (B, 16, cap) and one resolve launch for the B
+(B, bins + 1), records (B, 20, cap) and one resolve launch for the B
 views, (B, H, W) out.
 """
 from __future__ import annotations
@@ -56,6 +59,8 @@ W_EPS = 1e-6
 # the resolve here does not depend on it)
 ZQ = 16384
 
+# rows of a record: adjugate 9, z 3, w 3, box 4 (x0, y0, x1, y1), id
+REC_ROWS = 20
 OVERFLOW_PAIRS = 1       # sorted pair stream exceeded BinGrid.pair_cap
 OVERFLOW_MED_CAP = 2     # more medium triangles than BinGrid.med_cap
 OVERFLOW_MED_SLOTS = 4   # coverage dropped: more triangles span
@@ -207,11 +212,12 @@ def default_grid(width, height, kind="main"):
 
 
 def build_records(setup: PlanarSetup) -> torch.Tensor:
-    """(*V, 16, T+1) f32 [adj 9 | z 3 | w 3 | id as an exact float
-    value]; column T is an always-miss sentinel."""
+    """(*V, 20, T+1) f32 [adj 9 | z 3 | w 3 | box 4: the setup's bbox
+    x0, y0, x1, y1 in whole pixels, x1 and y1 exclusive | id as an exact
+    float value]; column T is an always-miss sentinel."""
     T = setup.adj.shape[-1]
     ids = torch.arange(T, dtype=torch.float32, device=setup.adj.device)
-    rec = torch.cat([setup.adj, setup.zs, setup.ws,
+    rec = torch.cat([setup.adj, setup.zs, setup.ws, setup.bbox,
                      ids.expand(1, *setup.adj.shape[1:])], dim=0)
     rec = torch.cat([rec, torch.zeros_like(rec[..., :1])], dim=-1)
     return rec.movedim(0, -2)
@@ -331,12 +337,16 @@ def build_pairs(setup: PlanarSetup, grid: BinGrid):
 
 
 def _eval_records(rec, px, py):
-    """Coverage + depth of records (16, ...) at pixel centres, in the
-    operation order of the TPU kernel (raster2.py:613-621)."""
+    """Coverage + depth of records (20, ...) at pixel centres, in the
+    operation order of the TPU kernel (raster2.py:613-621), and only
+    inside the record's pixel box: a sliver's float32 edge functions can
+    pass at pixels past its triangle (the JAX kernel leaks there)."""
     e0 = rec[0] * px + rec[1] * py + rec[2]
     e1 = rec[3] * px + rec[4] * py + rec[5]
     e2 = rec[6] * px + rec[7] * py + rec[8]
     cov = (e0 >= 0) & (e1 >= 0) & (e2 >= 0)
+    cov = cov & (px > rec[15]) & (px < rec[17]) & (py > rec[16]) \
+        & (py < rec[18])
     ez = e0 * rec[9] + e1 * rec[10] + e2 * rec[11]
     ew = e0 * rec[12] + e1 * rec[13] + e2 * rec[14]
     cov = cov & (ew > 0)
@@ -410,7 +420,7 @@ def resolve_plain(starts, recs, grid: BinGrid, pair_chunk: int = 4096,
         for p0 in range(p_lo, p_hi, pair_chunk):
             p = torch.arange(p0, min(p0 + pair_chunk, p_hi), device=dev)
             gx, oy, gy = locate(p)
-            rec = recs[:, p][:, :, None]                      # (16, n, 1)
+            rec = recs[:, p][:, :, None]                      # (20, n, 1)
             cov, z = _eval_records(rec, gx.to(torch.float32) + 0.5,
                                    gy.to(torch.float32) + 0.5)
             yield rec, cov, z, (oy * Wp + gx)
@@ -419,7 +429,7 @@ def resolve_plain(starts, recs, grid: BinGrid, pair_chunk: int = 4096,
         zbuf.scatter_reduce_(0, flat[cov], z[cov], reduce="amin")
     for rec, cov, z, flat in chunks():
         win = cov & (z == zbuf[flat])
-        ids = rec[15].to(torch.int32).expand_as(z)
+        ids = rec[REC_ROWS - 1].to(torch.int32).expand_as(z)
         ibuf.scatter_reduce_(0, flat[win], ids[win], reduce="amin")
     hit = ibuf < big_id
     depth = torch.where(hit, zbuf, 1.0).reshape(Hp, Wp)
@@ -429,11 +439,11 @@ def resolve_plain(starts, recs, grid: BinGrid, pair_chunk: int = 4096,
 
 def _check_resolve_inputs(what, starts, recs, grid):
     """The view count of K1's / K4's inputs, after checking them: starts
-    (*V, bins + 1) int32, recs (*V, 16, cap) float32."""
+    (*V, bins + 1) int32, recs (*V, REC_ROWS, cap) float32."""
     if starts.dtype != torch.int32 or recs.dtype != torch.float32:
         raise TypeError(f"{what} takes int32 starts and float32 records")
     if (starts.shape[-1] != grid.num_bins + 1 or recs.dim() < 2
-            or recs.shape[-2] != 16 or starts.dim() > 2
+            or recs.shape[-2] != REC_ROWS or starts.dim() > 2
             or starts.shape[:-1] != recs.shape[:-2]):
         raise ValueError(f"starts {tuple(starts.shape)} / records "
                          f"{tuple(recs.shape)} do not match the grid")
@@ -444,7 +454,7 @@ def resolve(starts, recs, grid: BinGrid, impl: str | None = None,
             row0: int = 0, band_by: int | None = None):
     """K1 dispatch: bin resolve -> (depth, tri_id) padded to the bin
     grid.  CUDA tensors launch the kernel, CPU tensors (or impl="plain")
-    take resolve_plain.  starts (*V, bins + 1), recs (*V, 16, cap): with
+    take resolve_plain.  starts (*V, bins + 1), recs (*V, 20, cap): with
     a view axis one launch resolves every view, (B, Hp, Wp) out.
 
     A band: bin rows [row0, row0 + band_by) of the grid (band_by None:
@@ -533,10 +543,10 @@ def resolve_depth(starts, recs, grid: BinGrid, impl: str | None = None,
 
 
 def gather_records(setup: PlanarSetup, grid: BinGrid):
-    """Bin + sort + gather: (starts, bin-ordered records (*V, 16, cap),
-    overflow, cropped grid) exactly as the JAX rasterize prepares the
-    resolve's inputs (the record array spans a chunk multiple, at most
-    pair_cap columns)."""
+    """Bin + sort + gather: (starts, bin-ordered records (*V, 20, cap),
+    overflow, cropped grid) as the JAX rasterize prepares the resolve's
+    inputs, with the box rows besides (the record array spans a chunk
+    multiple, at most pair_cap columns)."""
     T = setup.adj.shape[-1]
     starts, sorted_tids, overflow = build_pairs(setup, grid)
     records = build_records(setup)
@@ -544,7 +554,8 @@ def gather_records(setup: PlanarSetup, grid: BinGrid):
     cap = min(grid.pair_cap, _cdiv(S, grid.chunk) * grid.chunk)
     cols = torch.clamp(sorted_tids[..., :min(S, cap)], max=T).long()
     recs = torch.gather(records, -1,
-                        cols.unsqueeze(-2).expand(*cols.shape[:-1], 16, -1))
+                        cols.unsqueeze(-2).expand(*cols.shape[:-1],
+                                                  REC_ROWS, -1))
     if recs.shape[-1] < cap:
         recs = torch.cat([recs, recs.new_zeros(
             (*recs.shape[:-1], cap - recs.shape[-1]))], dim=-1)
@@ -596,16 +607,51 @@ def rasterize(clip, grid: BinGrid, cull: str = "front",
     bboxes are clamped to the viewport); setup, binning and records run
     on clip's device.  The buffer's depth and tri_id are then lists of
     row bands cropped to the viewport (a band past the viewport is
-    empty), band i on the axis's device i."""
-    vh, vw = grid.height, grid.width
+    empty), band i on the axis's device i.
+
+    The two steps, :func:`bin_triangles` and :func:`resolve_binned`, are
+    also called one by one (the shadow view times each)."""
+    binned = bin_triangles(clip, grid, cull, shard=shard)
+    return resolve_binned(binned, impl=impl, depth_only=depth_only,
+                          shard=shard), binned.setup
+
+
+@dataclass(frozen=True)
+class Binned:
+    """The resolve's inputs (:func:`bin_triangles`)."""
+    setup: PlanarSetup
+    starts: torch.Tensor
+    records: torch.Tensor
+    overflow: torch.Tensor
+    grid: BinGrid           # padded to the row split's bands
+    viewport: tuple         # (height, width) of the viewport
+
+
+def bin_triangles(clip, grid: BinGrid, cull: str = "front",
+                  shard=None) -> Binned:
+    """:func:`rasterize`'s first step: triangle setup, binning, the
+    sorted record stream (the bin grid padded for `shard`)."""
     setup = triangle_setup_planar(clip, grid.width, grid.height, cull)
+    viewport = (grid.height, grid.width)
     if shard is not None:
         mesh, axis = shard
         n = len(mesh.band_devices(axis))
         grid = dataclasses.replace(
             grid, height=_cdiv(grid.by, n) * n * grid.bh)
     starts, recs, overflow, rgrid = gather_records(setup, grid)
+    return Binned(setup, starts, recs, overflow, rgrid, viewport)
+
+
+def resolve_binned(binned: Binned, impl: str | None = None,
+                   depth_only: bool = False,
+                   shard=None) -> VisibilityBuffer:
+    """:func:`rasterize`'s second step: the resolve (K1, or K4 with
+    depth_only; per band with `shard`), cropped to the viewport."""
+    (vh, vw), rgrid = binned.viewport, binned.grid
+    starts, recs, overflow = binned.starts, binned.records, binned.overflow
     if shard is not None:
+        mesh, axis = shard
+        n = len(mesh.band_devices(axis))
         depth, tid = resolve_row_sharded(starts, recs, rgrid, mesh, axis,
                                          impl=impl, depth_only=depth_only)
         band_h = rgrid.height // n
@@ -616,12 +662,11 @@ def rasterize(clip, grid: BinGrid, cull: str = "front",
 
         return VisibilityBuffer(
             depth=crop(depth), tri_id=None if tid is None else crop(tid),
-            overflow=overflow), setup
+            overflow=overflow)
     if depth_only:
         depth = resolve_depth(starts, recs, rgrid, impl=impl)
         return VisibilityBuffer(depth=depth[..., :vh, :vw], tri_id=None,
-                                overflow=overflow), setup
+                                overflow=overflow)
     depth, tid = resolve(starts, recs, rgrid, impl=impl)
-    vis = VisibilityBuffer(depth=depth[..., :vh, :vw],
-                           tri_id=tid[..., :vh, :vw], overflow=overflow)
-    return vis, setup
+    return VisibilityBuffer(depth=depth[..., :vh, :vw],
+                            tri_id=tid[..., :vh, :vw], overflow=overflow)

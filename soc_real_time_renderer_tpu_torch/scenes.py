@@ -12,8 +12,10 @@ transforms.  It also reads the cloud-noise texture
 ``ASSETS/Clouds/noise.png`` when the file exists.
 
 The presets (:func:`build`): ``helmet``, ``helmet_lifted``, ``sponza``,
-``terrain`` and ``full`` (BASELINE configs 1-6).  All but ``terrain``
-read the asset tree under ``ASSETS`` (``SOC_ASSETS``):
+``terrain`` and ``full`` (BASELINE configs 1-6), and ``sponza_lifted``
+(``sponza`` inside the sun's volume, animated: the paid 4096^2 shadow
+view through its proved crop).  All but ``terrain`` read the asset
+tree under ``ASSETS`` (``SOC_ASSETS``):
 ``DamagedHelmet/glTF/DamagedHelmet.gltf`` and, for the atrium's
 materials, ``Sponza/glTF``; a missing helmet raises
 ``FileNotFoundError`` naming the file.  ``terrain`` takes
@@ -442,6 +444,34 @@ def build_sponza(config: RenderConfig, device=None, **kw) -> BuiltScene:
                    device=device, **kw)
 
 
+def build_sponza_lifted(config: RenderConfig, device=None,
+                        **kw) -> BuiltScene:
+    """``sponza``'s two entities lifted to y = 32, inside the sun's ortho
+    volume (y 24..56 around the y = 40 light, renderer.cpp:104-133), with
+    ``full``'s animated camera lifted alike: the 4096^2 shadow raster
+    (K4) runs every frame and composition samples it through the proved
+    crop.  Lifting the scene 32 puts the same geometry under the same
+    shadow texels as lowering the default sun 32."""
+    device = resolve_device(device)
+    scene = Scene("sponza_lifted")
+    with trace.span("scenes.models"):
+        atrium = _entity(scene, "sponza model", proc.build_atrium(
+            texture_dir=os.path.join(ASSETS, "Sponza/glTF")),
+            position=[0.0, 32.0, 0.0], scale=[0.01] * 3)
+        helmet = _entity(scene, "damaged helmet model",
+                         gltf.load_model(helmet_path()),
+                         position=[0.0, 32.0, 0.0])
+    built = _finish(scene, [atrium, helmet], config,
+                    camera_pos=[-7.0, 33.8, 0.0],
+                    camera_target=[0, 33.5, 0], animate=True,
+                    device=device, **kw)
+    if built.plan.shadow_statically_empty:
+        raise AssertionError("lifted sponza must defeat the elision proof")
+    if built.plan.shadow_crop is None:
+        raise AssertionError("lifted sponza must prove a shadow crop")
+    return built
+
+
 def _terrain_model(**build_kw):
     """The terrain preset's model: the heightmap of
     ``SOC_TERRAIN_HEIGHTMAP`` (EXR or PNG, R channel) or a procedural
@@ -493,8 +523,8 @@ def build_full(config: RenderConfig, device=None, **kw) -> BuiltScene:
 
 
 PRESETS = {"helmet": build_helmet, "helmet_lifted": build_helmet_lifted,
-           "sponza": build_sponza, "terrain": build_terrain,
-           "full": build_full}
+           "sponza": build_sponza, "sponza_lifted": build_sponza_lifted,
+           "terrain": build_terrain, "full": build_full}
 
 
 def build(name: str, config: RenderConfig, device=None, **kw) -> BuiltScene:

@@ -28,7 +28,11 @@ as ``kernels/build.launches`` counts the hand kernels' launches:
 - ``d2h_reads.<site>``: device-to-host reads on the frame path
   (:func:`read_back`), by the function that reads: the proof checks of
   ``graph/frame.py``, the only reads ``render_frame`` and
-  ``BuiltScene.frame_globals`` make.
+  ``BuiltScene.frame_globals`` make;
+- ``shadow_texels``: the texels of the sun's map that the shadow view
+  (span ``raster.shadow`` ⊃ ``shadow.setup``, ``shadow.resolve``) can
+  cover, a rendered map: the plan's proved crop, or the whole map.
+  Known on the host from the plan; nothing where the map is elided.
 
 :func:`snapshot` returns the totals, the counters and the kernel
 launches together; :func:`profiled` returns the same for the latest

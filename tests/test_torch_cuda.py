@@ -351,6 +351,24 @@ def test_resolve_depth_kernel_matches_plain(dev, S):
     assert 0.05 < (dk < 1.0).float().mean().item() < 1.0
 
 
+def test_resolve_kernels_keep_a_sliver_inside_its_box(dev):
+    """The lifted atrium's sliver (kit.LIFTED_SLIVER), whose float32 edge
+    functions pass at texels (1971, 2190) and (1971, 2191) past its box:
+    K4 and K1 bit-identical to their plain versions, and neither covers
+    a texel outside the box."""
+    S = 4096
+    clip = kit.sliver_clip().to(dev)
+    dk, _ = _depth_both(clip, S, _shadow_grid(S))
+    setup = raster2.triangle_setup_planar(clip, S, S, "back")
+    ik, _ = _resolve_both(setup, raster2.BinGrid(
+        width=S, height=S, bin_w=64, bin_h=32, group=2, pair_cap=65536,
+        med_cap=512))
+    for covered in (dk < 1.0, ik >= 0):
+        ys, xs = torch.nonzero(covered, as_tuple=True)
+        assert len(ys) and bool(((ys >= 2182) & (ys < 2190)).all())
+        assert bool(((xs >= 1971) & (xs < 1973)).all())
+
+
 def _depth_both(clip, S, grid):
     """K4 and resolve_depth_plain on the clip triangles seen as a shadow
     view (back-face cull): asserts one launch and bit-identical depth;

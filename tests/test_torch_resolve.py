@@ -42,7 +42,7 @@ TILE_W, TILE_H = 8, 4
 
 
 def tile_may_cover(rec, xl, xh, yl, yh):
-    """resolve.cu's tile test in plain PyTorch: rec (16, N); tile corner
+    """resolve.cu's tile test in plain PyTorch: rec (20, N); tile corner
     pixel centres (M,) each -> (N, M) bool, False only where no pixel
     centre of the tile can pass all three edge tests."""
     xl, xh, yl, yh = (t[None, :] for t in (xl, xh, yl, yh))
@@ -116,17 +116,20 @@ def _no_w_positive(rec):
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_records_without_positive_w_cover_nothing(seed):
     """Random records with every w <= 0 (±0.0 and 1e-30 magnitudes
-    among them) cover no pixel; the same records with w > 0 do."""
+    among them) cover no pixel; the same records with w > 0 do.  Their
+    boxes hold the whole target, so the w rule alone decides."""
     rng = np.random.default_rng(seed)
     n = 4000
-    scale = rng.choice([1e-30, 1e-3, 1.0, 1e3], (16, n))
-    rec = rng.normal(size=(16, n)) * scale
-    rec[rng.random((16, n)) < 0.05] = 0.0
-    rec[rng.random((16, n)) < 0.05] = -0.0
+    rows = praster.REC_ROWS
+    scale = rng.choice([1e-30, 1e-3, 1.0, 1e3], (rows, n))
+    rec = rng.normal(size=(rows, n)) * scale
+    rec[rng.random((rows, n)) < 0.05] = 0.0
+    rec[rng.random((rows, n)) < 0.05] = -0.0
     rec[12:15] = -np.abs(rec[12:15])
     rec[12:15][rng.random((3, n)) < 0.1] = 0.0
     rec[12:15][rng.random((3, n)) < 0.1] = -0.0
-    rec[15] = np.arange(n)
+    rec[15:19] = np.array([0.0, 0.0, 64.0, 32.0])[:, None]
+    rec[19] = np.arange(n)
     rec = torch.from_numpy(rec.astype(np.float32))
     assert bool(_no_w_positive(rec).all())
     assert bool((rec[12:15] == 0).any()) and bool(
@@ -166,7 +169,9 @@ def test_terrain_records_behind_the_camera_cover_nothing():
                        torch.tensor([[0.0], [0.0], [1.0], [1.0]]).expand(
                            4, int(dead.sum())))
     px, py = _pixels(w, h)
-    cov, _ = praster._eval_records(rec[:, dead][:, :, None], px, py)
+    dead_rec = rec[:, dead].clone()
+    dead_rec[15:19] = torch.tensor([0.0, 0.0, w, h])[:, None]  # the w rule
+    cov, _ = praster._eval_records(dead_rec[:, :, None], px, py)
     assert not bool(cov.any())
 
 
@@ -258,6 +263,75 @@ def test_region_rule_never_rejects_a_covered_region(name, region):
     assert bool(covered.any())
     assert not bool((covered & ~may).any())
     assert bool((~may & ~covered).any())
+
+
+def _box_rule_on_regions(rec, w, h, rw, rh):
+    """(covered, kept, edges) of every (record, rw x rh region) of the
+    w x h target: some pixel centre of the region is inside all three
+    edges and inside the record's box (_eval_records' coverage);
+    resolve.cu's first level keeps the record (its box holds a pixel
+    centre of the region, and the edge rule); the edge rule alone keeps
+    it."""
+    px, py = _pixels(w, h)
+    nx = w // rw
+    region = (torch.arange(w * h) // w) // rh * nx \
+        + (torch.arange(w * h) % w) // rw
+    t = torch.arange(nx * (h // rh))
+    xl = (t % nx * rw).float() + 0.5
+    yl = (t // nx * rh).float() + 0.5
+    xh, yh = xl + (rw - 1), yl + (rh - 1)
+    cov, _ = praster._eval_records(rec[:, :, None], px, py)
+    covered = torch.zeros((rec.shape[1], len(t)), dtype=torch.int32)
+    covered.index_add_(1, region, (_edges_inside(rec, px, py) & cov)
+                       .to(torch.int32))
+    box = ((rec[15][:, None] < xh) & (rec[17][:, None] > xl)
+           & (rec[16][:, None] < yh) & (rec[18][:, None] > yl))
+    edges = tile_may_cover(rec, xl, xh, yl, yh)
+    return covered > 0, box & edges, edges
+
+
+@pytest.mark.parametrize("region", sorted(REGIONS))
+@pytest.mark.parametrize("name", sorted(set(_tile_soups()) - {"near_axis"}))
+def test_region_box_rule_never_rejects_a_covered_region(name, region):
+    """The first level's box test (a record is kept only where its box
+    holds a pixel centre of the block's region) with the edge rule: no
+    record that covers a pixel centre of a region, box included, is
+    rejected, and the box rejects records that the edge rule keeps."""
+    rec, w, h = _tile_soups()[name]()
+    covered, kept, edges = _box_rule_on_regions(rec, w, h,
+                                                *REGIONS[region])
+    assert bool(covered.any())
+    assert not bool((covered & ~kept).any())
+    assert bool((edges & ~kept).any())
+
+
+def test_a_sliver_covers_nothing_past_its_box():
+    """A sliver 0.2 texels wide whose float32 edge functions all pass at
+    texels (1971, 2190) and (1971, 2191), below its box's last row 2189
+    (the atrium of ``sponza_lifted`` in the sun's 4096^2 view: K4 and
+    its plain version once wrote it there, nearer than the floor under
+    it).  The records' box rows keep _eval_records, and so the resolve,
+    inside the box, as the benchmark's reference tests each pixel of
+    the box alone."""
+    S = 4096
+    setup = praster.triangle_setup_planar(kit.sliver_clip(), S, S, "back")
+    assert bool(setup.valid[0])
+    assert setup.bbox[:, 0].tolist() == [1971.0, 2182.0, 1973.0, 2190.0]
+    rec = praster.build_records(setup)[:, :-1]
+    px = torch.full((4,), 1971.5)
+    py = torch.tensor([2188.5, 2189.5, 2190.5, 2191.5])
+    assert bool(_edges_inside(rec, px, py).all())
+    cov, _ = praster._eval_records(rec, px, py)
+    assert cov.tolist() == [True, True, False, False]
+    grid = praster.default_grid(S, S, kind="shadow")
+    starts, recs, ovf, rgrid = praster.gather_records(setup, grid)
+    depth = praster.resolve_depth_plain(starts, recs, rgrid)
+    assert int(ovf) == 0
+    assert depth[2188:2192, 1971].lt(1.0).tolist() == [True, True, False,
+                                                        False]
+    ys, xs = torch.nonzero(depth < 1.0, as_tuple=True)
+    assert len(ys) and bool(((ys >= 2182) & (ys < 2190)).all())
+    assert bool(((xs >= 1971) & (xs < 1973)).all())
 
 
 @pytest.fixture(scope="module")

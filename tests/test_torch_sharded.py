@@ -159,8 +159,9 @@ def _soup(seed, n):
 def _jax_inputs(jgrid, verts, cull="none", vh=None):
     """The JAX package's starts and bin-ordered f32 records for `jgrid`
     (rasterize's own steps: the setup on the viewport of height `vh`,
-    the binning on the grid, padded or not), and the grid with its
-    record width."""
+    the binning on the grid, padded or not), the grid with its record
+    width, and the same records in the port's layout (the setup's pixel
+    box inserted before the id row, praster.build_records)."""
     clip = make_clip(verts)
     n = len(verts) // 3
     planar = jnp.asarray(clip.reshape(n, 3, 4).transpose(1, 2, 0))
@@ -168,12 +169,19 @@ def _jax_inputs(jgrid, verts, cull="none", vh=None):
                                           vh or jgrid.height, cull)
     starts, st, _ = jraster.build_pairs(setup, jgrid)
     recs = jraster.build_records(setup, dtype="f32")
+    box = jnp.pad(setup.bbox, ((0, 0), (0, 1)))      # the sentinel's 0
     S = st.shape[0]
     cap = min(jgrid.pair_cap, -(-S // jgrid.chunk) * jgrid.chunk)
-    rs = recs[:, jnp.minimum(st[:min(S, cap)], n)]
+    cols = jnp.minimum(st[:min(S, cap)], n)
+    rs, bs = recs[:, cols], box[:, cols]
     if rs.shape[1] < cap:
         rs = jnp.pad(rs, ((0, 0), (0, cap - rs.shape[1])))
-    return starts, rs, dataclasses.replace(jgrid, pair_cap=cap)
+        bs = jnp.pad(bs, ((0, 0), (0, cap - bs.shape[1])))
+    port = np.concatenate([np.asarray(rs)[:15], np.asarray(bs),
+                           np.asarray(rs)[15:]])
+    assert port.shape[0] == praster.REC_ROWS
+    return (starts, rs, dataclasses.replace(jgrid, pair_cap=cap),
+            torch.from_numpy(port))
 
 
 @pytest.mark.parametrize("sp", [2, 3])
@@ -191,9 +199,8 @@ def test_resolve_row_sharded_equals_unsplit_and_jax(sp, depth_only):
     BYp = -(-3 // sp) * sp
     jgrid = dataclasses.replace(JGRID, height=BYp * 32)
     verts = np.concatenate([_soup(4, 60), _soup(5, 20) * 0.3])
-    js, jr, jg = _jax_inputs(jgrid, verts, vh=96)
+    js, jr, jg, recs = _jax_inputs(jgrid, verts, vh=96)
     starts = torch.from_numpy(np.array(js))
-    recs = torch.from_numpy(np.array(jr))
     grid = convert.grid_from_jax(jg)
     pd, pt = praster.resolve_row_sharded(starts, recs, grid, cpu_mesh(sp),
                                          "sp", depth_only=depth_only)
@@ -223,10 +230,9 @@ def test_band_resolve_is_the_band_of_the_whole():
     """resolve / resolve_depth of bin rows [row0, row0 + band_by) are
     those rows of the whole grid's, the edge bands included; a band past
     the grid raises."""
-    js, jr, jg = _jax_inputs(dataclasses.replace(JGRID, height=128),
-                             _soup(6, 80))
+    js, jr, jg, recs = _jax_inputs(dataclasses.replace(JGRID, height=128),
+                                   _soup(6, 80))
     starts = torch.from_numpy(np.array(js))
-    recs = torch.from_numpy(np.array(jr))
     grid = convert.grid_from_jax(jg)
     d, t = praster.resolve(starts, recs, grid)
     dd = praster.resolve_depth(starts, recs, grid)

@@ -144,7 +144,8 @@ def test_a_cpu_frame_runs_every_span_of_its_passes(terrain, case):
         built = kit.build_port("atrium_lifted",
                                _cfg(enable_depth_of_field=True), "cpu")
         assert not built.plan.shadow_statically_empty
-        want = want | {"raster.shadow", "shade.dof"}
+        want = want | {"raster.shadow", "shadow.setup", "shadow.resolve",
+                       "shade.dof"}
     elif case == "sharded":
         built = dataclasses.replace(built)
         built.plan = dataclasses.replace(

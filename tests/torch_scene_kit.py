@@ -70,6 +70,21 @@ def metal_image(seed=5, size=64):
     return img
 
 
+# the lifted atrium's column sliver under the default sun (clip space,
+# orthographic: w = 1): in the 4096^2 map its float32 edge functions all
+# pass at texels (1971, 2190) and (1971, 2191), past its box's last row
+LIFTED_SLIVER = [[float.fromhex(v) for v in vertex] for vertex in (
+    ("-0x1.3236c8p-5", "0x1.19e29p-4", "0x1.0d959p-1"),
+    ("-0x1.333338p-5", "0x1.0c7508p-4", "0x1.0a934cp-1"),
+    ("-0x1.3236c8p-5", "0x1.16784p-4", "0x1.0a8818p-1"))]
+
+
+def sliver_clip():
+    """(3, 4, 1) planar clip positions of LIFTED_SLIVER."""
+    import torch
+    return torch.tensor([[*v, 1.0] for v in LIFTED_SLIVER]).reshape(3, 4, 1)
+
+
 def cloud_noise():
     """tests/test_sky_pallas.py's smooth tiled (64, 64) field."""
     rng = np.random.default_rng(11)
