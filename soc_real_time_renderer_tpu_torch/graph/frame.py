@@ -10,16 +10,18 @@ Pass order matches the reference graph:
 
 Cross-frame state rides in :class:`RenderHistory` (bf16 colour and
 velocity, f32 exposure).  PyTorch runs eagerly: no jit, no
-``torch.compile``.  The hand-written kernels on the path: K1 (main-view
-resolve), K4 (the sun shadow view's depth resolve, unless the build
-proved the map empty), K5 (the material tap), K2 (SSAO taps), K6 (the
-sky LUT over the cloud-noise texture) or K6p (the sky LUT over the
-procedural value noise, where there is no texture) and K3 (TAA history
-fetch).  The bracketed passes are off by default
-(``RenderConfig.enable_ssr``, ``composite_ssr``,
-``enable_depth_of_field``, ``enable_volumetric_light``,
-``cloud_impl="perpixel"``) and run as plain
-PyTorch.
+``torch.compile``; the render function of :func:`make_render_fn`
+replays each pass as a CUDA graph on a card (``graph/replay.py``), and
+``render_frame`` called directly is its eager reference.  The
+hand-written kernels on the path: K1 (main-view resolve), K4 (the sun
+shadow view's depth resolve, unless the build proved the map empty), K5
+(the material tap), K2 (SSAO taps), K6 (the sky LUT over the
+cloud-noise texture) or K6p (the sky LUT over the procedural value
+noise, where there is no texture) and K3 (TAA history fetch).  The
+bracketed passes are off by default (``RenderConfig.enable_ssr``,
+``composite_ssr``, ``enable_depth_of_field``,
+``enable_volumetric_light``, ``cloud_impl="perpixel"``) and run as
+plain PyTorch.
 
 Views: ``render_frame`` also renders B views of one scene at once
 (``parallel/mesh.py``), given globals and history whose every leaf has a
@@ -38,6 +40,7 @@ list of bands (``parallel/halo.py``), band i on the axis's device i.
 """
 from __future__ import annotations
 
+import sys
 import warnings
 from dataclasses import dataclass
 
@@ -62,6 +65,7 @@ from ..ops import taa as taa_ops
 from ..ops import tonemap as tonemap_ops
 from ..parallel import halo
 from ..utils import trace
+from . import replay
 
 
 @dataclass(frozen=True)
@@ -203,13 +207,15 @@ def raster_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
     (halo.band_starts), the shading records and the whole shadow map as
     {device: tensor} replicas."""
     with trace.span("frame.raster"):
-        return _raster(plan, batch, g, model_mats, normal_mats, impl)
+        return replay.run("raster_stage", _raster,
+                          (plan, batch, g, model_mats, normal_mats, impl),
+                          adopt=(2, 3, 4))
 
 
 def _raster(plan, batch, g, model_mats, normal_mats, impl):
     cfg = plan.config
     shard = _shard(plan)
-    with trace.span("raster.transform"):
+    with replay.segment("raster.transform"):
         if shard is not None:
             devices = shard[0].band_devices(shard[1])
             lead = devices[0]
@@ -220,7 +226,7 @@ def _raster(plan, batch, g, model_mats, normal_mats, impl):
                                        for m in (model_mats, normal_mats))
         world, wnrm = transform_triangles(batch, model_mats, normal_mats)
         clip = _clip_of(world, g.camera.projection_view)
-    with trace.span("raster.main"):
+    with replay.segment("raster.main"):
         vis, setup = raster2.rasterize(clip, plan.main_grid, cull="front",
                                        impl=impl, shard=shard)
         if shard is not None:
@@ -234,7 +240,7 @@ def _raster(plan, batch, g, model_mats, normal_mats, impl):
     shadow_map = None
     overflow = vis.overflow
     if cfg.enable_shadows and not plan.shadow_statically_empty:
-        with trace.span("raster.shadow"):
+        with replay.segment("raster.shadow"):
             with trace.span("shadow.setup"):
                 sclip = _clip_of(world, g.sun.projection_view)
                 binned = raster2.bin_triangles(sclip, plan.shadow_grid,
@@ -247,7 +253,7 @@ def _raster(plan, batch, g, model_mats, normal_mats, impl):
             shadow_map = (svis.depth if shard is None
                           else halo.gather(svis.depth))
             overflow = overflow | svis.overflow
-    with trace.span("raster.records"):
+    with replay.segment("raster.records"):
         records = gbuf_ops.build_shading_records(
             setup, world, wnrm, batch.tri_uv, batch.static_rows)
         if shard is not None:
@@ -299,7 +305,12 @@ def _cloud_args(cfg: RenderConfig, noise, stacklevel: int = 4):
 def _sky_lut(cfg: RenderConfig, g, noise, impl):
     """The sky LUT of the frame: K6 over the noise texture, or K6p over
     the procedural value noise."""
-    with trace.span("shade.sky_lut"):
+    return replay.run("_sky_lut", _render_sky_lut, (cfg, g, noise, impl),
+                      adopt=(1,))
+
+
+def _render_sky_lut(cfg: RenderConfig, g, noise, impl):
+    with replay.segment("shade.sky_lut"):
         if cfg.cloud_noise_mode == "texture" and noise is not None:
             return sky_ops.render_sky_lut_noise(g, noise, impl=impl)
         return sky_ops.render_sky_lut_procedural(g, impl=impl)
@@ -312,10 +323,13 @@ def shade_stage(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
     """Screen-space half of the frame.  With the plan's row split it runs
     over row bands (parallel/mesh.make_sharded_shade_fn); its inputs may
     then be raster_stage's bands and replicas or whole tensors."""
+    args = (plan, batch, g, history, vis, records, shadow_map, overflow,
+            impl)
     with trace.span("frame.shade"):
-        shade = _shade if _shard(plan) is None else _shade_sharded
-        return shade(plan, batch, g, history, vis, records, shadow_map,
-                     overflow, impl)
+        if _shard(plan) is not None:
+            return _shade_sharded(*args)
+        return replay.run("shade_stage", _shade, args,
+                          adopt=(2, 3, 4, 5, 6, 7))
 
 
 def _shade(plan, batch, g, history, vis, records, shadow_map, overflow,
@@ -327,11 +341,11 @@ def _shade(plan, batch, g, history, vis, records, shadow_map, overflow,
 
     hiz_min = hiz_max = None
     if cfg.enable_hiz:
-        with trace.span("shade.hiz"):
+        with replay.segment("shade.hiz"):
             hiz_min = hiz_ops.build_hiz(vis.depth, "min")
             hiz_max = hiz_ops.build_hiz(vis.depth, "max")
 
-    with trace.span("shade.gbuffer"):
+    with replay.segment("shade.gbuffer"):
         gbuf = gbuf_ops.resolve_gbuffer(
             vis, records, batch.atlas_packed, g.camera_prev.projection_view,
             atlas_size=plan.atlas_size, layer_stride=plan.atlas_layer_stride,
@@ -341,12 +355,12 @@ def _shade(plan, batch, g, history, vis, records, shadow_map, overflow,
     emissive = gbuf.emissive
     bloom = None
     if cfg.enable_bloom:
-        with trace.span("shade.bloom"):
+        with replay.segment("shade.bloom"):
             emissive = bloom_ops.bloom(emissive, cfg.bloom_mip_count)
         bloom = emissive
 
     ssao = None
-    with trace.span("shade.ssao"):
+    with replay.segment("shade.ssao"):
         if cfg.enable_ssao:
             ssao_half = ssao_ops.ssao_generate(vis.depth, gbuf.normal, g,
                                                cfg.ssao_kernel_size,
@@ -359,7 +373,7 @@ def _shade(plan, batch, g, history, vis, records, shadow_map, overflow,
 
     # SSR: computed, composited only behind composite_ssr (below)
     ssr_img = None
-    with trace.span("shade.ssr"):
+    with replay.segment("shade.ssr"):
         ssr_active = torch.full(V, -1, dtype=torch.int32, device=dev)
         if cfg.enable_ssr:
             ssr_img, ssr_overflow, ssr_active = ssr_ops.ssr(
@@ -371,11 +385,12 @@ def _shade(plan, batch, g, history, vis, records, shadow_map, overflow,
     clouds_half = None
     if cfg.enable_clouds:
         noise = batch.cloud_noise
-        hw, hh, quadrant = _cloud_args(cfg, noise)
+        hw, hh, quadrant = _cloud_args(cfg, noise, stacklevel=5)
         # the exact per-pixel march makes no LUT
         march = cfg.cloud_impl == "perpixel" and noise is not None
-        lut = None if march else _sky_lut(cfg, g, noise, impl)
-        with trace.span("shade.clouds"):
+        lut = None if march else replay.adopt(
+            _sky_lut(cfg, g, noise, impl))
+        with replay.segment("shade.clouds"):
             if march:
                 clouds_half = clouds_ops.render_clouds(g, vis.depth, noise,
                                                        hw, hh, **quadrant)
@@ -385,7 +400,7 @@ def _shade(plan, batch, g, history, vis, records, shadow_map, overflow,
             clouds_full = sampling.upsample_bilinear(clouds_half, cfg.height,
                                                      cfg.width)
 
-    with trace.span("shade.compose"):
+    with replay.segment("shade.compose"):
         hdr = comp_ops.compose(
             g, vis.depth, gbuf.albedo, emissive, gbuf.normal, ssao_full,
             shadow_map, clouds_full,
@@ -403,27 +418,27 @@ def _shade(plan, batch, g, history, vis, records, shadow_map, overflow,
     # histogram and TAA, so it feeds the history once and does not
     # compound (renderer.cpp:1119-1153)
     if cfg.enable_depth_of_field:
-        with trace.span("shade.dof"):
+        with replay.segment("shade.dof"):
             hdr = dof_ops.depth_of_field(hdr, vis.depth, g)
 
     exposure = history.exposure
     if cfg.enable_auto_exposure:
-        with trace.span("shade.exposure"):
+        with replay.segment("shade.exposure"):
             exposure = exposure_ops.auto_exposure(hdr, history.exposure, g)
 
     velocity = gbuf.velocity
     resolved = hdr
     if cfg.enable_taa:
-        with trace.span("shade.taa"):
+        with replay.segment("shade.taa"):
             resolved = taa_ops.taa(hdr, vis.depth, velocity,
                                    history.previous_color,
                                    history.previous_velocity,
                                    g.frame_counter, impl=impl)
 
-    with trace.span("shade.tonemap"):
+    with replay.segment("shade.tonemap"):
         color = tonemap_ops.tone_map(resolved, exposure, g)
 
-    with trace.span("shade.history"):
+    with replay.segment("shade.history"):
         new_history = RenderHistory(
             previous_color=resolved.to(torch.bfloat16),
             previous_velocity=velocity.to(torch.bfloat16),
@@ -633,13 +648,18 @@ def render_frame(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
 
 def make_render_fn(plan: FramePlan, impl: str | None = None):
     """(batch, g, history, model_mats, normal_mats) -> render_frame(plan,
-    ...).  A plain closure: nothing is compiled or memoised.  It exists
-    so that the viewer's render loop (ui/server.py) keeps the JAX loop's
-    structure, which makes a new render function for each new plan, and
-    so that tests can stub the render function there."""
+    ...), the same outputs, replayed as CUDA graphs where every input is
+    on one card, `impl` is not "plain" and the plan has no row split
+    (graph/replay.py: the first call of a size, plan or scene batch runs
+    eagerly, the second captures each pass, later calls replay them).
+    The viewer's render loop (ui/server.py) keeps the JAX loop's
+    structure, which makes a new render function for each new plan;
+    tests can stub the render function there."""
+    graphs = replay.FrameGraphs(sys.modules[__name__])
+
     def render(batch, g, history, model_mats, normal_mats):
-        return render_frame(plan, batch, g, history, model_mats,
-                            normal_mats, impl=impl)
+        return graphs.render(plan, impl, batch, g, history, model_mats,
+                             normal_mats)
     return render
 
 
