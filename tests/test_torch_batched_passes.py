@@ -17,13 +17,12 @@ pass is one batched operation under the JAX package's ``vmap``.
   switches (2 views at 128x64) and on ``terrain_perpixel`` (64x32)
   against the JAX ``make_batched_render_fn`` (``vmap`` on a dp = 2 mesh
   of the virtual CPU devices), sky LUT and SSAO hash shared as in
-  test_torch_parallel.py, at test_torch_passes.py's bounds.
+  test_torch_parallel.py, at test_torch_passes_frames.py's bounds.
 * The 4-band split frame on a ["cpu"] * 4 mesh with the passes on,
   one view and a batch of two, against its unsplit frame (max abs <=
   1e-6; 0 is what the CPU gives).
 """
 import dataclasses
-import os
 
 import jax
 import jax.numpy as jnp
@@ -98,21 +97,6 @@ def _fields(seed=3):
 
 def _worst(batched, singles):
     return max((a - b).abs().max().item() for a, b in zip(batched, singles))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def share_cores():
-    """Intra-op threads for this file: the cores shared among the
-    pytest-xdist workers (all of them in one process).  Its tensors are
-    small (32x64 to 128x64 pixels), and with more threads than cores
-    each small operation waits for threads the other workers hold: the
-    file took 34 s alone and over 900 s among six workers of eight
-    threads on eight cores."""
-    n = torch.get_num_threads()
-    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -264,17 +248,41 @@ def _jax_step(plan, mesh, H_, W_):
     return jmesh.make_batched_render_fn(plan, mesh), render_frame
 
 
+@pytest.fixture(scope="module")
+def port_step():
+    """name -> (port BuiltScene, its plan at SSR_CAP, (colour, history)
+    of the port's unmeshed batched step on frame 0 of the scene's two
+    views, sky LUT and SSAO hash shared): rendered once in the module,
+    read by batched_pair and by the split test's two-view case."""
+    done = {}
+
+    def get(name):
+        if name not in done:
+            pb = kit.build_port(name, _configs(name)[1], "cpu")
+            plan = dataclasses.replace(pb.plan, ssr_cap=SSR_CAP)
+            gs, mm, nm = pmesh.view_globals(pb, POSITIONS[name], 0)
+            hb = pmesh.batched_history([pframe.RenderHistory.create(
+                plan.config, device="cpu") for _ in range(2)])
+            with pytest.MonkeyPatch.context() as mp:
+                tp.shared_inputs(mp, tp.luts_seeded())
+                step = pmesh.make_batched_render_fn(plan)(
+                    pb.batch, pmesh.batched_globals(gs), hb, mm, nm)
+            done[name] = pb, plan, step
+        return done[name]
+    return get
+
+
 @pytest.fixture(scope="module", params=["atrium_passes", "terrain_perpixel"])
-def batched_pair(request):
+def batched_pair(request, port_step):
     """One batched frame of 2 views of both packages -> (name, JAX
     colour, JAX extra targets (ssr, ssr_active, clouds), port colour,
     port outputs of render_frame on the batch, port step's history, JAX
     history)."""
     name = request.param
     jc_, pc_ = _configs(name)
-    jb, pb = kit.build_pair(name, jc_, pc_)
+    jb = kit.build_jax(name, jc_)
+    pb, pplan, (pc, ph2) = port_step(name)
     jplan = dataclasses.replace(tp.oracle_plan(jb.plan), ssr_cap=SSR_CAP)
-    pplan = dataclasses.replace(pb.plan, ssr_cap=SSR_CAP)
     positions = POSITIONS[name]
     Hc, Wc = pc_.height, pc_.width
     mesh = jmesh.make_mesh(2, dp=2)
@@ -294,17 +302,15 @@ def batched_pair(request):
                            jnm)
             jc = np.asarray(jc)
         pgb = pmesh.batched_globals(pgs)
-        pc, ph2 = pmesh.make_batched_render_fn(pplan)(pb.batch, pgb, ph,
-                                                      pmm, pnm)
         po, _ = pframe.render_frame(pplan, pb.batch, pgb, ph, pmm, pnm)
     return name, jc[:, :3], jc[:, 3:], pc, po, ph2, jh
 
 
 def test_batched_passes_match_jax(batched_pair):
-    """Per view: colour and history colour at test_torch_passes.py's
-    frame bounds (mean abs < 2e-4, 99.9th percentile < 1e-2; read: mean
-    <= 1.4e-5, p99.9 <= 8.1e-4), exposure within 1e-4 stops; the port
-    step's colour is render_frame's on the same batch."""
+    """Per view: colour and history colour at the frame bounds of
+    test_torch_passes_frames.py (mean abs < 2e-4, 99.9th percentile <
+    1e-2; read: mean <= 1.4e-5, p99.9 <= 8.1e-4), exposure within 1e-4
+    stops; the port step's colour is render_frame's on the same batch."""
     name, jc, _, pc, po, ph, jh = batched_pair
     assert pc.shape == jc.shape and pc.shape[0] == 2
     assert torch.equal(pc, po.color)
@@ -321,8 +327,8 @@ def test_batched_pass_targets_match_jax(batched_pair):
     JAX view's (read 2.4e-7: the flat materials' albedo differs by an
     ulp between the packages' texture taps) and its ssr_active equal
     (under the cap, > 1% of the pixels); terrain_perpixel: each view's
-    clouds target at the cloud bounds of test_torch_passes.py (median <
-    1e-5, mean < 5e-5; read: median 0, mean <= 1.1e-5)."""
+    clouds target at the cloud bounds of test_torch_passes_frames.py
+    (median < 1e-5, mean < 5e-5; read: median 0, mean <= 1.1e-5)."""
     name, _, jx, _, po, _, _ = batched_pair
     for i in range(2):
         if name == "atrium_passes":
@@ -346,16 +352,19 @@ def test_batched_pass_targets_match_jax(batched_pair):
 
 @pytest.mark.parametrize("views_", [1, 2])
 @pytest.mark.parametrize("name", ["atrium_passes", "terrain_perpixel"])
-def test_split_passes_equal_unsplit(name, views_):
+def test_split_passes_equal_unsplit(port_step, name, views_):
     """The frame in 4 row bands over a ["cpu"] * 4 mesh, its SSR, DoF
     and cloud march on the gathered screen and its volumetric term per
     band, against the unsplit frame: colour, hdr, the SSR target, the
     reflective-pixel count and the history; one view (render_frame of
     the split plan), and two (the meshed batched step on a (1, 4)
-    mesh against the unmeshed one)."""
+    mesh against the unmeshed one, port_step's)."""
     _, cfg = _configs(name)
-    pb = kit.build_port(name, cfg, "cpu")
-    plan = dataclasses.replace(pb.plan, ssr_cap=SSR_CAP)
+    if views_ == 1:
+        pb = kit.build_port(name, cfg, "cpu")
+        plan = dataclasses.replace(pb.plan, ssr_cap=SSR_CAP)
+    else:
+        pb, plan, (want, wh) = port_step(name)
     mesh = pmesh.make_mesh(4, dp=1, devices=["cpu"] * 4)
     with pytest.MonkeyPatch.context() as mp:
         tp.shared_inputs(mp, tp.luts_seeded())
@@ -380,8 +389,6 @@ def test_split_passes_equal_unsplit(name, views_):
             gb = pmesh.batched_globals(gs)
             hb = pmesh.batched_history([pframe.RenderHistory.create(
                 cfg, device="cpu") for _ in range(2)])
-            want, wh = pmesh.make_batched_render_fn(plan)(pb.batch, gb, hb,
-                                                          mm, nm)
             batch, gm, hm = pmesh.shard_inputs(mesh, pb.batch, gb, hb)
             got, gh = pmesh.make_batched_render_fn(plan, mesh=mesh)(
                 batch, gm, hm, mm, nm)

@@ -1,16 +1,13 @@
 """The passes that are off by default, port against the JAX package on
-the CPU: the comparison-sampled shadow tap and the volumetric light
-over a rendered map, SSR (dense, compacted, over its cap), depth of
-field with its mip chain, the per-pixel cloud march, and two frames of
-the reduced ``atrium_passes`` and ``terrain_perpixel`` scenes
-(tests/torch_scene_kit.py) with those switches on.  Inputs come from
-numpy seeds; every bound is stated with its reason.  XLA's CPU jit
-contracts ``a*b + c`` into FMA and the port does not, so bounds are
-ulp-level, not bitwise (ROADMAP fault C7).
+the CPU, op by op: the comparison-sampled shadow tap and the volumetric
+light over a rendered map, SSR (dense, compacted, over its cap), depth
+of field with its mip chain and the per-pixel cloud march.  The frames
+with those switches on are in tests/test_torch_passes_frames.py and
+tests/test_torch_switches.py.  Inputs come from numpy seeds; every
+bound is stated with its reason.  XLA's CPU jit contracts ``a*b + c``
+into FMA and the port does not, so bounds are ulp-level, not bitwise
+(ROADMAP fault C7).
 """
-import dataclasses
-import warnings
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,12 +17,10 @@ import torch
 import torch_scene_kit as kit
 from soc_real_time_renderer_tpu import config as jcfg
 from soc_real_time_renderer_tpu.camera import Camera3D, camera_matrices
-from soc_real_time_renderer_tpu.graph import frame as jframe
 from soc_real_time_renderer_tpu.ops import clouds as jclouds
 from soc_real_time_renderer_tpu.ops import composition as jcomp
 from soc_real_time_renderer_tpu.ops import dof as jdof
 from soc_real_time_renderer_tpu.ops import sampling as jsampling
-from soc_real_time_renderer_tpu.ops import ssao as jssao
 from soc_real_time_renderer_tpu.ops import ssr as jssr
 from soc_real_time_renderer_tpu_torch import convert
 from soc_real_time_renderer_tpu_torch.config import RenderConfig
@@ -34,9 +29,7 @@ from soc_real_time_renderer_tpu_torch.ops import clouds as pclouds
 from soc_real_time_renderer_tpu_torch.ops import composition as pcomp
 from soc_real_time_renderer_tpu_torch.ops import dof as pdof
 from soc_real_time_renderer_tpu_torch.ops import gbuffer as pgbuf
-from soc_real_time_renderer_tpu_torch.ops import raster2 as praster
 from soc_real_time_renderer_tpu_torch.ops import sampling as psampling
-from soc_real_time_renderer_tpu_torch.ops import ssao as pssao
 from soc_real_time_renderer_tpu_torch.ops import ssr as pssr
 
 
@@ -336,202 +329,3 @@ def test_render_clouds_chunking(sky_inputs):
                               torch.from_numpy(noise), 48, 24,
                               rows_per_chunk=7)
     assert (a - b).abs().max().item() <= 1e-7
-
-
-# ------------------------------------------------ the slice as a whole
-
-ORACLE = dict(width=128, height=64, shadow_resolution=512, ssao_impl="xla",
-              taa_impl="xla")
-SWITCHES = {
-    "atrium_passes": dict(enable_ssr=True, composite_ssr=True,
-                          enable_depth_of_field=True,
-                          enable_volumetric_light=True),
-    "terrain_perpixel": dict(cloud_impl="perpixel"),
-}
-
-
-def _render_both(name, ssr_cap=0):
-    """[(jax outputs, port outputs)] of frames 0 and 1 of scene `name`
-    with its switches on, the JAX package on its exact oracle plan (as
-    tests/test_torch_scenes.py), the SSAO hash the smooth one in both."""
-    cfg = {**ORACLE, **SWITCHES[name]}
-    jb, pb = kit.build_pair(name, jcfg.RenderConfig(**cfg),
-                            RenderConfig(**cfg))
-    jplan = dataclasses.replace(
-        jb.plan, rec_pack="f32", interpret=True, texture_impl="xla",
-        ssr_cap=ssr_cap,
-        main_grid=dataclasses.replace(jb.plan.main_grid, rec_dtype="f32"),
-        shadow_grid=dataclasses.replace(jb.plan.shadow_grid,
-                                        rec_dtype="f32"))
-    pplan = dataclasses.replace(pb.plan, ssr_cap=ssr_cap)
-    out = []
-    jh = jframe.RenderHistory.create(jplan.config)
-    ph = pframe.RenderHistory.create(pplan.config, device="cpu")
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jssao, "_rand",
-                   lambda cu, cv: 0.5 + 0.5 * jnp.sin(cu * 0.7 + cv * 1.3))
-        mp.setattr(pssao, "_rand",
-                   lambda cu, cv: 0.5 + 0.5 * torch.sin(cu * 0.7 + cv * 1.3))
-        render = jax.jit(lambda b, g, h, m, n: jframe.render_frame(
-            jplan, b, g, h, m, n))
-        for f in range(2):
-            jg, jmm, jnm = jb.frame_globals(f)
-            jo, jh = render(jb.batch, jg, jh, jmm, jnm)
-            pg, pmm, pnm = pb.frame_globals(f)
-            po, ph = pframe.render_frame(pplan, pb.batch, pg, ph, pmm, pnm)
-            out.append((jo, po))
-    return pplan, out
-
-
-@pytest.fixture(scope="module")
-def passes_frames():
-    return _render_both("atrium_passes", ssr_cap=4096)
-
-
-@pytest.fixture(scope="module")
-def perpixel_frames():
-    return _render_both("terrain_perpixel")
-
-
-def _image_bounds(jo, po, target, mean, p999):
-    got = getattr(po, target).numpy()
-    d = np.abs(np.asarray(getattr(jo, target)) - got)
-    assert np.isfinite(got).all() and got.std() > 1e-3
-    assert d.mean() < mean, d.mean()
-    assert np.quantile(d, 0.999) < p999, np.quantile(d, 0.999)
-
-
-@pytest.mark.parametrize("frame", [0, 1])
-@pytest.mark.parametrize("target", ["hdr", "color"])
-def test_atrium_passes_image_matches(passes_frames, frame, target):
-    """SSR (compacted, composited), DoF and the volumetric light over
-    the rendered 512^2 map, on the lifted atrium with a metallic floor:
-    tests/test_torch_scenes.py's bounds, mean abs < 2e-4 and 99.9th
-    percentile < 1e-2 (read: mean <= 1.9e-5, p99.9 <= 1.1e-3)."""
-    _, out = passes_frames
-    _image_bounds(*out[frame], target, 2e-4, 1e-2)
-
-
-def test_atrium_passes_ssr_target(passes_frames):
-    """The SSR target and its bookkeeping: the reflective-pixel count
-    equals the JAX package's, is > 1% of the pixels and under the cap
-    (no flag), some ray found a hit, and the target's mean abs is
-    < 1e-6 (read 2.4e-7: the flat materials' albedo differs by an ulp
-    between the packages' texture taps, hits and misses agree)."""
-    plan, out = passes_frames
-    for jo, po in out:
-        n = int(po.ssr_active)
-        assert n == int(jo.ssr_active) and 0.01 * 128 * 64 < n <= plan.ssr_cap
-        assert int(po.overflow) == int(jo.overflow) == 0
-        metal = po.gbuffer.metallic_roughness[1] >= 0.01
-        assert int(metal.sum()) == n
-        assert po.ssr[:, metal].any(0).float().mean() > 0.02
-        d = np.abs(po.ssr.numpy() - np.asarray(jo.ssr))
-        assert d.mean() < 1e-6, d.mean()
-
-
-def test_atrium_passes_cap_and_switches():
-    """Inside the port, on frame 0: the compacted frame equals the dense
-    one bit for bit; a cap at half of the reflective pixels sets bit 16
-    and changes only reflective pixels of the SSR target, to black; DoF,
-    the volumetric term and the SSR mix each change the frame."""
-    cfg = RenderConfig(**{**ORACLE, **SWITCHES["atrium_passes"]})
-    pb = kit.build_port("atrium_passes", cfg, "cpu")
-    g, mm, nm = pb.frame_globals(0)
-
-    def frame(**kw):
-        plan = pb.plan
-        if "ssr_cap" in kw:
-            plan = dataclasses.replace(plan, ssr_cap=kw.pop("ssr_cap"))
-        if kw:
-            plan = dataclasses.replace(plan, config=plan.config.replace(**kw))
-        hist = pframe.RenderHistory.create(plan.config, device="cpu")
-        return pframe.render_frame(plan, pb.batch, g, hist, mm, nm)[0]
-
-    assert pb.plan.ssr_cap == 1024           # _finish: 5% of the screen
-    dense = frame(ssr_cap=0)
-    assert int(dense.ssr_active) == -1 and int(dense.overflow) == 0
-    full = frame(ssr_cap=8192)
-    n = int(full.ssr_active)
-    assert n > 0 and int(full.overflow) == 0
-    assert torch.equal(full.ssr, dense.ssr)
-    assert torch.equal(full.color, dense.color)
-    half = frame(ssr_cap=n // 2)
-    assert int(half.overflow) == 16 and int(half.ssr_active) == n
-    differs = (half.ssr != dense.ssr).any(0)
-    metal = dense.gbuffer.metallic_roughness[1] >= 0.01
-    assert differs.any() and bool(metal[differs].all())
-    assert bool((half.ssr[:, differs] == 0).all())
-    for off in ("enable_depth_of_field", "enable_volumetric_light",
-                "composite_ssr"):
-        other = frame(ssr_cap=8192, **{off: False})
-        assert not torch.equal(other.hdr, full.hdr), off
-        assert torch.isfinite(other.color).all()
-    assert frame(ssr_cap=8192, enable_ssr=False).ssr is None
-
-
-@pytest.mark.parametrize("frame", [0, 1])
-@pytest.mark.parametrize("target", ["hdr", "color", "clouds"])
-def test_terrain_perpixel_image_matches(perpixel_frames, frame, target):
-    """The reduced terrain with the cloud-noise field and
-    cloud_impl="perpixel": a third of the half-res pixels are sky.  The
-    clouds target at median < 1e-5 (fault C10's) and mean < 5e-5 (read
-    1.2e-5, max 4.8e-3: `_rsi`'s cancellation moves single pixels); hdr
-    and colour at tests/test_torch_scenes.py's bounds, mean abs < 2e-4
-    and 99.9th percentile < 1e-2 (read 9.6e-6 and 1.2e-3)."""
-    _, out = perpixel_frames
-    jo, po = out[frame]
-    if target == "clouds":
-        got = po.clouds.numpy()
-        d = np.abs(got - np.asarray(jo.clouds))
-        assert np.isfinite(got).all()
-        assert np.median(d) < 1e-5 and d.mean() < 5e-5, d.mean()
-        sky = (got != np.float32([0.2, 0.4, 1.0])[:, None, None]).any(0)
-        assert sky.mean() > 0.1, sky.mean()
-    else:
-        _image_bounds(jo, po, target, 2e-4, 1e-2)
-
-
-def test_perpixel_makes_no_lut_and_missing_noise_warns(monkeypatch):
-    """With the noise field the per-pixel path makes no sky LUT (K6's
-    wrapper is not called); without it the frame warns and takes the
-    LUT path, as the JAX package does."""
-    cfg = RenderConfig(**{**ORACLE, "cloud_impl": "perpixel"})
-    pb = kit.build_port("terrain_perpixel", cfg, "cpu")
-    g, mm, nm = pb.frame_globals(0)
-    hist = pframe.RenderHistory.create(cfg, device="cpu")
-    calls = []
-    from soc_real_time_renderer_tpu_torch.ops import sky as psky
-    real = psky.render_sky_lut_noise
-    monkeypatch.setattr(psky, "render_sky_lut_noise",
-                        lambda *a, **k: calls.append(1) or real(*a, **k))
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        out, _ = pframe.render_frame(pb.plan, pb.batch, g, hist, mm, nm)
-    assert not calls and torch.isfinite(out.color).all()
-    bare = dataclasses.replace(pb.batch, cloud_noise=None)
-    with pytest.warns(UserWarning, match="perpixel.*falling back"):
-        lut_out, _ = pframe.render_frame(pb.plan, bare, g, hist, mm, nm)
-    assert torch.isfinite(lut_out.color).all()
-    assert not torch.equal(lut_out.clouds, out.clouds)
-
-
-def test_every_switch_renders():
-    """render_frame raises NotImplementedError for no RenderConfig
-    switch: every boolean off and on, both cloud implementations."""
-    base = RenderConfig(**ORACLE)
-    pb = kit.build_port("atrium_passes", base, "cpu")
-    g, mm, nm = pb.frame_globals(0)
-    hist = pframe.RenderHistory.create(base, device="cpu")
-    flags = [f.name for f in dataclasses.fields(RenderConfig)
-             if f.type in (bool, "bool") and f.name.startswith(
-                 ("enable_", "composite_", "cloud_fullscreen"))]
-    assert {"enable_ssr", "enable_depth_of_field",
-            "enable_volumetric_light", "composite_ssr"} <= set(flags)
-    variants = [{f: not getattr(base, f)} for f in flags]
-    variants += [{"cloud_impl": "perpixel"},
-                 {f: True for f in flags}]
-    for kw in variants:
-        plan = dataclasses.replace(pb.plan, config=base.replace(**kw))
-        out, _ = pframe.render_frame(plan, pb.batch, g, hist, mm, nm)
-        assert torch.isfinite(out.color).all(), kw

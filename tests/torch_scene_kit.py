@@ -27,10 +27,21 @@ port.
 The JAX package is imported only inside the functions that build its
 side, so the port-only tests (tests/test_torch_cuda.py) can use this
 module where jax is not installed.
+
+Importing this module gives each pytest-xdist worker its share of the
+cores for torch's intra-op pool: ``os.cpu_count()`` over
+``PYTEST_XDIST_WORKER_COUNT``, at least one thread.  Every worker
+collects every test module, and most of the port's import this one, so
+the share is set in each worker before its first test.  Without it
+each of n workers runs torch at one thread a core, n times more threads
+than cores, and a frame test that takes 22 s alone took 531 s among six
+workers.  Outside xdist torch keeps its default.
 """
 import dataclasses
+import os
 
 import numpy as np
+import torch
 
 from soc_real_time_renderer_tpu_torch import scenes as pscenes
 from soc_real_time_renderer_tpu_torch.models import gltf as pgltf
@@ -38,6 +49,10 @@ from soc_real_time_renderer_tpu_torch.models import proc as pproc
 from soc_real_time_renderer_tpu_torch.models import terrain as pterrain
 from soc_real_time_renderer_tpu_torch.scene import components as pcomp
 from soc_real_time_renderer_tpu_torch.scene.scene import Scene as PScene
+
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 SCENES = {
     "full_nohelmet": dict(camera_pos=[-7.0, 1.8, 0.0],
@@ -81,7 +96,6 @@ LIFTED_SLIVER = [[float.fromhex(v) for v in vertex] for vertex in (
 
 def sliver_clip():
     """(3, 4, 1) planar clip positions of LIFTED_SLIVER."""
-    import torch
     return torch.tensor([[*v, 1.0] for v in LIFTED_SLIVER]).reshape(3, 4, 1)
 
 
@@ -261,7 +275,6 @@ def build_port(name, cfg, device, *, atrium_scale=0.01, atlas_size=64,
                noise=True):
     """The port's BuiltScene of scene `name` with the small atrium (and
     the small terrain), with the cloud noise field when `noise`."""
-    import torch
     ents = _entities_of("port", name, atrium_scale)
     b = pscenes._finish(make_scene("port", ents), [m for _, m, _, _ in ents],
                         cfg, atlas_size=atlas_size, device=device,
@@ -272,17 +285,23 @@ def build_port(name, cfg, device, *, atrium_scale=0.01, atlas_size=64,
     return b
 
 
-def build_pair(name, jcfg_obj, pcfg_obj, *, atrium_scale=0.01,
-               atlas_size=64, noise=True):
-    """(JAX BuiltScene, port BuiltScene on the CPU) of the same scene."""
+def build_jax(name, cfg, *, atrium_scale=0.01, atlas_size=64, noise=True):
+    """The JAX package's BuiltScene of scene `name`, as build_port."""
     import jax.numpy as jnp
     from soc_real_time_renderer_tpu import scenes as jscenes
     ents = _entities_of("jax", name, atrium_scale)
     jb = jscenes._finish(make_scene("jax", ents), [m for _, m, _, _ in ents],
-                         jcfg_obj, atlas_size=atlas_size,
+                         cfg, atlas_size=atlas_size,
                          **{**SCENES, **PASS_SCENES}[name])
     if noise:
         jb.batch = dataclasses.replace(
             jb.batch, cloud_noise=jnp.asarray(cloud_noise()))
-    return jb, build_port(name, pcfg_obj, "cpu", atrium_scale=atrium_scale,
-                          atlas_size=atlas_size, noise=noise)
+    return jb
+
+
+def build_pair(name, jcfg_obj, pcfg_obj, *, atrium_scale=0.01,
+               atlas_size=64, noise=True):
+    """(JAX BuiltScene, port BuiltScene on the CPU) of the same scene."""
+    kw = dict(atrium_scale=atrium_scale, atlas_size=atlas_size, noise=noise)
+    return (build_jax(name, jcfg_obj, **kw),
+            build_port(name, pcfg_obj, "cpu", **kw))
