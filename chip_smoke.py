@@ -2,26 +2,27 @@
 
     python3 chip_smoke.py
 
-Builds the seven hand-written CUDA kernels (and K5's variants) from
+Builds the eight hand-written CUDA kernels (and K5's variants) from
 ``soc_real_time_renderer_tpu_torch/kernels/csrc`` (K1 bin resolve, K2
-SSAO taps, K3 TAA history fetch, K4 shadow depth resolve, K5 material
-texture tap, K6 noise-texture sky LUT, K6p procedural sky LUT), then
+SSAO taps, K3 TAA history fetch, K3f the whole TAA resolve around it,
+K4 shadow depth resolve, K5 material texture tap, K6 noise-texture sky
+LUT, K6p procedural sky LUT), then
 renders three scenes at 1920x1088 with every other RenderConfig default
 (4096^2 shadow map):
 
 * ``terrain``: ``scenes.build("terrain")``, BASELINE config 4.  Its
-  path runs K1, K2, K3, K5 and K6p (the sun shadow is proved empty,
+  path runs K1, K2, K3f, K5 and K6p (the sun shadow is proved empty,
   there is no cloud noise, so the sky LUT is the procedural one).
 * ``full_nohelmet``: BASELINE config 5 without its helmet: the
   procedural atrium (five flat materials) at scale 0.01 plus the
   terrain at y = -8, animated camera, and a (64, 64) cloud-noise field
   made from a seed (the shape class of assets/Clouds/noise.png).  K1,
-  K2, K3, K5, K6.
+  K2, K3f, K5, K6.
 * ``atrium_lifted``: BASELINE config 6 with the atrium in the helmet's
   place at y = 32, inside the sun's volume, so the 4096^2 shadow view
   is rastered and sampled through its proved crop; given the same
   noise field.  All six kernels of the noise path (every kernel but
-  K6p).
+  K6p and K3 alone, whose fetch K3f does).
 
 Then the passes that are off by default, two frames each, same size:
 
@@ -32,7 +33,7 @@ Then the passes that are off by default, two frames each, same size:
   count.  All six kernels.
 * ``terrain_perpixel``: the terrain with the noise field and
   ``cloud_impl="perpixel"``: the exact cloud march at every half-res
-  pixel, no LUT.  K1, K5, K2, K3 and not K6.
+  pixel, no LUT.  K1, K5, K2, K3f and not K6.
 
 Then ``batched``: B = 4 views of one scene in one step
 (``parallel/mesh.make_batched_render_fn``: a leading view axis through
@@ -68,7 +69,7 @@ into four row bands over a mesh that names the card four times
 (``parallel/mesh.make_mesh(4, dp=1, devices=["cuda:0"] * 4)``, the
 split plan's ``raster_stage`` and ``make_sharded_shade_fn``), two
 frames carrying history: K1 and K4 once per band of bin rows, K5, K2
-and K3 once per band of 272 rows, K6 once (one distinct device), the
+and K3f once per band of 272 rows, K6 once (one distinct device), the
 counts printed per frame; the assembled colour and history against the
 unsplit ``render_frame`` (max abs <= 1e-6, exposure <= 1e-7); every
 band-mode launch against its plain version on the band's own inputs
@@ -131,7 +132,7 @@ per PNG filter type; Sponza's five materials as fifteen 1024^2 PNGs; a
   ``utils/metrics.GPUMetricPool`` table (``viewer_phase``).
 * ``bench``: the port's three measuring tools' mains in this process on
   the same tree: ``tools/bench.py`` on ``sponza`` at 1280x736, 32
-  frames (its JSON line: ``assets`` synthetic, K1, K5, K2, K6 and K3 32
+  frames (its JSON line: ``assets`` synthetic, K1, K5, K2, K6 and K3f 32
   times each); ``tools/bench_baselines.py`` over the seven BASELINE
   configurations at 8 frames (each row's kernels once a frame, all six
   kernels over the table); ``tools/bench_toggle.py --config 5`` with
@@ -148,8 +149,9 @@ the JAX package composes its presets.  For each of the first three
 scenes: the build, the
 spread of each rastered view's pairs over its bins (mean and heaviest
 bin, the pairs wholly behind the camera), each kernel of its path
-against its plain PyTorch version on the frame's own inputs (K1, K3, K4,
-K5 and K6 bit for bit), 8 frames through ``render_frame`` (launch counts
+against its plain PyTorch version on the frame's own inputs (K1, K3f,
+K4, K5 and K6 bit for bit, and K3 alone on the fused resolve's fetch
+inputs), 8 frames through ``render_frame`` (launch counts
 set to 0 just before, read just after: each kernel of the path launches
 once per frame, the others never), the kernel-path frame against the
 plain-path frame, frame times with CUDA events, kernel times per call
@@ -237,6 +239,9 @@ RESOLVE_OPS = 30       # (pair, pixel) the plain version finds covered: 3
 SSAO_OPS = 80          # tap: sample point, projection, occluder, range check
 TAA_OPS_PIXEL = 10     # uv - velocity, floor, weights
 TAA_OPS_CHANNEL = 9    # bilinear blend of one channel
+TAA_OPS_RESOLVE = 150  # the 3x3 pass (9 taps: 3 channels of min, max,
+#                        weighted add; the depth test), the clamp, the
+#                        blend and the disocclusion (length, lerp)
 TEX_OPS_CHANNEL = 10   # unpack 4 corners, bilinear blend, / 255
 SKY_OPS_ATMOS = 3400   # atmosphere of one texel: 16 x (8 + 1) samples
 SKY_OPS_DENSITY = 250  # one cloud density: 4 octaves x 2 slices x 4 taps
@@ -266,6 +271,13 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                            "render_sky_lut, XLA)"),
     "taa_reproject": (SRC + "taa.cu",
                       "soc_real_time_renderer_tpu/ops/taa_pallas.py:30"),
+    # K3 fused with the resolve around it, which the JAX package leaves
+    # to XLA (ops/taa.py taa): the frame's TAA pass in one launch (its
+    # plain version is ~417, PERF.md section 6); K3 alone is compared
+    # on the frame's fetch inputs beside it
+    "taa_resolve": (SRC + "taa.cu",
+                    "none (soc_real_time_renderer_tpu/ops/taa.py taa, XLA "
+                    "around taa_pallas.py:30)"),
 }
 # the scene whose inputs give each kernel's line in the JSON
 # the two TPU kernels that took K5 apart, as K5 variants on the card:
@@ -279,11 +291,16 @@ VARIANT_KERNELS = {
 }
 # the scene whose inputs give each kernel's line in the JSON
 HOME = {"resolve": "terrain", "ssao_taps": "terrain",
-        "taa_reproject": "terrain", "texsample": "full_nohelmet",
+        "taa_reproject": "terrain", "taa_resolve": "terrain",
+        "texsample": "full_nohelmet",
         "sky_lut": "full_nohelmet", "resolve_depth": "atrium_lifted",
         "sky_lut_procedural": "terrain"}
+# the kernels no frame launches on its own: K3, whose fetch the frame's
+# fused TAA resolve (taa_resolve) does
+STANDALONE = ["taa_reproject"]
 # the kernels of a scene with the cloud-noise texture: all but K6p
-NOISE_PATH = sorted(k for k in KERNELS if k != "sky_lut_procedural")
+NOISE_PATH = sorted(k for k in KERNELS
+                    if k != "sky_lut_procedural" and k not in STANDALONE)
 
 
 def log(msg):
@@ -613,7 +630,7 @@ def kernel_cases(name, built, dev, min_lit=0.1):
              + n_hit * 10 * SKY_OPS_DENSITY_HASHED), None,
             lambda: sky.launch_sky_lut(block_p))
 
-    # K3: TAA history fetch
+    # K3: TAA history fetch, alone
     *_, vel_s = taa.neighbourhood(out0.hdr, depth, out0.gbuffer.velocity)
     packed = torch.cat([hist1.previous_color, hist1.previous_velocity], 0)
     C, H, W = packed.shape
@@ -627,6 +644,17 @@ def kernel_cases(name, built, dev, min_lit=0.1):
         (C * H * W * 2 + 2 * H * W * 4 + C * H * W * 4,
          H * W * (TAA_OPS_PIXEL + C * TAA_OPS_CHANNEL)),
         grid_sample_call(packed, vel_s), None)
+
+    # K3f: the whole TAA resolve, on the frame's hdr, depth, velocity and
+    # history; bytes: colour, depth, velocity and the bf16 history read,
+    # colour written (the neighbourhood's reads of a texel counted once)
+    taa_in = (out0.hdr, depth, out0.gbuffer.velocity, hist1.previous_color,
+              hist1.previous_velocity, g1.frame_counter)
+    cases["taa_resolve"] = (
+        lambda i: taa.taa(*taa_in, impl=i), cmp_taa,
+        (H * W * (12 + 4 + 8 + C * 2 + 12),
+         H * W * (TAA_OPS_RESOLVE + TAA_OPS_PIXEL + C * TAA_OPS_CHANNEL)),
+        None, None)
     return path, cases
 
 
@@ -861,7 +889,7 @@ def stage_table(built, g, hist, mm, nm, reps=3, plan=None):
         return taa.taa(hdr, vis.depth, gbuf.velocity, hist.previous_color,
                        hist.previous_velocity, g.frame_counter)
 
-    st["TAA (3x3 neighbourhood, K3)"] = cuda_ms(aa, reps)
+    st["TAA (K3f)"] = cuda_ms(aa, reps)
     resolved = aa()
     st["tone_map"] = cuda_ms(lambda: tonemap.tone_map(resolved, expo, g),
                              reps)
@@ -892,9 +920,9 @@ def scene_phase(name, dev, card, results):
         f"{plan.shadow_crop}, build {time.perf_counter() - t0:.1f} s; path "
         f"{path}")
     if name == "terrain":
-        check(path == ["resolve", "texsample", "ssao_taps", "taa_reproject",
+        check(path == ["resolve", "texsample", "ssao_taps", "taa_resolve",
                        "sky_lut_procedural"],
-              "terrain runs K1, K5, K2, K3, K6p")
+              "terrain runs K1, K5, K2, K3f, K6p")
     elif name == "full_nohelmet":
         check(plan.atlas_num_materials >= 2 and batch.cloud_noise is not None
               and plan.shadow_statically_empty,
@@ -905,7 +933,8 @@ def scene_phase(name, dev, card, results):
 
     # each kernel of the path against its plain version, same inputs
     path_k, cases = kernel_cases(name, built, dev)
-    check(sorted(path_k) == sorted(cases), f"a case for each of {path_k}")
+    check(sorted(path_k + STANDALONE) == sorted(cases),
+          f"a case for each of {path_k} and {STANDALONE}")
     out_k = {}
     for k, (call, cmp, _, _, _) in cases.items():
         got = call("cuda")
@@ -1157,8 +1186,8 @@ def perpixel_phase(dev, card, results):
     built = build_scene(name, dev)
     plan, batch = built.plan, built.batch
     path = path_of(plan, batch)
-    check(path == ["resolve", "texsample", "ssao_taps", "taa_reproject"],
-          f"{name} runs K1, K5, K2, K3 and neither K6 nor K6p: {path}")
+    check(path == ["resolve", "texsample", "ssao_taps", "taa_resolve"],
+          f"{name} runs K1, K5, K2, K3f and neither K6 nor K6p: {path}")
     out, (g, hist, mm, nm), counts = run_frames(built, plan, path,
                                                 PASS_FRAMES, dev)
     for k in counts:
@@ -1207,7 +1236,8 @@ def recorded_inputs(fn, every=False):
                 "ssao_taps": (ssao, "ssao_taps"),
                 "sky_lut": (sky, "render_sky_lut_noise"),
                 "sky_lut_procedural": (sky, "render_sky_lut_procedural"),
-                "taa_reproject": (taa, "reproject_history")}
+                "taa_reproject": (taa, "reproject_history"),
+                "taa_resolve": (taa, "_resolve")}
     seen, real = {}, {}
     for k, (mod, attr) in wrappers.items():
         real[k] = getattr(mod, attr)
@@ -1493,7 +1523,7 @@ def sharded_phase(dev, card, results):
     over a mesh that names the card SHARD_BANDS times
     (``parallel/mesh.make_mesh`` + ``raster_stage`` of the split plan +
     ``make_sharded_shade_fn``), SHARD_FRAMES frames carrying history:
-    launch counts per frame (K1, K4, K5, K2, K3 once per band, K6 once:
+    launch counts per frame (K1, K4, K5, K2, K3f once per band, K6 once:
     one distinct device); the assembled colour, history and exposure
     against the unsplit frames; every band-mode launch against its plain
     version on the band's inputs (recorded during a plain-path split
@@ -1713,7 +1743,7 @@ def sharded_phase(dev, card, results):
                           .item())
     log(f"[sharded] terrain, {B} views over a (dp 2, sp 2) mesh of the "
         f"card, {BATCH_FRAMES} frames: launches per step {counts} (K1, K5, "
-        f"K2, K3 once per band of each group, K6p once per group); each "
+        f"K2, K3f once per band of each group, K6p once per group); each "
         f"view against the unmeshed batched step, max abs {worst_m:.3g} "
         f"(<= 1e-6) {card}")
     path_t = path_of(built.plan, built.batch)
@@ -2155,14 +2185,14 @@ def viewer_phase(dev, card, results):
     for k in counts:
         results[k][name] = {"launches": counts[k]}
 
-    # launches: every frame runs K1, K5, K2, K6, K3 (the noise texture:
+    # launches: every frame runs K1, K5, K2, K6, K3f (the noise texture:
     # never K6p); K4 where the plan does not elide the shadow, i.e. from
     # step 5 on
     n = len(per_frame)
     summed = {k: sum(d[k] for _, d in per_frame) for k in counts}
     check(summed == counts, f"every launch came from a frame: {summed} "
           f"vs {counts}")
-    check(all(d == {k: 0 if k == "sky_lut_procedural"
+    check(all(d == {k: 0 if k == "sky_lut_procedural" or k in STANDALONE
                     or (k == "resolve_depth" and elided) else 1
                     for k in counts} for elided, d in per_frame),
           "each frame launched its path's kernels once")
@@ -2243,7 +2273,7 @@ def viewer_phase(dev, card, results):
                 filter_mode=plan.texture_filter)),
             ("ssao (K2)", lambda: ssao.ssao_generate(
                 vis.depth, gbuf.normal, g, plan.config.ssao_kernel_size)),
-            ("taa (K3)", lambda: taa.taa(
+            ("taa (K3f)", lambda: taa.taa(
                 out0.hdr, vis.depth, gbuf.velocity, hist.previous_color,
                 hist.previous_velocity, g.frame_counter)),
             ("tonemap", lambda: tonemap.tone_map(out0.hdr, hist.exposure,
@@ -2436,10 +2466,10 @@ def bench_phase(card):
     check(line["assets"] == "synthetic" and "sponza 1280x736" in
           line["metric"] and card.strip("[]") == line["device"]
           and ran == {"resolve", "texsample", "ssao_taps", "sky_lut",
-                      "taa_reproject"}
+                      "taa_resolve"}
           and all(kb.launches[k] == BENCH_FRAMES for k in ran),
           f"bench: sponza, synthetic assets, the card's name, K1, K5, K2, "
-          f"K6, K3 {BENCH_FRAMES} times each: {line}, {kb.launches}")
+          f"K6, K3f {BENCH_FRAMES} times each: {line}, {kb.launches}")
     rows = bench_baselines.main(["--frames", str(TABLE_FRAMES)])
     check([r["config"] for r in rows] == list(range(1, 8))
           and all(r["launches"][k] == (TABLE_FRAMES if k in r["path"]
@@ -2453,7 +2483,7 @@ def bench_phase(card):
           "overflow, no call in a timed loop waited for the card")
     toggles = bench_toggle.main(["--config", str(TOGGLE_CONFIG),
                                  "--frames", str(TABLE_FRAMES)])
-    gone = {"ssao": "ssao_taps", "taa": "taa_reproject",
+    gone = {"ssao": "ssao_taps", "taa": "taa_resolve",
             "clouds": "sky_lut", "tex_none": "texsample"}
     check(sorted(toggles) == sorted(bench_toggle.KEPT)
           and all(len(r["delta_ms"]) == bench_toggle.ROUNDS
@@ -2586,8 +2616,8 @@ def main():
                                     "launch_device_ms")},
             "by_scene": results[name]})
     kernels.extend(tex_kernels)
-    check(len(kernels) == 9, "the JSON lists all eight TPU kernels' "
-          "counterparts and K6p")
+    check(len(kernels) == 10, "the JSON lists all eight TPU kernels' "
+          "counterparts, K6p and K3f")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

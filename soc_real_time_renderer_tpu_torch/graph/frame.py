@@ -6,7 +6,7 @@ Pass order matches the reference graph:
   raster (visibility, K1; sun shadow, K4) -> HiZ -> G-buffer (K5) ->
   bloom -> SSAO (K2) + blur -> [SSR] -> sky LUT (K6 or K6p) + lookup, or
   the per-pixel cloud march -> composition [+ volumetric light] -> [SSR mix]
-  -> [depth of field] -> exposure -> TAA (K3) -> tone mapping
+  -> [depth of field] -> exposure -> TAA (K3f) -> tone mapping
 
 Cross-frame state rides in :class:`RenderHistory` (bf16 colour and
 velocity, f32 exposure).  PyTorch runs eagerly: no jit, no
@@ -17,7 +17,8 @@ hand-written kernels on the path: K1 (main-view resolve), K4 (the sun
 shadow view's depth resolve, unless the build proved the map empty), K5
 (the material tap), K2 (SSAO taps), K6 (the sky LUT over the
 cloud-noise texture) or K6p (the sky LUT over the procedural value
-noise, where there is no texture) and K3 (TAA history fetch).  The
+noise, where there is no texture) and K3f (the TAA resolve, K3's
+history fetch fused with its 3x3 neighbourhood and blend).  The
 bracketed passes are off by default (``RenderConfig.enable_ssr``,
 ``composite_ssr``, ``enable_depth_of_field``,
 ``enable_volumetric_light``, ``cloud_impl="perpixel"``) and run as

@@ -47,7 +47,7 @@ NVCC_FLAGS = [*ARCH, "-O3", "-std=c++17", "--fmad=false", "-Xptxas", "-v",
 # launch counts per kernel: each wrapper adds one where it launches
 launches = {"resolve": 0, "resolve_depth": 0, "texsample": 0,
             "ssao_taps": 0, "sky_lut": 0, "sky_lut_procedural": 0,
-            "taa_reproject": 0}
+            "taa_reproject": 0, "taa_resolve": 0}
 # launches of K5's variants (ops/texsample.VARIANTS, the texture-tap
 # benches), by variant: apart from `launches`, whose kernels are the
 # frame's
@@ -82,6 +82,12 @@ _SIGNATURES = {
     "sky_lut_procedural_launch": [_P, _P, _I, _I, _I, _P],
     # history, velocity, out, C, H, W, views, row0, full_h, stream
     "taa_reproject_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # color, depth, velocity, prev color, prev velocity, frame counter,
+    # out, H, W, crop, row0, full_h, views, the view strides of color,
+    # depth, velocity, prev color and prev velocity, the frame counter's,
+    # stream
+    "taa_resolve_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -7,16 +7,19 @@ frame_counter)`` (1.0 when the reprojected uv is off-screen), and the
 velocity-disocclusion fallback to the blurred colour.  The reference's
 ``color = neighbors[5]`` off-by-one (the (x=+1, y=0) texel) is kept.
 
-The history fetch is kernel K3 (``kernels/csrc/taa.cu``), which replaces
-the TPU's windowed ``_taa_kernel`` (ops/taa_pallas.py);
-:func:`reproject_plain` is the same fetch in plain PyTorch.  The 3x3
-resolve around it stays plain PyTorch.  Every array may carry a leading
-view axis (B, ...): the neighbourhood is per view, and one K3 launch
-fetches every view's history.
+On the card the whole resolve is one launch of ``taa_resolve_kernel``
+(``kernels/csrc/taa.cu``): the 3x3 pass, the history fetch and the blend
+fused, the frame counter read on the card.  Its plain version is
+:func:`neighbourhood` + :func:`reproject_plain` + the blend
+(``_resolve_plain``), which the CPU runs.  The history fetch alone is
+kernel K3 (:func:`reproject_history`), which replaces the TPU's windowed
+``_taa_kernel`` (ops/taa_pallas.py); the fused kernel calls the same
+device functions.  Every array may carry a leading view axis (B, ...):
+the neighbourhood is per view, and one launch resolves every view.
 
 Row bands (``taa(..., shard=(mesh, axis))``, the row split of one frame
-over a mesh): the 3x3 neighbourhood runs per band with a 1-row halo, and
-each band's K3 launch fetches from the whole previous colour and
+over a mesh): each band's colour, depth and velocity come with a 1-row
+halo, and its resolve fetches from the whole previous colour and
 velocity, gathered to the band's device, at the band's screen rows
 (``row0`` / ``full_h``, the JAX kernel's, taa_pallas.py:44-64), clamping
 at the screen's edges: each band equals the unsplit frame's rows.
@@ -133,37 +136,62 @@ def taa(color, depth, velocity, prev_color, prev_velocity, frame_counter,
     if shard is not None:
         return _taa_bands(shard, color, depth, velocity, prev_color,
                           prev_velocity, frame_counter, impl)
-    packed = torch.cat([prev_color, prev_velocity], dim=-3)
-    return _resolve(color, depth, velocity, packed, frame_counter, impl)
+    return _resolve(color, depth, velocity, prev_color, prev_velocity,
+                    frame_counter, impl=impl)
 
 
 def _taa_bands(shard, color, depth, velocity, prev_color, prev_velocity,
                frame_counter, impl):
     mesh, axis = shard
     devices = mesh.band_devices(axis)
-    packed = halo.gather([torch.cat([c, v], dim=-3)
-                          for c, v in zip(prev_color, prev_velocity)])
+    prev_c, prev_v = halo.gather(prev_color), halo.gather(prev_velocity)
     fc = halo.replicate(frame_counter, devices)
     padded = zip(*(halo.exchange_row_halos(x, 1, 1)
                    for x in (color, depth, velocity)))
-    return [_resolve(c, d, v, packed[dev], fc[dev], impl, row0=s - 1,
-                     crop=1)
+    return [_resolve(c, d, v, prev_c[dev], prev_v[dev], fc[dev], impl=impl,
+                     row0=s - 1, crop=1)
             for (c, d, v), dev, s in zip(padded, devices,
                                          halo.starts_of(depth))]
 
 
-def _resolve(color, depth, velocity, packed, frame_counter, impl,
-             row0: int = 0, crop: int = 0):
+def _resolve(color, depth, velocity, prev_color, prev_velocity,
+             frame_counter, impl: str | None = None, row0: int = 0,
+             crop: int = 0):
     """The TAA resolve of the rows of (color, depth, velocity), whose
-    first row is screen row `row0`, against the packed history (*V, 5,
-    H, W) of the whole screen; the neighbourhood reads every row, the
-    output drops `crop` rows at either end (a band's halo)."""
+    first row is screen row `row0`, against the previous colour and
+    velocity (*V, 3|2, H, W) of the whole screen; the neighbourhood reads
+    every row, the output drops `crop` rows at either end (a band's
+    halo).  The fused kernel for CUDA tensors, the plain version for CPU
+    tensors (or impl="plain")."""
+    *V, H, W = depth.shape
+    full_h = prev_color.shape[-2]
+    shapes = {"color": (color, 3, H), "velocity": (velocity, 2, H),
+              "prev_color": (prev_color, 3, full_h),
+              "prev_velocity": (prev_velocity, 2, full_h)}
+    bad = [n for n, (x, c, h) in shapes.items()
+           if tuple(x.shape) != (*V, c, h, W)]
+    if bad or len(V) > 1 or crop < 0 or row0 + crop < 0 \
+            or row0 + H - crop > full_h:
+        raise ValueError(f"taa: {bad or 'rows'} of {tuple(depth.shape)} at "
+                         f"row {row0} (crop {crop}) against a "
+                         f"{full_h}-row history")
+    if kb.choose(impl, color, depth, velocity, prev_color,
+                 prev_velocity) == "plain":
+        return _resolve_plain(color, depth, velocity, prev_color,
+                              prev_velocity, frame_counter, row0, crop)
+    return _resolve_cuda(color, depth, velocity, prev_color, prev_velocity,
+                         frame_counter, row0, crop)
+
+
+def _resolve_plain(color, depth, velocity, prev_color, prev_velocity,
+                   frame_counter, row0, crop):
     H, W = depth.shape[-2:]
     blurred, min_c, max_c, center, velocity_s = (
         x[..., crop:H - crop, :] for x in neighbourhood(color, depth,
                                                         velocity))
     row0, H = row0 + crop, H - 2 * crop
-    uv = sampling.grid_uv(H, W, depth.device, row0, packed.shape[-2])
+    full_h = prev_color.shape[-2]
+    uv = sampling.grid_uv(H, W, depth.device, row0, full_h)
 
     accum = torch.clamp(frame_counter.to(torch.float32), max=0.1)
     accum = accum.reshape(*accum.shape, 1, 1)
@@ -172,7 +200,8 @@ def _resolve(color, depth, velocity, packed, frame_counter, impl,
     off = (shift_u < 0) | (shift_v < 0) | (shift_u > 1) | (shift_v > 1)
     accum = torch.where(off, 1.0, accum).unsqueeze(-3)
 
-    hist = reproject_history(packed, velocity_s, impl=impl, row0=row0)
+    hist = reproject_plain(torch.cat([prev_color, prev_velocity], dim=-3),
+                           velocity_s, row0)
     acc_color = torch.minimum(torch.maximum(hist[..., :3, :, :], min_c),
                               max_c)
     out = center * accum + acc_color * (1.0 - accum)
@@ -182,3 +211,45 @@ def _resolve(color, depth, velocity, packed, frame_counter, impl,
                          + dv[..., 1, :, :] * dv[..., 1, :, :])
     disocc = torch.clamp((vel_len - 0.001) * 10.0, 0.0, 1.0)
     return out + (blurred - out) * disocc.unsqueeze(-3)
+
+
+def _dense(x, nv: int):
+    """(x with each view's planes dense, its view stride in elements: 0
+    without a view axis; the launch takes it as a C int)."""
+    inner = x[0] if nv else x
+    if not inner.is_contiguous():
+        x = x.contiguous()
+    stride = x.stride(0) if nv else 0
+    if stride >= 2 ** 31:
+        raise ValueError(f"a view of {inner.numel()} elements is past the "
+                         f"kernel's int strides")
+    return x, stride
+
+
+def _resolve_cuda(color, depth, velocity, prev_color, prev_velocity,
+                  frame_counter, row0, crop):
+    lib = kb.library()
+    if (prev_color.dtype, prev_velocity.dtype) != (torch.bfloat16,) * 2 \
+            or {color.dtype, depth.dtype, velocity.dtype} != {torch.float32}:
+        raise TypeError("taa takes f32 colour, depth and velocity and a "
+                        "bf16 history")
+    nv = depth.dim() - 2
+    *V, H, W = depth.shape
+    views = V[0] if V else 1
+    fc = frame_counter.to(device=depth.device, dtype=torch.int32)
+    if fc.numel() not in (1, views):
+        raise ValueError(f"frame_counter {tuple(fc.shape)} for {views} "
+                         f"views")
+    fc = fc.contiguous()
+    args = [_dense(x, nv) for x in (color, depth, velocity, prev_color,
+                                    prev_velocity)]
+    out = torch.empty((*V, 3, H - 2 * crop, W), dtype=torch.float32,
+                      device=depth.device)
+    code = lib.taa_resolve_launch(
+        *(x.data_ptr() for x, _ in args), fc.data_ptr(), out.data_ptr(), H,
+        W, crop, row0 + crop, prev_color.shape[-2], views,
+        *(vs for _, vs in args), 0 if fc.numel() == 1 else 1,
+        kb.stream_ptr(depth))
+    kb.launches["taa_resolve"] += 1
+    kb.check(code, "taa_resolve")
+    return out

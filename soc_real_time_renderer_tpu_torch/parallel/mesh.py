@@ -276,18 +276,19 @@ def make_sharded_shade_fn(plan: frame_mod.FramePlan, mesh: Mesh,
       taps (K2), the 4x4 blur (2 + 1 half-res halo rows) and the
       upsample (1 + 1); the sky LUT lookup of the clouds (its half-res
       rows and one either side, for the upsample); composition (per
-      pixel, the volumetric term included); the SSR mix; TAA's 3x3
-      neighbourhood and velocity dilation (a 1-row halo) and its history
-      fetch (K3); tone mapping.
+      pixel, the volumetric term included); the SSR mix; the TAA
+      resolve (K3f: its 3x3 neighbourhood and velocity dilation read a
+      1-row halo); tone mapping.
     * on the whole screen, gathered once per distinct device (or on the
       axis's first device): the depth that K2's taps and the clouds'
       QUADRANT taps read (a tap lands anywhere on the screen; the JAX
       Pallas band mode's bounded halos rest on a TPU-only window clamp
       that the exact path does not make); the previous colour and
-      velocity that K3 reads; the shadow map the composition samples;
-      HiZ; bloom's mip chain (its reach grows with each level); and the
-      passes that are off by default: SSR, depth of field and the
-      per-pixel cloud march, each then cut back into bands.
+      velocity that K3f's history fetch reads; the shadow map the
+      composition samples; HiZ; bloom's mip chain (its reach grows
+      with each level); and the passes that are off by default: SSR,
+      depth of field and the per-pixel cloud march, each then cut back
+      into bands.
     * as a reduction summed over bands: the exposure histogram (int64
       counts, so the sum is exact), resolved once.
 

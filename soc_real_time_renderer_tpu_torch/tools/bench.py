@@ -113,7 +113,7 @@ def kernel_path(plan, batch) -> list[str]:
     if cfg.enable_ssao:
         path.append("ssao_taps")
     if cfg.enable_taa:
-        path.append("taa_reproject")
+        path.append("taa_resolve")
     if cfg.enable_shadows and not plan.shadow_statically_empty:
         path.append("resolve_depth")
     noise = batch.cloud_noise is not None

@@ -23,7 +23,7 @@ def test_toggle_prints_each_delta(small_terrain, capsys):
                              "taa,tex_none,ssao_xla"])
     out = capsys.readouterr().out.splitlines()
     assert sorted(res) == ["taa", "tex_none"]
-    for name, lead, gone in (("taa", "-taa", "taa_reproject"),
+    for name, lead, gone in (("taa", "-taa", "taa_resolve"),
                              ("tex_none", "tex_none", "texsample")):
         r = res[name]
         assert len(r["base_ms"]) == len(r["ms"]) == len(r["delta_ms"]) \

@@ -1,8 +1,8 @@
-"""The CUDA kernels (K1 resolve, K2 SSAO taps, K3 TAA reprojection, K4
-shadow depth resolve, K5 texture tap, K6 noise sky LUT, K6p procedural
-sky LUT) against their
-plain PyTorch versions on the card, at small sizes, and small frames of
-the terrain and of the two multi-entity scenes through both paths.
+"""The CUDA kernels (K1 resolve, K2 SSAO taps, K3 TAA reprojection, K3f
+the fused TAA resolve, K4 shadow depth resolve, K5 texture tap, K6 noise
+sky LUT, K6p procedural sky LUT) against their plain PyTorch versions
+on the card, at small sizes, and small frames of the terrain and of the
+two multi-entity scenes through both paths.
 Marked ``cuda``: they skip where ``torch.cuda.is_available()`` is false
 (this file imports no jax, so it also runs where only PyTorch is
 installed):
@@ -37,6 +37,11 @@ from soc_real_time_renderer_tpu_torch.scene.components import \
 from soc_real_time_renderer_tpu_torch.scene.scene import Scene
 
 pytestmark = pytest.mark.cuda
+
+# the kernels no frame of a scene with the cloud-noise texture launches:
+# K6p (the procedural LUT) and K3 alone (the frame's TAA is the fused
+# resolve, taa_resolve, whose fetch is K3's)
+OFF_FRAME = ("sky_lut_procedural", "taa_reproject")
 
 
 @pytest.fixture
@@ -316,6 +321,122 @@ def test_taa_kernel_edges_match_plain(dev, C, H, W, speed):
             assert bool((uv[a] < 0).any()) and bool((uv[a] > 1).any())
 
 
+def _taa_inputs(dev, V=(), H=64, W=96, seed=0, speed=0.02, fc=(7,),
+                nan=False):
+    """Seeded TAA inputs on `dev`: colour, depth, velocity (uv units, each
+    component within +-speed), the bf16 history (its velocity 0.9 or -3
+    times the current, so some pixels disocclude) and the frame counter
+    (fc: one per view, or one for all); nan: a NaN texel in the colour,
+    the previous colour and the previous velocity."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(*V, *shape, generator=g)
+
+    color = rand(3, H, W) ** 2 * 3
+    depth = rand(H, W)
+    vel = (rand(2, H, W) - 0.5) * 2 * speed
+    pc = (rand(3, H, W) * 3).to(torch.bfloat16)
+    pv = (vel * torch.where(rand(2, H, W) < 0.7, 0.9, -3.0)).to(
+        torch.bfloat16)
+    if nan:
+        color[..., 1, H // 2, W // 3] = float("nan")
+        pc[..., 0, H // 3, W // 2] = float("nan")
+        pv[..., 1, H // 4, W // 5] = float("nan")
+    counter = torch.tensor(fc if V else fc[0], dtype=torch.int32)
+    return [x.to(dev) for x in (color, depth, vel, pc, pv, counter)]
+
+
+def _same(k, p):
+    """max abs 0, NaN at the same places."""
+    nan = torch.isnan(p)
+    assert torch.equal(torch.isnan(k), nan)
+    assert torch.equal(k[~nan], p[~nan])
+
+
+TAA_CASES = {   # the benchmark's size, ragged sizes, uv off the screen,
+    #             NaN texels, frame counter 0, two views in one launch
+    "bench_1920x1088": dict(H=1088, W=1920, seed=1),
+    "ragged_97x61_first_frame": dict(H=61, W=97, seed=2, fc=(0,)),
+    "one_pixel": dict(H=1, W=1, seed=3),
+    "off_screen": dict(H=64, W=96, seed=4, speed=1.5),
+    "nan_texels": dict(H=61, W=97, seed=5, nan=True),
+    "two_views": dict(V=(2,), H=72, W=136, seed=6, fc=(0, 7), speed=0.3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TAA_CASES))
+def test_taa_resolve_kernel_matches_plain(dev, case):
+    """K3f, the fused resolve: one launch (K3 not launched) that equals
+    taa(impl="plain") bit for bit, NaN at the same pixels."""
+    spec = TAA_CASES[case]
+    args = _taa_inputs(dev, **spec)
+    before = dict(kb.launches)
+    k = taa.taa(*args)
+    assert kb.launches["taa_resolve"] == before["taa_resolve"] + 1
+    assert kb.launches["taa_reproject"] == before["taa_reproject"]
+    p = taa.taa(*args, impl="plain")
+    torch.cuda.synchronize()
+    assert k.shape == p.shape == (*spec.get("V", ()), 3, spec["H"],
+                                  spec["W"])
+    _same(k, p)
+    if case == "nan_texels":
+        assert 9 < int(torch.isnan(p).any(-3).sum()) < p[0].numel() // 4
+    if case == "off_screen":
+        from soc_real_time_renderer_tpu_torch.ops import sampling
+        uv = sampling.grid_uv(spec["H"], spec["W"], dev) - args[2]
+        assert bool(((uv < 0) | (uv > 1)).any())
+
+
+@pytest.mark.parametrize("views", [0, 2])
+def test_taa_resolve_bands_match_unsplit(dev, views):
+    """taa() in two row bands over a ["cuda:0"] * 2 mesh (each band's
+    colour, depth and velocity with a 1-row halo, crop 1, the whole
+    history): K3f once a band, each band equal to its plain version and
+    the joined bands to the unsplit frame, with velocities that fetch
+    across the band border and off the screen."""
+    from soc_real_time_renderer_tpu_torch.parallel import halo
+    from soc_real_time_renderer_tpu_torch.parallel import mesh as pmesh
+    V = (views,) if views else ()
+    *images, fc = _taa_inputs(dev, V, H=72, W=136, seed=7 + views,
+                              speed=0.3, fc=(3, 0)[:views or 1])
+    whole = taa.taa(*images, fc)
+    mesh = pmesh.make_mesh(2, dp=1, devices=[dev] * 2)
+    bands = [halo.split_rows(x, mesh.band_devices("sp")) for x in images]
+    before = dict(kb.launches)
+    k = taa.taa(*bands, fc, shard=(mesh, "sp"))
+    assert kb.launches["taa_resolve"] == before["taa_resolve"] + 2
+    assert kb.launches["taa_reproject"] == before["taa_reproject"]
+    p = taa.taa(*bands, fc, impl="plain", shard=(mesh, "sp"))
+    torch.cuda.synchronize()
+    assert [b.shape[-2] for b in k] == [36, 36]
+    for a, b in zip(k, p):
+        _same(a, b)
+    _same(halo.assemble(k, dev), whole)
+
+
+@pytest.mark.parametrize("name", ["full_nohelmet", "atrium_lifted"])
+def test_taa_resolve_on_a_frames_inputs(dev, name):
+    """K3f on the hdr, depth, velocity and bf16 history of the second
+    frame of a small scene (recorded from the plain frame as
+    chip_smoke.py records them): equal to its plain version."""
+    import chip_smoke
+    built = kit.build_port(name, RenderConfig(width=256, height=128,
+                                              shadow_resolution=512), dev)
+    hist = fm.RenderHistory.create(built.plan.config, device=dev)
+    g, mm, nm = built.frame_globals(0)
+    _, hist = fm.render_frame(built.plan, built.batch, g, hist, mm, nm,
+                              impl="plain")
+    g, mm, nm = built.frame_globals(1)
+    seen = chip_smoke.recorded_inputs(lambda: fm.render_frame(
+        built.plan, built.batch, g, hist, mm, nm, impl="plain"))
+    fn, a, kw = seen["taa_resolve"]
+    assert a[3].abs().amax() > 0 and int(a[5]) == 1
+    k, p = fn(*a, impl="cuda", **kw), fn(*a, impl="plain", **kw)
+    torch.cuda.synchronize()
+    _same(k, p)
+
+
 def test_small_frame_kernel_path_matches_plain(dev):
     hm = terrain.procedural_heightmap(64)
     model = terrain.build_terrain_model(hm, terrain.default_albedo(hm),
@@ -337,7 +458,8 @@ def test_small_frame_kernel_path_matches_plain(dev):
     torch.cuda.synchronize()
     assert kb.launches == {"resolve": 3, "resolve_depth": 0, "texsample": 3,
                            "ssao_taps": 3, "sky_lut": 0,
-                           "sky_lut_procedural": 3, "taa_reproject": 3}
+                           "sky_lut_procedural": 3, "taa_reproject": 0,
+                           "taa_resolve": 3}
     assert not kb.variant_launches
     assert torch.isfinite(ok.color).all()
     assert (ok.color - op.color).abs().max().item() < 1e-5
@@ -760,7 +882,8 @@ def test_small_scene_kernel_path_matches_plain(dev, name):
                                  impl="plain")
     torch.cuda.synchronize()
     want = {"resolve": 3, "texsample": 3, "ssao_taps": 3, "sky_lut": 3,
-            "sky_lut_procedural": 0, "taa_reproject": 3,
+            "sky_lut_procedural": 0, "taa_reproject": 0,
+            "taa_resolve": 3,
             "resolve_depth": 0 if name == "full_nohelmet" else 3}
     assert kb.launches == want
     assert torch.isfinite(ok.color).all()
@@ -799,7 +922,7 @@ def test_passes_scene_on_the_card(dev):
             assert torch.equal(ok.ssr, dense.ssr)
             assert torch.equal(ok.color, dense.color)
     torch.cuda.synchronize()
-    assert kb.launches == {k: (0 if k == "sky_lut_procedural" else 2)
+    assert kb.launches == {k: (0 if k in OFF_FRAME else 2)
                            for k in kb.launches}
     assert torch.isfinite(ok.color).all()
     assert (ok.color - op.color).abs().max().item() < 1e-5
@@ -893,7 +1016,7 @@ def test_preset_frame_kernel_path_matches_plain(dev, tmp_path, monkeypatch):
         op, hp = fm.render_frame(built.plan, built.batch, g, hp, mm, nm,
                                  impl="plain")
     torch.cuda.synchronize()
-    assert kb.launches == {k: (0 if k == "sky_lut_procedural" else 3)
+    assert kb.launches == {k: (0 if k in OFF_FRAME else 3)
                            for k in kb.launches}
     assert torch.isfinite(ok.color).all()
     assert (ok.color - op.color).abs().max().item() < 1e-5
@@ -971,7 +1094,7 @@ def test_viewer_on_the_card(dev, tmp_path, monkeypatch):
         server.server_close()
         loop.join(timeout=120)
     assert not loop.is_alive() and len(per_frame) > 6
-    assert all(d == {k: (0 if k == "sky_lut_procedural" else 1)
+    assert all(d == {k: (0 if k in OFF_FRAME else 1)
                      for k in kb.launches} for d in per_frame)
 
 
@@ -993,7 +1116,7 @@ def _views(built, B):
 
 @pytest.mark.parametrize("B", [3, 1])
 def test_batched_kernels_match_plain(dev, B):
-    """Each of K1, K4, K5, K2, K6 and K3 on the inputs of a batched frame
+    """Each of K1, K4, K5, K2, K6 and K3f on the inputs of a batched frame
     of the small atrium_lifted (B views from distinct cameras, so of
     different content) against its plain version with the same view
     axis: bit-identical (tri_id equal); K5's views folded into its pixel
@@ -1009,7 +1132,7 @@ def test_batched_kernels_match_plain(dev, B):
     seen = chip_smoke.recorded_inputs(
         lambda: step(built.batch, gb, hb, mm, nm))
     assert sorted(seen) == sorted(k for k in kb.launches
-                                  if k != "sky_lut_procedural")
+                                  if k not in OFF_FRAME)
     for k, (fn, a, kw) in seen.items():
         got, want = fn(*a, impl="cuda", **kw), fn(*a, impl="plain", **kw)
         torch.cuda.synchronize()
@@ -1040,7 +1163,7 @@ def test_batched_step_launches_each_kernel_once(dev):
     kb.reset_launches()
     colors, hb2 = step(built.batch, gb, hb, mm, nm)
     torch.cuda.synchronize()
-    assert kb.launches == {k: (0 if k == "sky_lut_procedural" else 1)
+    assert kb.launches == {k: (0 if k in OFF_FRAME else 1)
                            for k in kb.launches}
     for i in range(3):
         out, h = fm.render_frame(
@@ -1238,7 +1361,7 @@ def test_band_taa_kernel_matches_plain(dev, views):
 
 def test_sharded_frame_on_one_card(dev):
     """Two frames of the small atrium_lifted (all six kernels) split in
-    four row bands over a ["cuda:0"] * 4 mesh: K1, K4, K5, K2 and K3
+    four row bands over a ["cuda:0"] * 4 mesh: K1, K4, K5, K2 and K3f
     launch once per band, K6 once (one distinct device); colour, history
     and exposure within 1e-6 of the unsplit frame.  Then the meshed
     batched step over a (dp = 2, sp = 2) mesh of the card: each view
@@ -1260,7 +1383,8 @@ def test_sharded_frame_on_one_card(dev):
         assert kb.launches == {"resolve": 4, "resolve_depth": 4,
                                "texsample": 4, "ssao_taps": 4, "sky_lut": 1,
                                "sky_lut_procedural": 0,
-                               "taa_reproject": 4}, kb.launches
+                               "taa_reproject": 0,
+                               "taa_resolve": 4}, kb.launches
         want, hu = fm.render_frame(built.plan, built.batch, g, hu, mm, nm)
         assert [b.shape for b in out.color] == [(3, 32, 256)] * 4
         assert all(b.device == dev for b in out.color)
@@ -1301,7 +1425,7 @@ def test_bench_loop_launches_once_and_never_waits(dev, texture_filter):
     staged = bench.stage(built, plan, 3)
     bench.run(built, plan, staged)
     t = bench.run(built, plan, staged)
-    want = ["resolve", "ssao_taps", "taa_reproject", "sky_lut_procedural"]
+    want = ["resolve", "ssao_taps", "taa_resolve", "sky_lut_procedural"]
     if texture_filter != "none":
         want.insert(1, "texsample")
     assert t.path == want
