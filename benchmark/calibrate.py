@@ -6,12 +6,13 @@
 In one process (the scene built once): for each seed, the cell's traffic
 from that seed through the timed path's frame loop (warm-up, then the
 window's frames up to the last sampled one, with no clock), the sampled
-frames that a run with that seed checks, and per frame the check's
-numbers of the program against the reference (the lower readings) and,
-with ``--control``, of the control (the reference one precision step
-below, ``reference.frame.render(control=True)``) against the reference
-(the upper readings).  One JSON line per seed; a benchmark run never
-calls this.
+frames that a run with that seed checks, and per frame (per view of a
+batched step) the check's numbers of the program against the reference
+(the lower readings) and, with ``--control``, of the control (the
+reference one precision step below,
+``reference.frame.render(control=True)``) against the reference (the
+upper readings).  One JSON line per seed; a benchmark run never calls
+this.
 """
 import argparse
 import json

@@ -5,7 +5,12 @@ without its present step: each frame the traffic's camera input goes to
 ``BuiltScene.apply_input`` (or the preset's animation runs),
 ``BuiltScene.frame_globals(i, dt=1/60)`` makes the globals, and
 ``make_render_fn(plan)`` renders (``graph/frame.render_frame`` with its
-proof checks, as the viewer calls it).  A CUDA event marks each frame's
+proof checks, as the viewer calls it).  With a mix of several
+``views`` a frame is the render farm's step instead: each view's
+globals from ``parallel/mesh.view_globals`` (its own previous camera as
+``camera_prev``), stacked by ``mesh.batched_globals`` with the history
+of ``mesh.batched_history``, rendered at once by
+``mesh.make_batched_render_fn(plan)``.  A CUDA event marks each frame's
 end, and after frame n is issued the host waits for frame n - 1's: at
 most two frames in flight.  The window lasts ``--seconds`` on the host
 clock and ends with a synchronise.
@@ -13,7 +18,9 @@ clock and ends with a synchronise.
 Set-up (``setup_s``, process start to the first timed frame): imports,
 the asset tree (written once into ``build/benchmark/assets``), the
 kernel library (built once into ``build/torch_ext``), ``scenes.build``,
-and warm-up frames of the cell's own traffic.
+warm-up frames of the cell's own traffic, and a full garbage
+collection; what survives it is frozen (``gc.freeze``) until the window
+closes.
 
 A frame that raises, sets an ``OVERFLOW_*`` bit or has a non-finite
 colour counts in ``failed``.  Frames drawn from the seed, and the last,
@@ -30,6 +37,8 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
+import gc
 import json
 import gzip
 import os
@@ -121,7 +130,8 @@ class Snapshots:
 
 
 def targets_of(out, history, prev, capture) -> dict:
-    """The frame's targets that the check compares, and its inputs."""
+    """The frame's targets that the check compares, and its inputs (of a
+    batched step, each with its leading view axis)."""
     t = dict(tri_id=capture.get("tri_id"), sky_lut=capture.get("sky_lut"),
              depth=out.gbuffer.depth, albedo=out.gbuffer.albedo,
              normal=out.gbuffer.normal,
@@ -138,7 +148,8 @@ def targets_of(out, history, prev, capture) -> dict:
 
 
 class Loop:
-    """The frame loop of the window (and of the warm-up)."""
+    """The frame loop of the window (and of the warm-up): one view a
+    frame, or the traffic's views in one batched step."""
 
     def __init__(self, built, traffic: Traffic, spans, clock: Clock,
                  max_frames: int = 1 << 17):
@@ -147,9 +158,21 @@ class Loop:
         from soc_real_time_renderer_tpu_torch.graph import frame as fm
         self.torch, self.InputState = torch, InputState
         self.built, self.traffic, self.spans = built, traffic, spans
-        self.render = fm.make_render_fn(built.plan)
-        self.history = fm.RenderHistory.create(built.plan.config,
-                                               device=built.device)
+        self.views = traffic.views
+        cfg = built.plan.config
+        if self.views == 1:
+            self.render = fm.make_render_fn(built.plan)
+            self.history = fm.RenderHistory.create(cfg, device=built.device)
+        else:
+            from soc_real_time_renderer_tpu_torch.parallel import mesh
+            self.mesh = mesh
+            self.render = mesh.make_batched_render_fn(built.plan)
+            self.history = mesh.batched_history([
+                fm.RenderHistory.create(cfg, device=built.device)
+                for _ in range(self.views)])
+            self.positions = traffic.view_positions(built.camera_position,
+                                                    built.camera_target)
+            self.cameras = None      # each view's camera of the last step
         self.flags = torch.zeros(max_frames, dtype=torch.bool,
                                  device=built.device)
         self.k = 0          # traffic frames rendered (warm-up included)
@@ -171,12 +194,16 @@ class Loop:
                 with sp.span("apply_input"):
                     self.built.apply_input(self.InputState(**inp), DT)
             with sp.span("frame_globals"):
-                g, mm, nm = self.built.frame_globals(
-                    self.traffic.start_frame + k, DT)
+                g, mm, nm = self._globals(self.traffic.start_frame + k)
             prev = self.history
             with sp.span("render_frame"):
                 out, self.history = self.render(self.built.batch, g, prev,
                                                 mm, nm)
+            outputs = capture.pop("outputs", None)
+            if self.views > 1:
+                # the step hands back its colour and history alone: the
+                # other targets are shade_stage's outputs, taken at the seam
+                out = dataclasses.replace(outputs, color=out)
             with sp.span("check"):
                 self.flags[n] = (out.overflow != 0).any() \
                     | ~torch.isfinite(out.color).all()
@@ -188,6 +215,19 @@ class Loop:
         finally:
             sp.capture = None
         return g, mm, nm, out, self.history, prev, capture
+
+    def _globals(self, i: int):
+        """(g, model_mats, normal_mats) of traffic frame index i: the
+        scene's, or the views' stacked, each view's camera_prev its own
+        camera of the last step (at the first, its own camera)."""
+        if self.views == 1:
+            return self.built.frame_globals(i, DT)
+        gs, mm, nm = self.mesh.view_globals(self.built, self.positions, i,
+                                            self.cameras)
+        if self.cameras is None:
+            gs = [dataclasses.replace(g, camera_prev=g.camera) for g in gs]
+        self.cameras = [g.camera for g in gs]
+        return self.mesh.batched_globals(gs), mm, nm
 
 
 def _smi() -> dict:
@@ -217,15 +257,16 @@ def scene_data(built, cfg) -> types.SimpleNamespace:
         texture_filter=cfg.get("texture_filter", "bilinear"))
 
 
-def reference_poses(cfg: dict, traffic: Traffic, ks) -> dict:
+def reference_poses(cfg: dict, traffic: Traffic, ks, b: int = 0) -> dict:
     """{traffic frame k: (view, position)} for each k in `ks` and k - 1,
-    from the reference's own camera."""
+    from the reference's own camera (of the step's view b)."""
     from .reference import globals as rg
     cam = cfg["camera"]
     want = sorted({k for k in ks} | {k - 1 for k in ks if k > 0})
     poses = {}
     if traffic.kind == "orbit":
-        orbit = rg.Orbit(cam["position"], cam["target"])
+        orbit = rg.Orbit(cam["position"], cam["target"],
+                         turn=traffic.view_turn(b))
         for k in want:
             poses[k] = orbit.pose(traffic.start_frame + k, DT)
         return poses
@@ -239,53 +280,79 @@ def reference_poses(cfg: dict, traffic: Traffic, ks) -> dict:
 
 def reference_check(cfg: dict, built, traffic: Traffic, samples, device,
                     control: bool = False, jobs: bool = False):
-    """Per sampled frame the numbers of :func:`check.compare` (the
-    program's targets, or with `control` the control's, against the
-    reference), and with `jobs` the roofline jobs of the first."""
+    """Per sampled frame, and per view of a batched step, the numbers of
+    :func:`check.compare` (the program's targets, or with `control` the
+    control's, against the reference), and with `jobs` the roofline
+    jobs of the first, summed over its views.  The reference's globals
+    carry the configuration's ``lights``, and its composition shades as
+    many point and spot lights as those name."""
     import torch
     from .reference import clouds as ref_clouds
     from .reference import frame as ref_frame
     from .reference import globals as rg
-    rcfg = rg.RenderConfig(width=cfg["width"], height=cfg["height"],
-                           **cfg.get("render_config", {}))
+    rc = dict(cfg.get("render_config", {}))
+    lights = None
+    if "lights" in cfg:
+        lights = rg.lights_of(cfg["lights"])
+        rc.update(max_point_lights=int(lights.point_count),
+                  max_spot_lights=int(lights.spot_count))
+    rcfg = rg.RenderConfig(width=cfg["width"], height=cfg["height"], **rc)
     scene = scene_data(built, cfg)
-    poses = reference_poses(cfg, traffic, [s["k"] for s in samples])
-    per_frame, frame_jobs = [], None
-    for s in samples:
+    ks = [s["k"] for s in samples]
+    poses = [reference_poses(cfg, traffic, ks, b)
+             for b in range(traffic.views)]
+    per_frame, frame_jobs = [], {} if jobs else None
+    for s, b in ((s, b) for s in samples for b in range(traffic.views)):
         k = s["k"]
         i = traffic.start_frame + k
-        cams = [rg.camera_matrices(*poses[j], traffic.start_frame + j,
+        cams = [rg.camera_matrices(*poses[b][j], traffic.start_frame + j,
                                    rcfg.width, rcfg.height)
                 for j in (k, k - 1 if k > 0 else k)]
-        g = rg.frame_globals(cams[0], cams[1], i, DT, device)
-        t = {n: v.to(device) for n, v in s["targets"].items()}
+        g = rg.frame_globals(cams[0], cams[1], i, DT, device, lights)
+        t, prog_g = s["targets"], s["g"]
+        if traffic.views > 1:
+            t = {n: v[b] for n, v in t.items()}
+            prog_g = _view_of(prog_g, b)
+        t = {n: v.to(device) for n, v in t.items()}
         mm, nm = (m.to(device) for m in s["mats"])
         vis = (t["depth"], t["tri_id"])
         ref = ref_frame.render(rcfg, scene, g, t["prev_color"],
                                t["prev_velocity"], t["prev_exposure"], mm,
                                nm, visibility=vis)
         if control:
-            ctl = ref_frame.render(rcfg, scene, rg.frame_globals(
-                *(_bf16_tree(c) for c in cams), i, DT, device),
-                t["prev_color"], t["prev_velocity"], t["prev_exposure"], mm,
-                nm, visibility=vis, control=True)
-            prog = dict(ctl, globals=check.globals_gap(
-                rg.frame_globals(*(_bf16_tree(c) for c in cams), i, DT,
-                                 device), g))
+            g_low = rg.frame_globals(*(_bf16_tree(c) for c in cams), i, DT,
+                                     device, lights)
+            ctl = ref_frame.render(rcfg, scene, g_low, t["prev_color"],
+                                   t["prev_velocity"], t["prev_exposure"],
+                                   mm, nm, visibility=vis, control=True)
+            prog = dict(ctl, globals=check.globals_gap(g_low, g))
         else:
-            prog = dict(t, globals=check.globals_gap(s["g"], g))
+            prog = dict(t, globals=check.globals_gap(prog_g, g))
         per_frame.append(check.compare(prog, ref))
-        if jobs and frame_jobs is None:
-            frame_jobs = roofline.frame_jobs(rcfg, scene, g, ref, ref_clouds)
+        if jobs and s is samples[0]:
+            # a batched step launches each kernel once for its views: its
+            # jobs are the sum of every view's
+            for name, ms in roofline.frame_jobs(rcfg, scene, g, ref,
+                                                ref_clouds).items():
+                frame_jobs[name] = frame_jobs.get(name, 0.0) + ms
         del ref, t
         if device.type == "cuda":
             torch.cuda.empty_cache()
     return per_frame, frame_jobs
 
 
+def _view_of(tree, b: int):
+    """View `b` of a batched dataclass tree (each leaf's index b on its
+    leading view axis)."""
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _view_of(getattr(tree, f.name), b)
+            for f in dataclasses.fields(tree)})
+    return tree[b]
+
+
 def _bf16_tree(cam):
     """A host camera set rounded to bfloat16 (the control's globals)."""
-    import dataclasses
     import torch
     return dataclasses.replace(cam, **{
         f.name: torch.from_numpy(np.asarray(getattr(cam, f.name)))
@@ -384,6 +451,11 @@ def _run(wl, cfg, mix, seed, seconds, trace, process_start, dev, spec, sp,
     if kb.build_seconds is not None:
         log(f"built the kernel library in {kb.build_seconds:.1f} s (first "
             f"run of this checkout)")
+    # set-up's garbage collected now, and what survives set apart from
+    # the collector until the window closes: no gen-2 pass over the
+    # scene's objects lands in the window (or in its traced part)
+    gc.collect()
+    gc.freeze()
     clock.sync()
     if clock.cuda:
         torch.cuda.reset_peak_memory_stats(dev)
@@ -443,6 +515,7 @@ def _run(wl, cfg, mix, seed, seconds, trace, process_start, dev, spec, sp,
         traced = n
         prof_events = prof.events()
         prof_obj = prof
+    gc.unfreeze()
     snaps.done()
     frame_int = [clock.ms(marks[j], marks[j + 1]) for j in range(n)]
     peak = torch.cuda.max_memory_allocated(dev) if clock.cuda else 0

@@ -6,8 +6,10 @@ sets them, ``SunInfo.create``, the plastic-number TAA jitter) and
 ``camera.py`` (the fly camera's update, ``camera.cpp:23-57``), so that
 the reference makes each frame's globals itself from the camera that
 the traffic drives: the preset's orbit (``BuiltScene.frame_globals``'s
-``animate`` branch) or the fly camera fed the traffic's inputs.  The
-scenes of the benchmark hold no point or spot light.
+``animate`` branch, each view's start turned about the target) or the
+fly camera fed the traffic's inputs.  The point and spot lights are a
+configuration's ``lights`` (:func:`lights_of`, ``scene.cpp:85-117``'s
+gather), or none.
 """
 from __future__ import annotations
 
@@ -196,9 +198,50 @@ def no_lights():
                   spot_count=np.int32(0))
 
 
+def lights_of(spec: dict) -> Lights:
+    """The 128-slot light arrays of a configuration's ``lights``:
+    ``{"point": [{position, color, intensity}], "spot": [{position,
+    rotation_deg, color, intensity, cut_off_deg, outer_cut_off_deg}]}``.
+    As scene.cpp:85-117 gathers them: a spot's direction is (0, -1, 0)
+    rotated about x, then y, then z by its float angles, its cutoffs
+    are stored as cosines, and only the first 128 of each kind count."""
+    point = list(spec.get("point", []))[:MAX_POINT_LIGHTS]
+    spot = list(spec.get("spot", []))[:MAX_SPOT_LIGHTS]
+
+    def slots(rows, dim):
+        out = np.zeros((MAX_POINT_LIGHTS, dim) if dim > 1
+                       else (MAX_POINT_LIGHTS,), np.float32)
+        for i, r in enumerate(rows):
+            out[i] = r
+        return out
+
+    def direction(rotation_deg):
+        r = np.asarray(rotation_deg, np.float32)
+        d = np.array([0.0, -1.0, 0.0], np.float32)
+        d = mu.rotate_x(d, np.radians(r[0]))
+        d = mu.rotate_y(d, np.radians(r[1]))
+        return mu.rotate_z(d, np.radians(r[2]))
+
+    return Lights(
+        point_position=slots([p["position"] for p in point], 3),
+        point_color=slots([p["color"] for p in point], 3),
+        point_intensity=slots([p["intensity"] for p in point], 1),
+        point_count=np.int32(len(point)),
+        spot_position=slots([s["position"] for s in spot], 3),
+        spot_direction=slots([direction(s["rotation_deg"]) for s in spot], 3),
+        spot_color=slots([s["color"] for s in spot], 3),
+        spot_intensity=slots([s["intensity"] for s in spot], 1),
+        spot_cut_off=slots([np.cos(np.radians(s["cut_off_deg"]))
+                            for s in spot], 1),
+        spot_outer_cut_off=slots([np.cos(np.radians(s["outer_cut_off_deg"]))
+                                  for s in spot], 1),
+        spot_count=np.int32(len(spot)))
+
+
 def frame_globals(camera, camera_prev, frame_index: int, dt: float,
-                  device) -> Globals:
-    """ShaderGlobals.create's defaults around this frame's camera sets."""
+                  device, lights: Lights | None = None) -> Globals:
+    """ShaderGlobals.create's defaults around this frame's camera sets,
+    with `lights` (:func:`lights_of`; default none)."""
     sun = default_sun()
     target_luminance = 0.2140
     g = Globals(
@@ -206,7 +249,8 @@ def frame_globals(camera, camera_prev, frame_index: int, dt: float,
         camera_near_clip=_f32(NEAR), camera_far_clip=_f32(FAR),
         elapsed_time=_f32(np.float32(frame_index * dt)),
         delta_time=_f32(np.float32(dt)),
-        frame_counter=np.int32(frame_index), sun=sun, lights=no_lights(),
+        frame_counter=np.int32(frame_index), sun=sun,
+        lights=no_lights() if lights is None else lights,
         terrain_offset=_f32([0.0, 0.0, 0.0]),
         terrain_scale=_f32([100.0, 100.0]),
         terrain_height_scale=_f32(70.0), terrain_midpoint=_f32(0.2),
@@ -230,11 +274,19 @@ def frame_globals(camera, camera_prev, frame_index: int, dt: float,
 
 class Orbit:
     """The preset's animated camera: 0.25 rad per simulated second around
-    the target (BuiltScene.frame_globals with ``animate``)."""
+    the target (BuiltScene.frame_globals with ``animate``), started at
+    `position` turned by `turn` rad about the target (a view of the
+    batched step)."""
 
-    def __init__(self, position, target):
+    def __init__(self, position, target, turn: float = 0.0):
         self.position = _f32(position)
         self.target = _f32(target)
+        if turn:
+            c, s = np.cos(turn), np.sin(turn)
+            rel = self.position - self.target
+            self.position = self.target + np.array(
+                [c * rel[0] - s * rel[2], rel[1], s * rel[0] + c * rel[2]],
+                np.float32)
 
     def pose(self, frame_index: int, dt: float, inputs=None):
         ang = 0.25 * frame_index * dt

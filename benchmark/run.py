@@ -10,7 +10,8 @@ The last line of standard output is one JSON object (``correct``,
 ``breakdown``, and last ``checked``: each number the check compared
 beside its limit), and the last lines of standard error repeat the
 compared numbers.  Without the CUDA cards the cell asks for it exits 3
-and prints no result; on any other failure it exits 1.
+and prints no result; on any other failure, or where the process holds
+JAX or the JAX package once the run is over, it exits 1.
 """
 import os
 import sys
@@ -30,6 +31,8 @@ def _process_age() -> float:
 
 
 PROCESS_START = time.perf_counter() - _process_age()
+# top-level module names that no run may hold once its window has closed
+JAX_MODULES = {"jax", "jaxlib", "flax", "soc_real_time_renderer_tpu"}
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # one host thread for numpy's and PyTorch's CPU pools: the frame loop's
 # host work is one thread, and idle pool threads that spin after each
@@ -63,6 +66,11 @@ def main(argv=None) -> int:
     except harness.NoCard as e:
         print(f"benchmark: {e}", file=sys.stderr)
         return 3
+    loaded = sorted({m.split(".")[0] for m in sys.modules} & JAX_MODULES)
+    if loaded:
+        print(f"benchmark: the run loaded {', '.join(loaded)}; the port "
+              f"runs without JAX", file=sys.stderr)
+        return 1
     for name, c in line["checked"].items():
         print(f"check {name}: {c['value']!r} (limit {c['limit']!r})",
               file=sys.stderr)

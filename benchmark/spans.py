@@ -8,7 +8,8 @@ attributes ``graph.frame.raster_stage``, ``shade_stage`` and
 span is a ``torch.profiler.record_function`` (so the profiler links the
 kernels launched inside it) and a host-clock total.  The wrappers also
 hand the visibility buffer and the sky LUT of a frame to the check when
-asked (:attr:`Spans.capture`).
+asked (:attr:`Spans.capture`), and the outputs of ``shade_stage``
+(``FrameOutputs``) that a batched step does not hand back.
 
 :func:`records` turns a ``torch.profiler`` run over the traced frames
 into the plain dict that the metric readers (``metrics/*.py``) read.
@@ -60,6 +61,8 @@ class Spans:
                         self.capture["tri_id"] = out[0].tri_id
                     elif _name == "sky_lut":
                         self.capture["sky_lut"] = out
+                    elif _name == "shade_stage":
+                        self.capture["outputs"] = out[0]
                 return out
 
             setattr(frame_module, attr, wrapped)

@@ -16,9 +16,14 @@ A mix (``traffic/<mix>.json``) is data:
   order the seed draws, so seeds differ in the path, not in the mix.
 - ``start_frame``: ``[lo, hi]``, the first frame index (the globals'
   ``frame_counter`` and ``elapsed_time``), drawn from the seed.
+- ``views`` (default 1), orbit only: a step renders that many views of
+  the scene at once (the render farm's batched step), spaced evenly
+  round the target: view b's orbit is the preset's, its start turned by
+  2 pi b / ``views`` about the camera's target around the vertical
+  axis, so every view advances together.
 
-Frame k of the traffic is the k-th frame the benchmark renders, the
-warm-up's included.
+Frame k of the traffic is the k-th frame (a step of every view) the
+benchmark renders, the warm-up's included.
 """
 from __future__ import annotations
 
@@ -39,6 +44,29 @@ class Traffic:
         self.start_frame = int(rng.integers(lo, hi + 1))
         self._rng = rng
         self._inputs: list = []
+        self.views = int(params.get("views", 1))
+        if self.views < 1 or (self.views > 1 and self.kind != "orbit"):
+            raise ValueError(f"{self.views} views of a {self.kind!r} "
+                             f"camera: only an orbit takes several views")
+
+    def view_turn(self, b: int) -> float:
+        """View b's turn about the target, in radians: 2 pi b / views."""
+        return 2.0 * np.pi * b / self.views
+
+    def view_positions(self, position, target) -> list:
+        """Each view's starting camera position, in float32 as the orbit
+        turns it: `position` turned by view_turn(b) about `target`
+        around +y (view 0: `position` itself)."""
+        position = np.asarray(position, np.float32)
+        target = np.asarray(target, np.float32)
+        rel = position - target
+        out = [position.copy()]
+        for b in range(1, self.views):
+            c, s = np.cos(self.view_turn(b)), np.sin(self.view_turn(b))
+            out.append(target + np.array([c * rel[0] - s * rel[2], rel[1],
+                                          s * rel[0] + c * rel[2]],
+                                         np.float32))
+        return out
 
     def inputs(self, k: int):
         """Frame k's input (a dict of InputState fields), or None (the
