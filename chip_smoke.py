@@ -2,12 +2,12 @@
 
     python3 chip_smoke.py
 
-Builds the eight hand-written CUDA kernels (and K5's variants) from
+Builds the nine hand-written CUDA kernels (and K5's variants) from
 ``soc_real_time_renderer_tpu_torch/kernels/csrc`` (K1 bin resolve, K2
 SSAO taps, K3 TAA history fetch, K3f the whole TAA resolve around it,
 K4 shadow depth resolve, K5 material texture tap, K6 noise-texture sky
-LUT, K6p procedural sky LUT), then
-renders three scenes at 1920x1088 with every other RenderConfig default
+LUT, K6p procedural sky LUT, K7 point and spot lights), then
+renders four scenes at 1920x1088 with every other RenderConfig default
 (4096^2 shadow map):
 
 * ``terrain``: ``scenes.build("terrain")``, BASELINE config 4.  Its
@@ -22,7 +22,12 @@ renders three scenes at 1920x1088 with every other RenderConfig default
   place at y = 32, inside the sun's volume, so the 4096^2 shadow view
   is rastered and sampled through its proved crop; given the same
   noise field.  All six kernels of the noise path (every kernel but
-  K6p and K3 alone, whose fetch K3f does).
+  K6p, K7 and K3 alone, whose fetch K3f does).
+* ``full_lit_nohelmet``: ``full_nohelmet`` with the ``full_lit``
+  preset's 256 lights (``scenes.full_lit_lights`` through
+  ``scenes.add_lights``), so ``_finish`` binds 128 point and 128 spot
+  lights and composition shades every pixel by each.  K1, K2, K3f, K5,
+  K6 and K7.
 
 Then the passes that are off by default, two frames each, same size:
 
@@ -145,12 +150,12 @@ package's cut at ``med_slots`` bins) in turns, medians of six each, and
 the spread of the plan's readings: the third tier's cost against it.
 
 The atrium scenes are composed from ``Scene`` + ``scenes._finish``, as
-the JAX package composes its presets.  For each of the first three
+the JAX package composes its presets.  For each of the first four
 scenes: the build, the
 spread of each rastered view's pairs over its bins (mean and heaviest
 bin, the pairs wholly behind the camera), each kernel of its path
 against its plain PyTorch version on the frame's own inputs (K1, K3f,
-K4, K5 and K6 bit for bit, and K3 alone on the fused resolve's fetch
+K4, K5, K6 and K7 bit for bit, and K3 alone on the fused resolve's fetch
 inputs), 8 frames through ``render_frame`` (launch counts
 set to 0 just before, read just after: each kernel of the path launches
 once per frame, the others never), the kernel-path frame against the
@@ -249,6 +254,13 @@ SKY_OPS_DENSITY_HASHED = 490   # one density over the value noise: 4
 #                        octaves x 2 slices x (4 hashes of 7: 2 mul, add,
 #                        sin, mul, fmod, wrap; 23 lattice and blend ops)
 SKY_OPS_SAMPLE = 40    # one march sample's phase, powder, scatter terms
+LIGHT_OPS_POINT = 56   # (point light, pixel): to the light, d2 and its
+#                        clamp, sqrtf, direction, half vector and its
+#                        norm, diffuse, acosf(clamped dot), expf, falloff,
+#                        three channels' colour, albedo and sum
+LIGHT_OPS_SPOT = 66    # (spot light, pixel): a point's 56 and the cone's
+#                        dot, subtraction, division and clamp
+LIGHT_BYTES_PIXEL = 48  # albedo, normal, position read; the sum written
 
 SRC = "soc_real_time_renderer_tpu_torch/kernels/csrc/"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
@@ -278,6 +290,12 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "taa_resolve": (SRC + "taa.cu",
                     "none (soc_real_time_renderer_tpu/ops/taa.py taa, XLA "
                     "around taa_pallas.py:30)"),
+    # replaces no TPU kernel: the JAX package shades the point and spot
+    # lights as a lax.scan in XLA; added for the lit atrium, whose 256
+    # lights the plain loop shades in ~14,000 launches a frame
+    "local_lights": (SRC + "lights.cu",
+                     "none (soc_real_time_renderer_tpu/ops/composition.py "
+                     "_local_lights, a lax.scan in XLA)"),
 }
 # the scene whose inputs give each kernel's line in the JSON
 # the two TPU kernels that took K5 apart, as K5 variants on the card:
@@ -294,13 +312,17 @@ HOME = {"resolve": "terrain", "ssao_taps": "terrain",
         "taa_reproject": "terrain", "taa_resolve": "terrain",
         "texsample": "full_nohelmet",
         "sky_lut": "full_nohelmet", "resolve_depth": "atrium_lifted",
-        "sky_lut_procedural": "terrain"}
+        "sky_lut_procedural": "terrain",
+        "local_lights": "full_lit_nohelmet"}
 # the kernels no frame launches on its own: K3, whose fetch the frame's
 # fused TAA resolve (taa_resolve) does
 STANDALONE = ["taa_reproject"]
-# the kernels of a scene with the cloud-noise texture: all but K6p
-NOISE_PATH = sorted(k for k in KERNELS
-                    if k != "sky_lut_procedural" and k not in STANDALONE)
+# the kernels that launch only where the plan binds a light: K7
+LIT = ["local_lights"]
+# the kernels of a lightless scene with the cloud-noise texture: all but
+# K6p and K7
+NOISE_PATH = sorted(k for k in KERNELS if k != "sky_lut_procedural"
+                    and k not in STANDALONE and k not in LIT)
 
 
 def log(msg):
@@ -409,9 +431,11 @@ def build_scene(name, dev):
         models.append(model)
 
     atrium = proc.build_atrium(texture_dir=None)
-    if name == "full_nohelmet":
+    if name in ("full_nohelmet", "full_lit_nohelmet"):
         entity("sponza model", atrium, scale=[0.01] * 3)
         entity("terrain", scenes._terrain_model(), position=[0.0, -8.0, 0.0])
+        if name == "full_lit_nohelmet":
+            scenes.add_lights(scene, scenes.full_lit_lights())
         built = scenes._finish(scene, models, cfg, [-7.0, 1.8, 0.0],
                                [0, 1.5, 0], animate=True, device=dev)
     else:
@@ -468,21 +492,28 @@ def kernel_cases(name, built, dev, min_lit=0.1):
     `min_lit` of its texels below the 1.0 clear, and some."""
     import torch
     from soc_real_time_renderer_tpu_torch.graph import frame as fm
-    from soc_real_time_renderer_tpu_torch.ops import raster2, sky, ssao, \
-        taa, texsample
+    from soc_real_time_renderer_tpu_torch.ops import composition, raster2, \
+        sky, ssao, taa, texsample
     plan, batch = built.plan, built.batch
     cfg = plan.config
     path = path_of(plan, batch)
 
     taps = {}
     real_sample_atlas = texsample.sample_atlas
+    real_local_lights = composition._local_lights
 
     def spy(*a, **k):        # records the frame's (mid, uv, lod)
         taps.setdefault("args", (a, {n: v for n, v in k.items()
                                      if n != "impl"}))
         return real_sample_atlas(*a, **k)
 
+    def spy_lights(*a, **k):  # records composition's G-buffer planes
+        taps.setdefault("lights", (a, {n: v for n, v in k.items()
+                                       if n != "impl"}))
+        return real_local_lights(*a, **k)
+
     texsample.sample_atlas = spy
+    composition._local_lights = spy_lights
     try:
         hist = fm.RenderHistory.create(cfg, device=dev)
         g, mm, nm = built.frame_globals(0)
@@ -490,6 +521,7 @@ def kernel_cases(name, built, dev, min_lit=0.1):
                                       impl="plain")
     finally:
         texsample.sample_atlas = real_sample_atlas
+        composition._local_lights = real_local_lights
     g1, mm1, nm1 = built.frame_globals(1, peek=True)
     torch.cuda.synchronize()
     world, _ = fm.transform_triangles(batch, mm1, nm1)
@@ -629,6 +661,26 @@ def kernel_cases(name, built, dev, min_lit=0.1):
              + n_up * 24 * (SKY_OPS_DENSITY_HASHED + SKY_OPS_SAMPLE)
              + n_hit * 10 * SKY_OPS_DENSITY_HASHED), None,
             lambda: sky.launch_sky_lut(block_p))
+
+    # K7: the point and spot lights on the warm frame's own globals and
+    # composition planes (albedo, normal, world position)
+    if "local_lights" in path:
+        check("lights" in taps, "the warm frame shaded its lights")
+        (gl, alb, nrm, pos, n_pt, n_sp), _ = taps["lights"]
+        P7 = pos[0].numel()
+
+        def cmp_lights(k, p):
+            e = (k - p).abs().max().item()
+            return e, (f"{n_pt} point and {n_sp} spot slots over {P7} "
+                       f"pixels, max abs {e:.3g} (== 0, torch.equal "
+                       f"{torch.equal(k, p)})"), torch.equal(k, p)
+
+        cases["local_lights"] = (
+            lambda i: composition._local_lights(gl, alb, nrm, pos, n_pt,
+                                                n_sp, impl=i),
+            cmp_lights, (P7 * LIGHT_BYTES_PIXEL,
+                         P7 * (n_pt * LIGHT_OPS_POINT
+                               + n_sp * LIGHT_OPS_SPOT)), None, None)
 
     # K3: TAA history fetch, alone
     *_, vel_s = taa.neighbourhood(out0.hdr, depth, out0.gbuffer.velocity)
@@ -923,10 +975,18 @@ def scene_phase(name, dev, card, results):
         check(path == ["resolve", "texsample", "ssao_taps", "taa_resolve",
                        "sky_lut_procedural"],
               "terrain runs K1, K5, K2, K3f, K6p")
-    elif name == "full_nohelmet":
+    elif name in ("full_nohelmet", "full_lit_nohelmet"):
         check(plan.atlas_num_materials >= 2 and batch.cloud_noise is not None
               and plan.shadow_statically_empty,
-              "full_nohelmet: >= 2 materials, cloud noise, shadow elided")
+              f"{name}: >= 2 materials, cloud noise, shadow elided")
+        lit = name == "full_lit_nohelmet"
+        cfg = plan.config
+        slots = (128, 128) if lit else (0, 0)
+        check((cfg.max_point_lights, cfg.max_spot_lights) == slots
+              and ("local_lights" in path) == lit,
+              f"{name}: 128 point and 128 spot lights bound and K7 on the "
+              f"path, or neither: {cfg.max_point_lights}, "
+              f"{cfg.max_spot_lights}, {path}")
     else:
         check(not plan.shadow_statically_empty,
               "atrium_lifted defeats the shadow emptiness proof")
@@ -2193,7 +2253,7 @@ def viewer_phase(dev, card, results):
     check(summed == counts, f"every launch came from a frame: {summed} "
           f"vs {counts}")
     check(all(d == {k: 0 if k == "sky_lut_procedural" or k in STANDALONE
-                    or (k == "resolve_depth" and elided) else 1
+                    or k in LIT or (k == "resolve_depth" and elided) else 1
                     for k in counts} for elided, d in per_frame),
           "each frame launched its path's kernels once")
     k4_before = sum(d["resolve_depth"] for _, d in per_frame[:k5])
@@ -2527,7 +2587,8 @@ def main():
     results = {}
     frames = {}
     seconds = {}
-    for name in ("terrain", "full_nohelmet", "atrium_lifted"):
+    for name in ("terrain", "full_nohelmet", "atrium_lifted",
+                 "full_lit_nohelmet"):
         t0 = time.perf_counter()
         frames[name] = scene_phase(name, dev, card, results)
         seconds[name] = time.perf_counter() - t0
@@ -2616,8 +2677,8 @@ def main():
                                     "launch_device_ms")},
             "by_scene": results[name]})
     kernels.extend(tex_kernels)
-    check(len(kernels) == 10, "the JSON lists all eight TPU kernels' "
-          "counterparts, K6p and K3f")
+    check(len(kernels) == 11, "the JSON lists all eight TPU kernels' "
+          "counterparts, K6p, K3f and K7")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -71,11 +71,12 @@ def other_library(csrc, flags=()):
     for ln in report.splitlines():
         if "registers" in ln or "Compiling entry" in ln:
             cs.log(f"  other build, ptxas: {ln.strip()}")
-    # an older tree lacks K5's variants, K6p and the fused TAA resolve
-    # (none is A/B'd here)
+    # an older tree lacks K5's variants, K6p, the fused TAA resolve and
+    # the local lights (none is A/B'd here)
     return kb.load(lib, optional={"texsample_variant_launch",
                                   "sky_lut_procedural_launch",
-                                  "taa_resolve_launch"})
+                                  "taa_resolve_launch",
+                                  "local_lights_launch"})
 
 
 def only_bin(starts, b):

@@ -17,7 +17,8 @@ hand-written kernels on the path: K1 (main-view resolve), K4 (the sun
 shadow view's depth resolve, unless the build proved the map empty), K5
 (the material tap), K2 (SSAO taps), K6 (the sky LUT over the
 cloud-noise texture) or K6p (the sky LUT over the procedural value
-noise, where there is no texture) and K3f (the TAA resolve, K3's
+noise, where there is no texture), K7 (composition's point and spot
+lights, where the plan binds any) and K3f (the TAA resolve, K3's
 history fetch fused with its 3x3 neighbourhood and blend).  The
 bracketed passes are off by default (``RenderConfig.enable_ssr``,
 ``composite_ssr``, ``enable_depth_of_field``,
@@ -411,7 +412,7 @@ def _shade(plan, batch, g, history, vis, records, shadow_map, overflow,
             max_spot_lights=cfg.max_spot_lights,
             empty_shadow_map=(cfg.enable_shadows
                               and plan.shadow_statically_empty),
-            shadow_crop=plan.shadow_crop)
+            shadow_crop=plan.shadow_crop, impl=impl)
         if cfg.composite_ssr and ssr_img is not None:
             hdr = _ssr_mix(hdr, ssr_img, gbuf.metallic_roughness)
 
@@ -579,7 +580,7 @@ def _shade_sharded(plan, batch, g, history, vis, records, shadow_map,
             max_spot_lights=cfg.max_spot_lights,
             empty_shadow_map=(cfg.enable_shadows
                               and plan.shadow_statically_empty),
-            shadow_crop=plan.shadow_crop, row0=a, full_h=H)
+            shadow_crop=plan.shadow_crop, row0=a, full_h=H, impl=impl)
             for i, ((a, _), d) in enumerate(zip(band_rows, devices))]
         if cfg.composite_ssr and ssr_img is not None:
             hdr = [_ssr_mix(*a) for a in zip(hdr, bands(ssr_img),

@@ -47,7 +47,7 @@ NVCC_FLAGS = [*ARCH, "-O3", "-std=c++17", "--fmad=false", "-Xptxas", "-v",
 # launch counts per kernel: each wrapper adds one where it launches
 launches = {"resolve": 0, "resolve_depth": 0, "texsample": 0,
             "ssao_taps": 0, "sky_lut": 0, "sky_lut_procedural": 0,
-            "taa_reproject": 0, "taa_resolve": 0}
+            "taa_reproject": 0, "taa_resolve": 0, "local_lights": 0}
 # launches of K5's variants (ops/texsample.VARIANTS, the texture-tap
 # benches), by variant: apart from `launches`, whose kernels are the
 # frame's
@@ -88,6 +88,12 @@ _SIGNATURES = {
     # stream
     "taa_resolve_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _I, _I, _I, _I, _I, _P],
+    # albedo, normal, position, camera position, point position, colour,
+    # intensity, count, spot position, direction, colour, intensity,
+    # cut-off, outer cut-off, count, out, P, views, max_point, max_spot,
+    # the lights' view stride (0 or 1 set), the channel and view strides
+    # of albedo, normal and position, stream
+    "local_lights_launch": [_P] * 16 + [_I] * 11 + [_P],
 }
 
 

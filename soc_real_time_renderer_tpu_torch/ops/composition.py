@@ -9,6 +9,12 @@ The sun shadow is taken from the rendered depth map (the K4 shadow
 view, full or through the proved crop) or, where the build proved the
 map empty, against the constant 1.0; so is the volumetric march's
 comparison tap (``sampling.sample_shadow_cmp`` over the full map).
+
+The point and spot lights are K7 (``kernels/csrc/lights.cu``) on the
+card, their plain version (:func:`_local_lights_plain`) on the CPU or
+with ``impl="plain"``: span ``compose.lights``, counters
+``light_pairs``, ``spot_light_pairs`` and ``light_pixels``
+(``utils/trace``).
 """
 from __future__ import annotations
 
@@ -17,7 +23,8 @@ import math
 import torch
 
 from . import sampling
-from ..utils import views
+from ..kernels import build as kb
+from ..utils import trace, views
 from ..utils.vec import dot3, mat_vec3, normalize3
 
 DITHER_PATTERN = (  # composition.inl:104-108 (row = x%4, col = y%4)
@@ -72,14 +79,38 @@ def _light_terms(to_l, d2, vdir, normal):
 
 
 def _local_lights(g, albedo, normal, position, max_point: int = 128,
-                  max_spot: int = 128):
-    """Point + spot lights (composition.inl:124-160) over the first
-    max_point / max_spot slots, each masked by the live count.  g: the
-    globals in planar shape (views.planar(g, 1)); albedo, normal and
-    position (3, *V, P)."""
-    acc = torch.zeros_like(albedo)
+                  max_spot: int = 128, impl: str | None = None):
+    """Point + spot lights (composition.inl:124-160) of the first
+    max_point / max_spot slots: K7 for CUDA tensors; for CPU tensors (or
+    impl="plain") K7's plain version, :func:`_local_lights_plain`, which
+    masks each slot at or past its kind's live count.  No fallback.  g:
+    the frame's globals (one frame's or batched); albedo, normal and
+    position (3, *V, P).  Counts, on the host from the plan,
+    ``light_pairs`` (the slots bound times the pixels, whatever K7
+    skips), ``spot_light_pairs`` (the spot slots' share of them) and
+    ``light_pixels``; nothing where both bounds are 0."""
     if max_point == 0 and max_spot == 0:
-        return acc
+        return torch.zeros_like(albedo)
+    with trace.span("compose.lights"):
+        pixels = position[0].numel()
+        trace.counters["light_pairs"] += (max_point + max_spot) * pixels
+        trace.counters["spot_light_pairs"] += max_spot * pixels
+        trace.counters["light_pixels"] += pixels
+        if kb.choose(impl, albedo, normal, position) == "plain":
+            return _local_lights_plain(views.planar(g, 1), albedo, normal,
+                                       position, max_point, max_spot)
+        return _local_lights_cuda(g, albedo, normal, position, max_point,
+                                  max_spot)
+
+
+def _local_lights_plain(g, albedo, normal, position, max_point: int,
+                        max_spot: int):
+    """K7's plain version: a Python loop over the point slots [0,
+    max_point), then the spot slots [0, max_spot), each slot's term
+    masked by its kind's live count (``count > i``), whole planes per
+    op.  g: the globals in planar shape (views.planar(g, 1)); albedo,
+    normal and position (3, *V, P)."""
+    acc = torch.zeros_like(albedo)
     lt = g.lights
     vdir = normalize3(g.camera.position - position)
 
@@ -112,6 +143,55 @@ def _local_lights(g, albedo, normal, position, max_point: int = 128,
         s = lit / d2 * inten_[i] * cone * on
         acc = acc + albedo * (col_[i] * s[None])
     return acc
+
+
+def _local_lights_cuda(g, albedo, normal, position, max_point: int,
+                       max_spot: int):
+    """K7 on the (3, *V, P) planes, which may have any channel and view
+    strides (their pixels dense), against the globals' light arrays and
+    live counts on the card; returns (3, *V, P)."""
+    lib = kb.library()
+    lt = g.lights
+    nv = g.frame_counter.dim()
+    *V, P = albedo.shape[1:]
+    views_n = V[0] if V else 1
+    leaves = {"camera.position": (g.camera.position, (3,)),
+              "point_position": (lt.point_position, (128, 3)),
+              "point_color": (lt.point_color, (128, 3)),
+              "point_intensity": (lt.point_intensity, (128,)),
+              "point_count": (lt.point_count, ()),
+              "spot_position": (lt.spot_position, (128, 3)),
+              "spot_direction": (lt.spot_direction, (128, 3)),
+              "spot_color": (lt.spot_color, (128, 3)),
+              "spot_intensity": (lt.spot_intensity, (128,)),
+              "spot_cut_off": (lt.spot_cut_off, (128,)),
+              "spot_outer_cut_off": (lt.spot_outer_cut_off, (128,)),
+              "spot_count": (lt.spot_count, ())}
+    bad = [n for n, (x, shape) in leaves.items()
+           if tuple(x.shape) != (*V[:nv], *shape) or x.device != albedo.device
+           or x.dtype != (torch.int32 if n.endswith("count")
+                          else torch.float32)]
+    planes = [x if x.stride(-1) == 1 else x.contiguous()
+              for x in (albedo, normal, position)]
+    if bad or len(V) != nv or nv > 1 or max(max_point, max_spot) > 128 \
+            or any(x.shape != albedo.shape or x.dtype != torch.float32
+                   for x in planes):
+        raise ValueError(f"local lights: {bad or 'planes'} against "
+                         f"{tuple(albedo.shape)} planes, {nv} view axes")
+    strides = [s for x in planes for s in (x.stride(0),
+                                           x.stride(1) if V else 0)]
+    if max(strides) >= 2 ** 31 or 3 * albedo[0].numel() >= 2 ** 31:
+        raise ValueError(f"local lights: {tuple(albedo.shape)} planes are "
+                         f"past the kernel's int strides")
+    leaves = [x.contiguous() for x, _ in leaves.values()]
+    out = torch.empty((3, *V, P), dtype=torch.float32, device=albedo.device)
+    code = lib.local_lights_launch(
+        *(x.data_ptr() for x in planes), *(x.data_ptr() for x in leaves),
+        out.data_ptr(), P, views_n, max_point, max_spot, nv, *strides,
+        kb.stream_ptr(albedo))
+    kb.check(code, "local_lights")
+    kb.launches["local_lights"] += 1
+    return out
 
 
 def _volumetric(gp, position, uv, d, shadow_map, empty_shadow_map: bool,
@@ -153,7 +233,7 @@ def compose(g, depth, albedo, emissive, normal, ssao, shadow_map, clouds,
             max_point_lights: int = 128, max_spot_lights: int = 128,
             empty_shadow_map: bool = False,
             shadow_crop: tuple | None = None, row0: int = 0,
-            full_h: int | None = None):
+            full_h: int | None = None, impl: str | None = None):
     """Full composition pass (planar).
 
     depth: (H, W); albedo/emissive/normal: (3, H, W); ssao: (H, W);
@@ -169,7 +249,8 @@ def compose(g, depth, albedo, emissive, normal, ssao, shadow_map, clouds,
     axis (B, ...): each view has its own sun, lights and shadow map,
     the volumetric term's too.  A row band: the images
     hold rows [row0, row0 + H) of a `full_h`-row screen; every pixel is
-    composed at its screen uv (per pixel, no halo)."""
+    composed at its screen uv (per pixel, no halo).  impl: the local
+    lights' (see _local_lights)."""
     H, W = depth.shape[-2:]
     Hf = full_h or H
     V = depth.shape[:-2]
@@ -214,8 +295,8 @@ def compose(g, depth, albedo, emissive, normal, ssao, shadow_map, clouds,
     direct_s = torch.clamp(dot3(nrm, -gp.sun.direction), min=0.0) \
         * sun_shadow
     direct = direct_s[None].expand_as(alb)
-    direct = direct + _local_lights(gp, alb, nrm, position, max_point_lights,
-                                    max_spot_lights)
+    direct = direct + _local_lights(g, alb, nrm, position, max_point_lights,
+                                    max_spot_lights, impl=impl)
 
     # --- volumetric light (computed-then-zeroed in the reference)
     volumetric = 0.0

@@ -12,9 +12,11 @@ transforms.  It also reads the cloud-noise texture
 ``ASSETS/Clouds/noise.png`` when the file exists.
 
 The presets (:func:`build`): ``helmet``, ``helmet_lifted``, ``sponza``,
-``terrain`` and ``full`` (BASELINE configs 1-6), and ``sponza_lifted``
+``terrain`` and ``full`` (BASELINE configs 1-6), ``sponza_lifted``
 (``sponza`` inside the sun's volume, animated: the paid 4096^2 shadow
-view through its proved crop).  All but ``terrain`` read the asset
+view through its proved crop) and ``full_lit`` (``full`` with the
+globals' 128 point and 128 spot light slots filled, laid out by
+:func:`full_lit_lights`).  All but ``terrain`` read the asset
 tree under ``ASSETS`` (``SOC_ASSETS``):
 ``DamagedHelmet/glTF/DamagedHelmet.gltf`` and, for the atrium's
 materials, ``Sponza/glTF``; a missing helmet raises
@@ -41,7 +43,8 @@ from .models import gltf, proc
 from .models.scene_batch import SceneBatch, build_scene_batch
 from .models.texture import decode_image
 from .ops import raster2
-from .scene.components import MeshComponent, TransformComponent
+from .scene.components import (MeshComponent, PointLightComponent,
+                               SpotLightComponent, TransformComponent)
 from .scene.scene import Scene
 from .utils import mathutil as mu
 from .utils import trace
@@ -504,11 +507,10 @@ def build_terrain(config: RenderConfig, device=None, **kw) -> BuiltScene:
                    camera_target=[50, 0, 50], device=device, **kw)
 
 
-def build_full(config: RenderConfig, device=None, **kw) -> BuiltScene:
-    """BASELINE config 5: atrium + helmet + terrain at y = -8, animated
-    camera."""
-    device = resolve_device(device)
-    scene = Scene("full")
+def _full_scene(name: str):
+    """``full``'s scene: the atrium, the helmet and the terrain at y = -8;
+    returns (scene, models)."""
+    scene = Scene(name)
     with trace.span("scenes.models"):
         atrium = _entity(scene, "sponza model", proc.build_atrium(
             texture_dir=os.path.join(ASSETS, "Sponza/glTF")),
@@ -517,14 +519,95 @@ def build_full(config: RenderConfig, device=None, **kw) -> BuiltScene:
                          gltf.load_model(helmet_path()))
         terrain = _entity(scene, "terrain", _terrain_model(),
                           position=[0.0, -8.0, 0.0])
-    return _finish(scene, [atrium, helmet, terrain], config,
-                   camera_pos=[-7.0, 1.8, 0.0], camera_target=[0, 1.5, 0],
-                   animate=True, device=device, **kw)
+    return scene, [atrium, helmet, terrain]
+
+
+def build_full(config: RenderConfig, device=None, **kw) -> BuiltScene:
+    """BASELINE config 5: atrium + helmet + terrain at y = -8, animated
+    camera."""
+    device = resolve_device(device)
+    scene, models = _full_scene("full")
+    return _finish(scene, models, config, camera_pos=[-7.0, 1.8, 0.0],
+                   camera_target=[0, 1.5, 0], animate=True, device=device,
+                   **kw)
+
+
+def full_lit_lights() -> dict:
+    """The lit atrium's lights, in the schema of a benchmark
+    configuration's ``lights``: ``{"point": [{position, color,
+    intensity}], "spot": [{position, rotation_deg, color, intensity,
+    cut_off_deg, outer_cut_off_deg}]}``, filling the globals' 128 point
+    and 128 spot slots (shared.inl:84-85) inside the 24 x 12 x 9 m atrium
+    of ``proc.build_atrium``.
+
+    Point lights: 4 rows at z = -4.5, -1.5, 1.5, 4.5 of 32 each at
+    x = -11.625 + 0.75 i, y = 0.8 (even i) or 2.4 (odd i).  Spot lights:
+    2 rows at z = -3 and 3, along the colonnades, of 64 each at
+    x = -11.8125 + 0.375 j, y = 7, pointing down and tilted 25 degrees
+    toward the centre aisle (z = 0).  Intensity and cut-offs are the
+    components' defaults (components.hpp:57: 16, 20 and 30 degrees);
+    the colours are drawn in [0.3, 1]^3 from default_rng(21), points
+    first, and kept as float32 values, so that a light shaded from
+    another slot shows."""
+    rng = np.random.default_rng(21)
+
+    def colour():
+        return [float(v) for v in rng.uniform(0.3, 1.0, 3).astype(
+            np.float32)]
+
+    pt, sp = PointLightComponent(), SpotLightComponent()
+    point = [{"position": [-11.625 + 0.75 * i, 0.8 if i % 2 == 0 else 2.4,
+                           z],
+              "color": colour(), "intensity": pt.intensity}
+             for z in (-4.5, -1.5, 1.5, 4.5) for i in range(32)]
+    # rotate_x(+a) turns (0, -1, 0) toward -z: the z = 3 row leans by +25
+    spot = [{"position": [-11.8125 + 0.375 * j, 7.0, z],
+             "rotation_deg": [25.0 if z > 0 else -25.0, 0.0, 0.0],
+             "color": colour(), "intensity": sp.intensity,
+             "cut_off_deg": sp.cut_off, "outer_cut_off_deg": sp.outer_cut_off}
+            for z in (-3.0, 3.0) for j in range(64)]
+    return {"point": point, "spot": spot}
+
+
+def add_lights(scene: Scene, spec: dict) -> None:
+    """One entity with a transform and a light component for each light
+    of `spec` (:func:`full_lit_lights`' schema), points first, in order:
+    the order ``Scene.update`` gathers them into the slots."""
+    for i, p in enumerate(spec.get("point", [])):
+        e = scene.create_entity(f"point light {i}")
+        e.add_component(TransformComponent()).set_position(p["position"])
+        e.add_component(PointLightComponent(
+            color=np.asarray(p["color"], np.float32),
+            intensity=float(p["intensity"])))
+    for i, s in enumerate(spec.get("spot", [])):
+        e = scene.create_entity(f"spot light {i}")
+        tc = e.add_component(TransformComponent())
+        tc.set_position(s["position"])
+        tc.set_rotation(s["rotation_deg"])
+        e.add_component(SpotLightComponent(
+            color=np.asarray(s["color"], np.float32),
+            intensity=float(s["intensity"]),
+            cut_off=float(s["cut_off_deg"]),
+            outer_cut_off=float(s["outer_cut_off_deg"])))
+
+
+def build_full_lit(config: RenderConfig, device=None, **kw) -> BuiltScene:
+    """The lit atrium: ``full``'s entities and animated camera with the
+    256 lights of :func:`full_lit_lights`, so _finish binds 128 point and
+    128 spot lights and composition shades every pixel by each (K7 on
+    the card)."""
+    device = resolve_device(device)
+    scene, models = _full_scene("full_lit")
+    add_lights(scene, full_lit_lights())
+    return _finish(scene, models, config, camera_pos=[-7.0, 1.8, 0.0],
+                   camera_target=[0, 1.5, 0], animate=True, device=device,
+                   **kw)
 
 
 PRESETS = {"helmet": build_helmet, "helmet_lifted": build_helmet_lifted,
            "sponza": build_sponza, "sponza_lifted": build_sponza_lifted,
-           "terrain": build_terrain, "full": build_full}
+           "terrain": build_terrain, "full": build_full,
+           "full_lit": build_full_lit}
 
 
 def build(name: str, config: RenderConfig, device=None, **kw) -> BuiltScene:

@@ -116,6 +116,8 @@ def kernel_path(plan, batch) -> list[str]:
         path.append("taa_resolve")
     if cfg.enable_shadows and not plan.shadow_statically_empty:
         path.append("resolve_depth")
+    if cfg.max_point_lights or cfg.max_spot_lights:
+        path.append("local_lights")
     noise = batch.cloud_noise is not None
     if cfg.enable_clouds and not (cfg.cloud_impl == "perpixel" and noise):
         texture = cfg.cloud_noise_mode == "texture" and noise

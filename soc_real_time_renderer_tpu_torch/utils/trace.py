@@ -33,6 +33,13 @@ as ``kernels/build.launches`` counts the hand kernels' launches:
   (span ``raster.shadow`` ⊃ ``shadow.setup``, ``shadow.resolve``) can
   cover, a rendered map: the plan's proved crop, or the whole map.
   Known on the host from the plan; nothing where the map is elided.
+- ``light_pairs``, ``spot_light_pairs``, ``light_pixels``:
+  composition's local lights (span ``compose.lights``, K7): the (light
+  slot, pixel) pairs the plan binds, (``max_point_lights`` +
+  ``max_spot_lights``) x pixels x views, the spot slots' share of them,
+  ``max_spot_lights`` x pixels x views, and the pixels x views they are
+  shaded on.  From the plan, no read-back;
+  nothing where both bounds are 0.
 
 :func:`snapshot` returns the totals, the counters and the kernel
 launches together; :func:`profiled` returns the same for the latest

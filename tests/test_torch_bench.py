@@ -238,13 +238,28 @@ def test_kernel_path_names_the_frames_sky_kernel(noise, switches, sky):
     (which falls back to the LUT without the noise) or with the clouds
     off."""
     from types import SimpleNamespace
-    plan = SimpleNamespace(config=RenderConfig(**switches),
+    # a scene with no light, as _finish binds it
+    plan = SimpleNamespace(config=RenderConfig(max_point_lights=0,
+                                               max_spot_lights=0, **switches),
                            texture_filter="bilinear",
                            shadow_statically_empty=True)
     batch = SimpleNamespace(cloud_noise=torch.zeros(64, 64) if noise
                             else None)
     want = ["resolve", "texsample", "ssao_taps", "taa_resolve"]
     assert bench.kernel_path(plan, batch) == want + ([sky] if sky else [])
+
+
+@pytest.mark.parametrize("lights", [(128, 128), (3, 0), (0, 2), (0, 0)])
+def test_kernel_path_names_the_local_lights(lights):
+    """bench.kernel_path names K7 (local_lights) where the plan binds a
+    point or a spot light slot, as composition launches it."""
+    from types import SimpleNamespace
+    plan = SimpleNamespace(config=RenderConfig(max_point_lights=lights[0],
+                                               max_spot_lights=lights[1]),
+                           texture_filter="bilinear",
+                           shadow_statically_empty=True)
+    path = bench.kernel_path(plan, SimpleNamespace(cloud_noise=None))
+    assert ("local_lights" in path) == (lights != (0, 0))
 
 
 def test_tex_none_matches_jax(monkeypatch):

@@ -1,8 +1,9 @@
 """The CUDA kernels (K1 resolve, K2 SSAO taps, K3 TAA reprojection, K3f
 the fused TAA resolve, K4 shadow depth resolve, K5 texture tap, K6 noise
-sky LUT, K6p procedural sky LUT) against their plain PyTorch versions
-on the card, at small sizes, and small frames of the terrain and of the
-two multi-entity scenes through both paths.
+sky LUT, K6p procedural sky LUT, K7 local lights) against their plain
+PyTorch versions on the card, at small sizes (K7 at the lit atrium's
+1920x1088), and small frames of the terrain and of the two multi-entity
+scenes through both paths.
 Marked ``cuda``: they skip where ``torch.cuda.is_available()`` is false
 (this file imports no jax, so it also runs where only PyTorch is
 installed):
@@ -38,10 +39,11 @@ from soc_real_time_renderer_tpu_torch.scene.scene import Scene
 
 pytestmark = pytest.mark.cuda
 
-# the kernels no frame of a scene with the cloud-noise texture launches:
-# K6p (the procedural LUT) and K3 alone (the frame's TAA is the fused
-# resolve, taa_resolve, whose fetch is K3's)
-OFF_FRAME = ("sky_lut_procedural", "taa_reproject")
+# the kernels no frame of a scene with the cloud-noise texture and no
+# light launches: K6p (the procedural LUT), K3 alone (the frame's TAA is
+# the fused resolve, taa_resolve, whose fetch is K3's) and K7 (the local
+# lights)
+OFF_FRAME = ("sky_lut_procedural", "taa_reproject", "local_lights")
 
 
 @pytest.fixture
@@ -459,7 +461,7 @@ def test_small_frame_kernel_path_matches_plain(dev):
     assert kb.launches == {"resolve": 3, "resolve_depth": 0, "texsample": 3,
                            "ssao_taps": 3, "sky_lut": 0,
                            "sky_lut_procedural": 3, "taa_reproject": 0,
-                           "taa_resolve": 3}
+                           "taa_resolve": 3, "local_lights": 0}
     assert not kb.variant_launches
     assert torch.isfinite(ok.color).all()
     assert (ok.color - op.color).abs().max().item() < 1e-5
@@ -883,7 +885,7 @@ def test_small_scene_kernel_path_matches_plain(dev, name):
     torch.cuda.synchronize()
     want = {"resolve": 3, "texsample": 3, "ssao_taps": 3, "sky_lut": 3,
             "sky_lut_procedural": 0, "taa_reproject": 0,
-            "taa_resolve": 3,
+            "taa_resolve": 3, "local_lights": 0,
             "resolve_depth": 0 if name == "full_nohelmet" else 3}
     assert kb.launches == want
     assert torch.isfinite(ok.color).all()
@@ -1104,11 +1106,11 @@ VIEW_POSITIONS = ([-7.0, 33.8, 0.0], [-4.0, 35.0, 2.0], [-8.0, 34.5, -2.5],
                   [-2.0, 34.0, -1.0])
 
 
-def _views(built, B):
+def _views(built, B, positions=VIEW_POSITIONS):
     """(batched globals, history, mm, nm) of B cameras at distinct
     positions."""
     from soc_real_time_renderer_tpu_torch.parallel import mesh as pmesh
-    gs, mm, nm = pmesh.view_globals(built, VIEW_POSITIONS[:B], 0)
+    gs, mm, nm = pmesh.view_globals(built, positions[:B], 0)
     hb = pmesh.batched_history([fm.RenderHistory.create(
         built.plan.config, device=built.device) for _ in range(B)])
     return pmesh.batched_globals(gs), hb, mm, nm
@@ -1384,7 +1386,8 @@ def test_sharded_frame_on_one_card(dev):
                                "texsample": 4, "ssao_taps": 4, "sky_lut": 1,
                                "sky_lut_procedural": 0,
                                "taa_reproject": 0,
-                               "taa_resolve": 4}, kb.launches
+                               "taa_resolve": 4, "local_lights": 0}, \
+            kb.launches
         want, hu = fm.render_frame(built.plan, built.batch, g, hu, mm, nm)
         assert [b.shape for b in out.color] == [(3, 32, 256)] * 4
         assert all(b.device == dev for b in out.color)
@@ -1433,3 +1436,121 @@ def test_bench_loop_launches_once_and_never_waits(dev, texture_filter):
     assert t.syncs == {}
     assert len(t.frame_ms) == 3 and t.total_ms > 0 and t.peak_mib > 0
     assert torch.isfinite(t.outputs.color).all()
+
+
+# --- K7, the local lights (ops/composition.py, kernels/csrc/lights.cu) ------
+
+LIT_VIEWS = ([-7.0, 1.8, 0.0], [-4.0, 2.0, 2.0], [5.0, 2.5, -2.0],
+             [0.5, 3.0, 4.0])
+
+
+def _spy_lights(monkeypatch):
+    """Every call of composition._local_lights, recorded: [(args, kwargs
+    without impl)]."""
+    from soc_real_time_renderer_tpu_torch.ops import composition
+    real, calls = composition._local_lights, []
+
+    def spy(*a, **kw):
+        calls.append((a, {n: v for n, v in kw.items() if n != "impl"}))
+        return real(*a, **kw)
+    monkeypatch.setattr(composition, "_local_lights", spy)
+    return real, calls
+
+
+@pytest.fixture(scope="module")
+def lit_atrium(tmp_path_factory):
+    """The full_lit preset at 1920x1088 from a small synthetic asset tree
+    (its own atrium and terrain at their real sizes) on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from soc_real_time_renderer_tpu_torch.tools import synth_assets
+    root = str(tmp_path_factory.mktemp("assets"))
+    synth_assets.write_asset_tree(root, rings=10, segments=25,
+                                  helmet_map=64, sponza_map=64)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(scenes, "ASSETS", root)
+        return scenes.build("full_lit", RenderConfig(width=1920,
+                                                     height=1088),
+                            device=torch.device("cuda:0"))
+
+
+def _lights_both(real, a, kw):
+    """K7 and the plain loop on one call's inputs: K7 launched once,
+    both (3, *V, P)."""
+    n0 = kb.launches["local_lights"]
+    got = real(*a, impl="cuda", **kw)
+    assert kb.launches["local_lights"] == n0 + 1
+    want = real(*a, impl="plain", **kw)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("case", ["frame", "band", "views4"])
+def test_local_lights_kernel_matches_plain(lit_atrium, monkeypatch, case):
+    """K7 against its plain loop on the G-buffer planes a frame of the
+    lit atrium hands composition (128 point and 128 spot lights live,
+    1920x1088): bit for bit.  "band": rows 272-543 as a strided slice of
+    the frame's planes (a row band's pixels); "views4": the planes of one
+    batched step of four views, each with its own camera and lights."""
+    from soc_real_time_renderer_tpu_torch.parallel import mesh as pmesh
+    built = lit_atrium
+    assert (built.plan.config.max_point_lights,
+            built.plan.config.max_spot_lights) == (128, 128)
+    real, calls = _spy_lights(monkeypatch)
+    if case == "views4":
+        gb, hb, mm, nm = _views(built, 4, LIT_VIEWS)
+        pmesh.make_batched_render_fn(built.plan)(built.batch, gb, hb, mm, nm)
+    else:
+        g, mm, nm = built.frame_globals(3)
+        fm.render_frame(built.plan, built.batch, g, fm.RenderHistory.create(
+            built.plan.config, device=built.device), mm, nm)
+    (a, kw), = calls
+    g, alb, nrm, pos, n_point, n_spot = a
+    assert (n_point, n_spot) == (128, 128)
+    P = 1920 * 1088
+    assert alb.shape == ((3, 4, P) if case == "views4" else (3, P))
+    if case == "band":
+        alb, nrm, pos = (x[:, 272 * 1920:544 * 1920] for x in (alb, nrm, pos))
+        assert alb.stride() == (P, 1)
+    got, want = _lights_both(real, (g, alb, nrm, pos, n_point, n_spot), kw)
+    assert got.shape == want.shape == alb.shape
+    assert torch.isfinite(want).all() and want.abs().max().item() > 0
+    assert torch.equal(got, want)
+    if case == "views4":
+        assert not torch.equal(got[:, 0], got[:, 1])
+
+
+def test_compose_launches_the_local_lights_once_in_its_graph(lit_atrium,
+                                                             monkeypatch):
+    """Four frames of the lit atrium through make_render_fn: K7 launches
+    once a frame.  Frame 0 runs eagerly, frame 1 captures each pass and
+    replays it, frames 2-3 replay shade.compose's graph, so the wrapper's
+    Python no longer runs and its launch and its counters come from the
+    replay; each frame equals render_frame's at max abs 0."""
+    from soc_real_time_renderer_tpu_torch.utils import trace
+    built = lit_atrium
+    _, calls = _spy_lights(monkeypatch)
+    render = fm.make_render_fn(built.plan)
+    hr = he = fm.RenderHistory.create(built.plan.config, device=built.device)
+    P = 1920 * 1088
+    built.frame_globals(9)    # every frame below has a camera_prev of its own
+    for k in range(4):
+        g, mm, nm = built.frame_globals(10 + k)
+        n_calls, n0 = len(calls), kb.launches["local_lights"]
+        c0 = dict(trace.counters)
+        replays = trace.counters["graph_replays"]
+        out_r, hr = render(built.batch, g, hr, mm, nm)
+        torch.cuda.synchronize()
+        assert kb.launches["local_lights"] == n0 + 1, k
+        assert trace.counters["light_pairs"] - c0.get("light_pairs", 0) \
+            == 256 * P
+        assert trace.counters["spot_light_pairs"] \
+            - c0.get("spot_light_pairs", 0) == 128 * P
+        assert trace.counters["light_pixels"] - c0.get("light_pixels", 0) \
+            == P
+        replayed = trace.counters["graph_replays"] > replays
+        assert replayed == (k >= 1), k
+        assert len(calls) == n_calls + (1 if k <= 1 else 0), k
+        out_e, he = fm.render_frame(built.plan, built.batch, g, he, mm, nm)
+        assert torch.equal(out_r.color, out_e.color), k
+        assert torch.equal(hr.previous_color, he.previous_color), k

@@ -263,7 +263,8 @@ def test_seams_under_stand_in_graphs(atrium, monkeypatch):
 # --- the card ---------------------------------------------------------------
 
 PRESETS = {"full": ("orbit", {}), "terrain": ("fly", {}),
-           "sponza_lifted": ("orbit", {"shadow_resolution": 1024})}
+           "sponza_lifted": ("orbit", {"shadow_resolution": 1024}),
+           "full_lit": ("orbit", {})}
 SEED = 2 ** 31 + 1717
 DT = 1.0 / 60.0
 

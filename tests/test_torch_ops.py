@@ -247,11 +247,27 @@ def _lit_globals(g, rng):
     return dataclasses.replace(g, lights=la)
 
 
+def _full_lit_globals(g):
+    """frame globals + the full_lit preset's 128 point and 128 spot
+    lights (scenes.full_lit_lights, gathered by the port's Scene)."""
+    from soc_real_time_renderer_tpu_torch import scenes as pscenes
+    from soc_real_time_renderer_tpu_torch.scene.scene import Scene as PScene
+    scene = PScene("full_lit")
+    pscenes.add_lights(scene, pscenes.full_lit_lights())
+    la = scene.update(0.0)
+    assert (int(la.point_count), int(la.spot_count)) == (128, 128)
+    return dataclasses.replace(g, lights=jcfg.LightArrays(**{
+        f.name: getattr(la, f.name) for f in dataclasses.fields(la)}))
+
+
 @pytest.mark.parametrize("lights,volumetric", [(0, False), (4, False),
-                                               (0, True)])
+                                               (0, True), (128, False)])
 def test_compose(frame, lights, volumetric):
+    """128: every point and spot slot live, in the full_lit layout."""
     rng = np.random.default_rng(4)
-    g = frame["g"] if not lights else _lit_globals(frame["g"], rng)
+    g = frame["g"] if not lights else (
+        _lit_globals(frame["g"], rng) if lights == 4
+        else _full_lit_globals(frame["g"]))
     gb = frame["gbuf"]
     ssao = rng.random((H, W), dtype=np.float32)
     clouds = rng.random((3, H, W), dtype=np.float32)

@@ -2,7 +2,9 @@
 the ECS (lights, TRS matrices), the procedural atrium, and ``_finish``
 (batch, pair caps, the sun-shadow emptiness proof, its crop and the
 matrices the crop is proved for).  All of it is numpy on the host in
-both packages, so every comparison is exact.
+both packages, so every comparison is exact.  The ``full_lit`` preset's
+lights against the benchmark configuration's, gathered by the
+reference.
 
 Also: the entry points run on the card by default and refuse to fall
 back to the CPU, no module of the port (nor ``chip_smoke.py``) imports
@@ -29,6 +31,7 @@ from soc_real_time_renderer_tpu_torch import scenes as pscenes
 from soc_real_time_renderer_tpu_torch.config import RenderConfig
 from soc_real_time_renderer_tpu_torch.graph import frame as pframe
 from soc_real_time_renderer_tpu_torch.models import proc as pproc
+from soc_real_time_renderer_tpu_torch.ops import composition as pcomp_ops
 from soc_real_time_renderer_tpu_torch.ops import raster2 as praster
 from soc_real_time_renderer_tpu_torch.ops import sky as psky
 from soc_real_time_renderer_tpu_torch.ops import texsample as ptex
@@ -225,6 +228,34 @@ def test_finish_sizes_ssr_cap_and_keeps_models():
         assert all(a is b for a, b in zip(pb._models, pmodels))
 
 
+def test_full_lit_gathers_the_configurations_lights(tmp_path, monkeypatch):
+    """The full_lit preset (its atrium and terrain the kit's reduced ones,
+    the small asset tree): Scene.update gives the benchmark reference's
+    lights_of of the full_lit_1080p configuration's ``lights``, leaf for
+    leaf at max abs 0, and _finish binds 128 point and 128 spot
+    lights."""
+    from benchmark import registry
+    from benchmark.reference import globals as rg
+    monkeypatch.setattr(pscenes, "ASSETS", kit.small_tree(tmp_path))
+    monkeypatch.setattr(pproc, "build_atrium",
+                        lambda **kw: kit.small_atrium_port())
+    monkeypatch.setattr(pscenes, "_terrain_model",
+                        lambda **kw: kit.small_terrain("port", **kw))
+    built = pscenes.build("full_lit", RenderConfig(
+        width=64, height=32, shadow_resolution=256), device="cpu",
+        atlas_size=64)
+    cfg = built.plan.config
+    assert (cfg.max_point_lights, cfg.max_spot_lights) == (128, 128)
+    got = built.scene.update(1 / 60)
+    want = rg.lights_of(registry.config("full_lit_1080p")["lights"])
+    for f in dataclasses.fields(want):
+        x = np.asarray(getattr(got, f.name))
+        y = np.asarray(getattr(want, f.name))
+        assert x.shape == y.shape and x.dtype == y.dtype, f.name
+        assert np.array_equal(x, y), f.name
+    assert (int(got.point_count), int(got.spot_count)) == (128, 128)
+
+
 def test_entry_points_refuse_without_a_card(monkeypatch):
     """scenes.build, build_terrain, _finish and RenderHistory.create run
     on the card by default; with no card they raise instead of running
@@ -275,7 +306,7 @@ def test_port_and_chip_smoke_import_no_jax():
 
 def test_new_kernel_entries_refuse_cuda_on_cpu():
     """impl="cuda" on CPU tensors raises instead of running the plain
-    version, for each of K4, K5 and K6."""
+    version, for each of K4, K5, K6 and K7."""
     z = torch.zeros
     grid = praster.BinGrid(width=128, height=128, bin_size=128, group=1,
                            pair_cap=128)
@@ -291,3 +322,6 @@ def test_new_kernel_entries_refuse_cuda_on_cpu():
     g, _, _ = b.frame_globals(0)
     with pytest.raises(ValueError):
         psky.render_sky_lut_noise(g, b.batch.cloud_noise, impl="cuda")
+    with pytest.raises(ValueError):
+        pcomp_ops._local_lights(g, z(3, 8), z(3, 8), z(3, 8), 1, 1,
+                                impl="cuda")

@@ -3,7 +3,8 @@
 A span keeps host totals always and makes a profiler event only while a
 profiler records; a CPU frame of a small preset runs every span of the
 passes it runs; ``config.tree_to`` counts only the host leaves that
-cross to a device, and a frame's globals cross in one span.
+cross to a device, and a frame's globals cross in one span; a lit
+frame counts its local lights' pairs and pixels.
 """
 import dataclasses
 
@@ -169,6 +170,36 @@ def test_a_cpu_frame_runs_every_span_of_its_passes(terrain, case):
         inner = sum(v["host_s"] for n, v in p.items()
                     if n.startswith(prefix))
         assert inner <= p[stage]["host_s"] <= p["frame.render"]["host_s"]
+
+
+@pytest.mark.parametrize("lit", [True, False], ids=["lit", "lightless"])
+def test_a_cpu_frame_counts_its_light_pairs(lit):
+    """One CPU frame of the kit's reduced atrium and terrain, with the
+    full_lit preset's 256 lights added and bound (BuiltScene.rebuild):
+    ``light_pairs`` = 256 x H x W, ``spot_light_pairs`` = 128 x H x W and
+    ``light_pixels`` = H x W, inside the span ``compose.lights`` entered
+    once.  Without lights it counts none of them and enters no such
+    span."""
+    built = kit.build_port("full_nohelmet", _cfg(), "cpu")
+    if lit:
+        pscenes.add_lights(built.scene, pscenes.full_lit_lights())
+        built.rebuild()
+    cfg = built.plan.config
+    assert (cfg.max_point_lights, cfg.max_spot_lights) == (
+        (128, 128) if lit else (0, 0))
+    names, out = _frame(built)
+    counters = trace.profiled()["counters"]
+    assert torch.isfinite(out.color).all()
+    if lit:
+        assert counters["light_pairs"] == 256 * 32 * 64
+        assert counters["spot_light_pairs"] == 128 * 32 * 64
+        assert counters["light_pixels"] == 32 * 64
+        assert names.count("compose.lights") == 1
+    else:
+        assert "light_pairs" not in counters
+        assert "spot_light_pairs" not in counters
+        assert "light_pixels" not in counters
+        assert "compose.lights" not in names
 
 
 def test_a_cpu_frame_copies_nothing_across(terrain):
