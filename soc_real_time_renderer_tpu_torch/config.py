@@ -9,7 +9,9 @@ Counterpart of the JAX package's ``config.py``:
   exact semantics, through the CUDA kernel on a card.
 * :class:`ShaderGlobals` and its parts — frozen dataclasses of tensors,
   built on the host in numpy exactly as the reference does
-  (``renderer.cpp:72-133``) and moved to ``device``.
+  (``renderer.cpp:72-133``) and moved to ``device`` by :func:`upload`:
+  on a card in one packed, non-blocking copy, whose leaves keep their
+  host values for the proof checks (``utils/trace.read_back``).
 """
 from __future__ import annotations
 
@@ -59,8 +61,149 @@ def tree_to(obj, device):
     if not isinstance(obj, torch.Tensor):
         obj = torch.from_numpy(np.array(obj, order="C"))
     if obj.device.type == "cpu" and device.type != "cpu":
-        trace.count_h2d(obj)
+        trace.count_h2d(obj.numel() * obj.element_size())
     return obj.to(device)
+
+
+# bytes from the start of one packed leaf to the next: every leaf's
+# slice is aligned for any dtype's view
+PACK_ALIGN = 256
+_DTYPES: dict = {}      # numpy dtype -> torch dtype
+
+
+class _Slot:
+    """A host leaf's place in a packed buffer: `shape` elements of
+    `dtype` (`np_dtype` on the host), contiguous from byte `offset`."""
+    __slots__ = ("offset", "np_dtype", "dtype", "shape", "strides")
+
+    def __init__(self, offset, np_dtype, shape):
+        self.offset, self.np_dtype, self.shape = offset, np_dtype, shape
+        self.dtype = _DTYPES.get(np_dtype)
+        if self.dtype is None:
+            self.dtype = _DTYPES[np_dtype] = torch.from_numpy(
+                np.empty(0, np_dtype)).dtype
+        strides, n = [], 1
+        for d in reversed(shape):
+            strides.append(n)
+            n *= d
+        self.strides = tuple(reversed(strides))
+
+
+def pack(obj):
+    """(buffer, tree, nbytes): every host leaf of `obj` (a dataclass tree,
+    or a tuple of them; numpy arrays, scalars and CPU tensors of a numpy
+    dtype) written into one uint8 numpy buffer at PACK_ALIGN-byte
+    offsets, in :func:`tree_to`'s order; `tree` is `obj` with each such
+    leaf replaced by its _Slot, a leaf on a device kept as it is;
+    `nbytes` counts the leaves' own bytes.  A dataclass that recurs in
+    `obj` (a first frame's camera_prev, which is its camera) is packed
+    once and stays one object."""
+    p = _Packing()
+    tree = p.walk(obj)
+    buf = np.zeros(p.size, np.uint8)
+    for offset, raw in p.chunks:
+        buf[offset:offset + raw.size] = raw
+    return buf, tree, p.nbytes
+
+
+def unpack(tree, block: torch.Tensor, host: np.ndarray | None = None):
+    """`tree` (from :func:`pack`) with each _Slot replaced by its view of
+    `block` (a uint8 tensor of the packed buffer's size): the contiguous
+    `.view(dtype).view(shape)` of its slice, made as one as_strided
+    view.  With `host`, the packed buffer that `block` is a copy of, each
+    view is recorded as a mirror of its slice of the host's
+    (trace.mirror), valid until `block` is written in place."""
+    return _Unpacking(block, host).walk(tree)
+
+
+class _Walk:
+    """A walk over a tree of dataclasses and tuples that maps each other
+    leaf by `leaf` and keeps a recurring dataclass one object.  (A class,
+    not a nested function: that would be a reference cycle keeping the
+    tree's tensors alive until the collector runs.)"""
+
+    def __init__(self):
+        self.memo = {}
+
+    def walk(self, x):
+        if dataclasses.is_dataclass(x):
+            done = self.memo.get(id(x))
+            if done is None:
+                done = self.memo[id(x)] = dataclasses.replace(x, **{
+                    f.name: self.walk(getattr(x, f.name))
+                    for f in dataclasses.fields(x)})
+            return done
+        if isinstance(x, tuple):
+            return tuple(self.walk(y) for y in x)
+        return None if x is None else self.leaf(x)
+
+
+class _Packing(_Walk):
+    def __init__(self):
+        super().__init__()
+        self.chunks = []
+        self.size = self.nbytes = 0
+
+    def leaf(self, x):
+        if isinstance(x, torch.Tensor):
+            if x.device.type != "cpu":
+                return x
+            x = x.detach().numpy()
+        a = np.asarray(x)
+        raw = a.reshape(-1).view(np.uint8)
+        self.chunks.append((self.size, raw))
+        slot = _Slot(self.size, a.dtype, a.shape)
+        self.size += max(1, -(-raw.size // PACK_ALIGN)) * PACK_ALIGN
+        self.nbytes += raw.size
+        return slot
+
+
+class _Unpacking(_Walk):
+    def __init__(self, block, host):
+        super().__init__()
+        self.block, self.host, self.typed = block, host, {}
+
+    def leaf(self, x):
+        if not isinstance(x, _Slot):
+            return x
+        whole = self.typed.get(x.dtype)
+        if whole is None:
+            whole = self.typed[x.dtype] = self.block.view(x.dtype)
+        t = whole.as_strided(x.shape, x.strides,
+                             x.offset // whole.element_size())
+        if self.host is not None:
+            n = t.numel() * whole.element_size()
+            trace.mirror(t, self.host[x.offset:x.offset + n].view(
+                x.np_dtype).reshape(x.shape))
+        return t
+
+
+def upload(obj, device):
+    """:func:`tree_to` of `obj` (a dataclass tree or a tuple of them) in
+    one copy.  On the CPU it is tree_to, leaf by leaf.  On any other
+    device the host leaves are packed (:func:`pack`; pinned where the
+    device is a card, so the copy does not wait for the card's queue) and
+    copied once, non-blocking, into a device block whose views are the
+    leaves (:func:`unpack`); each leaf keeps its host values as a mirror
+    for :func:`~.utils.trace.read_back`.  A pinned buffer is not reused
+    before its copy has run: the caching host allocator holds it until
+    the event the copy records.  Counts one copy and the leaves' bytes in
+    trace.counters."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        if isinstance(obj, tuple):
+            return tuple(tree_to(o, device) for o in obj)
+        return tree_to(obj, device)
+    host, tree, nbytes = pack(obj)
+    if not host.size:                   # every leaf already there
+        return tree
+    staging = torch.from_numpy(host)
+    if device.type == "cuda":
+        staging = staging.pin_memory()
+    block = torch.empty(host.shape, dtype=torch.uint8, device=device)
+    block.copy_(staging, non_blocking=True)
+    trace.count_h2d(nbytes)
+    return unpack(tree, block, host)
 
 
 def tree_map(fn, *objs):
@@ -85,8 +228,20 @@ def view_count(g) -> int | None:
 
 def stack_views(trees):
     """A list of B dataclass trees (ShaderGlobals, RenderHistory) -> one
-    tree whose leaves are stacked on a new leading view axis (B, ...)."""
-    return tree_map(lambda *xs: torch.stack(xs), *trees)
+    tree whose leaves are stacked on a new leading view axis (B, ...).
+    A stacked leaf whose every view has a host mirror (:func:`upload`)
+    gets the stack of those as its own."""
+    def stack(*xs):
+        out = torch.stack(xs)
+        hosts = []
+        for x in xs:
+            h = trace.mirrored(x)
+            if h is None:
+                return out
+            hosts.append(h)
+        trace.mirror(out, np.stack(hosts))
+        return out
+    return tree_map(stack, *trees)
 
 
 def select_view(tree, i: int):
@@ -114,7 +269,7 @@ class CameraMatrices:
         view = _f32(view)
         inv_p = np.linalg.inv(proj).astype(np.float32)
         inv_v = np.linalg.inv(view).astype(np.float32)
-        return tree_to(CameraMatrices(
+        return upload(CameraMatrices(
             projection=proj,
             inv_projection=inv_p,
             view=view,
@@ -157,7 +312,7 @@ class SunInfo:
                           np.array([0.0, -1.0, 0.0], np.float32))
         pv = (proj @ view).astype(np.float32)
         trick = pv @ np.array([0.0, 1.0, 0.0, 0.0], np.float32)
-        return tree_to(SunInfo(
+        return upload(SunInfo(
             projection=proj, view=view, projection_view=pv,
             terrain_y_clip_trick=_f32(trick), position=pos,
             direction=_f32(d),
@@ -186,7 +341,7 @@ class LightArrays:
     def empty(device="cpu"):
         z3 = np.zeros((MAX_POINT_LIGHTS, 3), np.float32)
         z1 = np.zeros((MAX_POINT_LIGHTS,), np.float32)
-        return tree_to(LightArrays(
+        return upload(LightArrays(
             point_position=z3, point_color=z3, point_intensity=z1,
             point_count=np.int32(0),
             spot_position=z3, spot_direction=z3, spot_color=z3,
@@ -248,10 +403,12 @@ class ShaderGlobals:
                sun: SunInfo | None = None,
                lights: LightArrays | None = None,
                near_clip=0.1, far_clip=1000.0, device="cpu", **overrides):
-        """Defaults exactly as renderer.cpp:72-133."""
-        ident = CameraMatrices.from_proj_view(np.eye(4), np.eye(4),
-                                              (0, 0, 0))
-        camera = camera if camera is not None else ident
+        """Defaults exactly as renderer.cpp:72-133.  device=None leaves
+        every leaf where it is (host arrays on the host), for a caller
+        that uploads the tree together with others (:func:`upload`)."""
+        if camera is None:
+            camera = CameraMatrices.from_proj_view(np.eye(4), np.eye(4),
+                                                   (0, 0, 0))
         camera_prev = camera_prev if camera_prev is not None else camera
         sun = sun if sun is not None else SunInfo.create()
         lights = lights if lights is not None else LightArrays.empty()
@@ -289,7 +446,8 @@ class ShaderGlobals:
             peak=_f32(1.0), compression=_f32(0.15),
         )
         vals.update(overrides)
-        return tree_to(ShaderGlobals(**vals), device)
+        g = ShaderGlobals(**vals)
+        return g if device is None else upload(g, device)
 
 
 @dataclass(frozen=True)

@@ -29,7 +29,9 @@ capture) and returns fresh copies of the static outputs, so no later
 replay writes a tensor that a seam has handed back.  A copy that comes
 straight back as a seam's input within the frame (the same object, its
 ``_version`` unchanged) is read from its static tensor in place.  The
-scene batch is read in place: its addresses are part of the key.
+scene batch is read in place: its addresses are part of the key.  A
+static input takes its caller's leaf's host mirror (``trace.mirror``),
+so the proof checks read it on the host.
 
 Counters: what a segment's code adds at capture to
 ``trace.counters`` (``shadow_texels``) and to ``kernels/build.launches``
@@ -218,6 +220,10 @@ class FrameGraphs:
                 pairs.setdefault(id(s), (s, t))
             _copy([s for s, _ in pairs.values()],
                   [t for _, t in pairs.values()])
+        for t, s in zip(leaves, self.inputs):
+            host = trace.mirrored(t)
+            if host is not None:        # the proof checks read it
+                trace.mirror(s, host)
         self.origin = {id(s): t for t, s in zip(leaves, self.inputs)}
         _local.graphs = self
         try:

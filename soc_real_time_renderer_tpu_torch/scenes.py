@@ -37,7 +37,7 @@ import torch
 
 from .camera import Camera3D, ControlledCamera3D, camera_matrices
 from .config import (RenderConfig, ShaderGlobals, SunInfo, resolve_device,
-                     tree_to)
+                     upload)
 from .graph import frame as frame_mod
 from .models import gltf, proc
 from .models.scene_batch import SceneBatch, build_scene_batch
@@ -193,9 +193,9 @@ class BuiltScene:
         scene's lights and transforms -> (g, model_mats, normal_mats) on
         the scene's device.  peek=True reads without advancing the
         prev-camera roll (the viewer's /schema must not zero a frame's
-        TAA reprojection velocity).  Every host-to-device copy of the
-        frame is made in one place, after the host work (the span
-        ``globals.upload``)."""
+        TAA reprojection velocity).  The frame's host leaves cross in one
+        packed, non-blocking copy, after the host work (the span
+        ``globals.upload``, config.upload)."""
         with trace.span("scene.frame_globals"):
             return self._frame_globals(frame_index, dt, peek)
 
@@ -222,7 +222,6 @@ class BuiltScene:
             lights = self.scene.update(dt)
             mm, nm = self.scene.transform_matrices()
         with trace.span("globals.upload"):
-            cam = tree_to(cam, self.device)
             g = ShaderGlobals.create(
                 camera=cam, camera_prev=getattr(self, "_prev_cam", cam),
                 lights=lights, sun=self.sun,
@@ -230,11 +229,11 @@ class BuiltScene:
                 far_clip=self.camera.far_clip,
                 elapsed_time=np.float32(frame_index * dt),
                 delta_time=np.float32(dt),
-                frame_counter=np.int32(frame_index), device=self.device)
-            mats = tuple(tree_to(m, self.device) for m in (mm, nm))
+                frame_counter=np.int32(frame_index), device=None)
+            g, mm, nm = upload((g, mm, nm), self.device)
         if not peek:
-            self._prev_cam = cam
-        return (g, *mats)
+            self._prev_cam = g.camera
+        return g, mm, nm
 
 
 def _prove_shadow(pos, ent, model_mats, sun_pv,

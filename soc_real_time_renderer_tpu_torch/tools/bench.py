@@ -136,7 +136,7 @@ class Staged:
 
 def stage(built, plan, frames: int) -> Staged:
     """frame_globals(i + 1) for i < frames, then the two proof checks of
-    render_frame (each reads the card) once on them."""
+    render_frame once on them."""
     from ..graph import frame as fm
     gs = []
     for i in range(frames):

@@ -21,14 +21,19 @@ under it, with no aten op between (the ctypes launches of
 ``counters`` holds plain integers, incremented where the work happens,
 as ``kernels/build.launches`` counts the hand kernels' launches:
 
-- ``h2d_copies``, ``h2d_bytes``: host arrays and CPU tensors copied to a
-  device by ``config.tree_to`` (the globals) and
-  ``BuiltScene.frame_globals`` (the model and normal matrices); each
-  such copy from pageable memory waits for the device's queue to drain;
+- ``h2d_copies``, ``h2d_bytes``: copies from the host to a device and
+  the bytes of the leaves they carry: ``config.upload``'s one packed,
+  non-blocking copy of a tree (a frame's globals and its model and
+  normal matrices, ``BuiltScene.frame_globals``), and
+  ``config.tree_to``'s one copy a leaf, each of which, from pageable
+  memory, waits for the device's queue to drain;
 - ``d2h_reads.<site>``: device-to-host reads on the frame path
   (:func:`read_back`), by the function that reads: the proof checks of
   ``graph/frame.py``, the only reads ``render_frame`` and
   ``BuiltScene.frame_globals`` make;
+- ``d2h_mirrored.<site>``: the same reads served by the host's copy of
+  a tensor that ``config.upload`` made and nothing wrote since
+  (:func:`mirror`), which do not wait for the device;
 - ``shadow_texels``: the texels of the sun's map that the shadow view
   (span ``raster.shadow`` ⊃ ``shadow.setup``, ``shadow.resolve``) can
   cover, a rendered map: the plan's proved crop, or the whole map.
@@ -51,7 +56,9 @@ from __future__ import annotations
 
 import collections
 import time
+import weakref
 
+import numpy as np
 import torch
 
 from ..kernels import build as kb
@@ -95,15 +102,53 @@ class span:
             _add(_stretch_totals, self.name, dt)
 
 
-def count_h2d(t: torch.Tensor) -> None:
-    """Count one host-to-device copy of the host tensor `t`."""
+def count_h2d(nbytes: int) -> None:
+    """Count one host-to-device copy of `nbytes` bytes of leaves."""
     counters["h2d_copies"] += 1
-    counters["h2d_bytes"] += t.numel() * t.element_size()
+    counters["h2d_bytes"] += nbytes
+
+
+class _Ref(weakref.ref):
+    """A weak reference that knows its registry key."""
+    __slots__ = ("key",)
+
+
+def _gone(ref: _Ref) -> None:
+    e = _mirrors.get(ref.key)
+    if e is not None and e[0] is ref:
+        del _mirrors[ref.key]
+
+
+# id(tensor) -> (_Ref, its _version then, the host's numpy copy); an
+# entry goes with its tensor
+_mirrors: dict = {}
+
+
+def mirror(t: torch.Tensor, host: np.ndarray) -> None:
+    """Record that `t` holds `host`'s values until `t` (or a view that
+    shares its version counter) is written in place."""
+    ref = _Ref(t, _gone)
+    ref.key = id(t)
+    _mirrors[ref.key] = (ref, t._version, host)
+
+
+def mirrored(t: torch.Tensor):
+    """The host's copy of `t` (:func:`mirror`) while it still holds, or
+    None."""
+    e = _mirrors.get(id(t))
+    if e is not None and e[0]() is t and e[1] == t._version:
+        return e[2]
+    return None
 
 
 def read_back(t: torch.Tensor, site: str):
-    """`t` as a numpy array; a read from a device counts in
-    ``d2h_reads.<site>``."""
+    """`t` as a numpy array: the host's copy where `t` has a valid one
+    (counted in ``d2h_mirrored.<site>``), else read from its device (a
+    read from a device counts in ``d2h_reads.<site>``)."""
+    host = mirrored(t)
+    if host is not None:
+        counters["d2h_mirrored." + site] += 1
+        return host.copy()
     if t.device.type != "cpu":
         counters["d2h_reads." + site] += 1
     return t.detach().cpu().numpy()

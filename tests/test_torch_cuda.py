@@ -1554,3 +1554,133 @@ def test_compose_launches_the_local_lights_once_in_its_graph(lit_atrium,
         out_e, he = fm.render_frame(built.plan, built.batch, g, he, mm, nm)
         assert torch.equal(out_r.color, out_e.color), k
         assert torch.equal(hr.previous_color, he.previous_color), k
+
+
+# --- the frame's globals in one packed copy (config.upload) ----------------
+
+UPLOAD_CFG = RenderConfig(width=256, height=128, shadow_resolution=1024)
+
+
+def _leaf_by_leaf(obj, device):
+    """config.upload as tree_to's blocking copies, one a leaf."""
+    from soc_real_time_renderer_tpu_torch.config import tree_to
+    return tuple(tree_to(o, device) for o in obj)
+
+
+def _counted(fn):
+    """(fn(), the trace counters it added)."""
+    from soc_real_time_renderer_tpu_torch.utils import trace
+    c0 = dict(trace.counters)
+    out = fn()
+    return out, {k: v - c0.get(k, 0) for k, v in trace.counters.items()
+                 if v != c0.get(k, 0)}
+
+
+@pytest.mark.parametrize("name, site", [
+    ("full_nohelmet", "check_sun_proof"),
+    ("atrium_lifted", "check_shadow_crop")])
+def test_replayed_frames_on_packed_globals_equal_leaf_by_leaf(
+        dev, monkeypatch, name, site):
+    """Six frames through make_render_fn on frame_globals' packed globals
+    and, beside them, through a render function of their own on the same
+    frames' globals copied leaf by leaf: every target and the history
+    bit for bit.  Once the frames replay, the packed frame's proof check
+    reads the host's copy and nothing from the card."""
+    from soc_real_time_renderer_tpu_torch.graph import replay
+    built = kit.build_port(name, UPLOAD_CFG, dev)
+    packed, leafwise = (fm.make_render_fn(built.plan) for _ in range(2))
+    hp = hl = fm.RenderHistory.create(built.plan.config, device=dev)
+    for k in range(6):
+        with monkeypatch.context() as m:
+            m.setattr(scenes, "upload", _leaf_by_leaf)
+            gl, mml, nml = built.frame_globals(k, peek=True)
+        g, mm, nm = built.frame_globals(k)
+        (out_p, hp), c = _counted(
+            lambda: packed(built.batch, g, hp, mm, nm))
+        out_l, hl = leafwise(built.batch, gl, hl, mml, nml)
+        torch.cuda.synchronize()
+        got, want = replay._leaves((out_p, hp)), replay._leaves((out_l, hl))
+        assert len(got) == len(want) > 10
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), k
+        assert c.get("d2h_mirrored." + site) == 1, (k, c)
+        assert not any(n.startswith("d2h_reads") for n in c), (k, c)
+        assert (c.get("graph_replays", 0) > 0) == (k >= 2), (k, c)
+
+
+@pytest.mark.parametrize("name", ["full_nohelmet", "atrium_lifted"])
+def test_frames_never_wait_for_the_card(dev, name):
+    """Frames 3-12 of make_render_fn, from frame_globals through the
+    replayed render, under torch.cuda.set_sync_debug_mode("error"): no
+    call waits for the card (the globals cross in one non-blocking copy
+    from pinned memory, the proof checks read the host's copy)."""
+    built = kit.build_port(name, UPLOAD_CFG, dev)
+    render = fm.make_render_fn(built.plan)
+    h = fm.RenderHistory.create(built.plan.config, device=dev)
+    try:
+        for k in range(13):
+            if k == 3:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            g, mm, nm = built.frame_globals(k)
+            out, h = render(built.batch, g, h, mm, nm)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.color).all()
+
+
+def test_batched_step_never_waits_for_the_card(dev):
+    """Steps 3-7 of four views (parallel/mesh: view_globals, each view's
+    previous camera its own, batched_globals, make_batched_render_fn)
+    under set_sync_debug_mode("error"): the four uploads and the stacked
+    sun's proof check do not wait for the card."""
+    from soc_real_time_renderer_tpu_torch.parallel import mesh as pmesh
+    built = kit.build_port("full_nohelmet", UPLOAD_CFG, dev)
+    step = pmesh.make_batched_render_fn(built.plan)
+    hb = pmesh.batched_history([fm.RenderHistory.create(
+        built.plan.config, device=dev) for _ in range(4)])
+    cams = None
+    try:
+        for k in range(8):
+            if k == 3:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            gs, mm, nm = pmesh.view_globals(built, VIEW_POSITIONS, k, cams)
+            if cams is None:
+                gs = [dataclasses.replace(g, camera_prev=g.camera)
+                      for g in gs]
+            cams = [g.camera for g in gs]
+            colors, hb = step(built.batch, pmesh.batched_globals(gs), hb,
+                              mm, nm)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert colors.shape[0] == 4 and torch.isfinite(colors).all()
+
+
+def test_uploads_behind_a_busy_card_keep_their_values(dev, monkeypatch):
+    """Sixteen frames' globals, each uploaded behind a ~10 ms kernel, so
+    that every copy still waits on the stream when the next frame's
+    pinned buffer is filled: each frame's leaves equal those of the same
+    frame copied leaf by leaf (no staging buffer is rewritten before its
+    copy has run)."""
+    from soc_real_time_renderer_tpu_torch.graph import replay
+    built = kit.build_port("full_nohelmet", UPLOAD_CFG, dev)
+    want = []
+    with monkeypatch.context() as m:
+        m.setattr(scenes, "upload", _leaf_by_leaf)
+        for k in range(16):
+            want.append([t.cpu() for t in
+                         replay._leaves(built.frame_globals(k))])
+    del built._prev_cam
+    got = []
+    for k in range(16):
+        torch.cuda._sleep(20_000_000)
+        got.append(built.frame_globals(k))
+    torch.cuda.synchronize()
+    for k, (w, g) in enumerate(zip(want, got)):
+        leaves = replay._leaves(g)
+        assert len(leaves) == len(w)
+        for a, b in zip(w, leaves):
+            assert torch.equal(a, b.cpu()), k

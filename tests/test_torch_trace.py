@@ -234,7 +234,7 @@ def test_tree_to_counts_the_host_leaves_that_cross(target, crossing):
 def test_frame_globals_uploads_every_leaf_inside_globals_upload(
         terrain, monkeypatch):
     """On a device (meta here), a frame's globals and its two matrices
-    cross in 62 copies, each inside the span globals.upload."""
+    cross in one packed copy, inside the span globals.upload."""
     built, _ = terrain
     built = dataclasses.replace(built, device=torch.device("meta"))
     open_spans, at = [], []
@@ -256,5 +256,5 @@ def test_frame_globals_uploads_every_leaf_inside_globals_upload(
     for k in (1, 2):
         g, mm, nm = built.frame_globals(k)
     assert g.camera.view.device.type == "meta" and mm.device.type == "meta"
-    assert trace.snapshot()["counters"]["h2d_copies"] == 2 * 62
+    assert trace.snapshot()["counters"]["h2d_copies"] == 2 * 1
     assert set(at) == {"globals.upload"}
