@@ -15,13 +15,22 @@ sampled frames:
   ``sky_lut``, ``clouds``, ``hdr``, ``exposure``, ``history`` (the bf16
   colour and velocity carried to the next frame), ``color``
   (tonemapped): max over the elements of ``|program - reference| / (1 +
-  |reference|)``.
+  |reference|)``;
+- ``ssr`` (read only where the reference has it: a configuration with
+  ``enable_ssr``): the share of pixels whose reflection colour differs
+  from the reference's by more than ``SSR_TOLERANCE`` in any channel,
+  measured as ``|program - reference| / (1 + |reference|)``.  A ray's
+  hit or miss is discontinuous, as a pixel's nearest triangle is, so it
+  is a share like ``tri_id`` and not a worst gap.
 
 The passes after the raster are held on the program's visibility buffer
 (the reference shades the program's depth and triangle ids, as it takes
 the program's history), so a pixel where the two rasters pick another
 triangle counts once, in ``tri_id``, and every later pass is held to
-its own arithmetic.
+its own arithmetic.  So is the SSR march: the reference marches the
+program's depth and G-buffer, and its composition mixes in the
+program's ``ssr`` image, so a ray that finds another texel counts once,
+in ``ssr``.
 
 A configuration's ``check.limits`` names the numbers its cells compare,
 each with its limit (``terrain_1080p`` leaves out ``bloom``: the scene
@@ -46,18 +55,44 @@ FLOAT_TARGETS = {
     "history": ("history_color", "history_velocity"),
     "color": ("color",),
 }
-NUMBERS = ("globals", "tri_id") + tuple(FLOAT_TARGETS)
+NUMBERS = ("globals", "tri_id") + tuple(FLOAT_TARGETS) + ("ssr",)
+
+# A pixel's reflection differs where |program - reference| / (1 +
+# |reference|) passes this in a channel.  An ulp of round-off in the
+# hit's uv (6e-8 near 1) moves its bilinear albedo tap by at most that
+# times the screen's width (1920) times the albedo's step between texels
+# (<= 1): 1.2e-4 an ulp, so this allows some eight.  A ray that flips (a
+# hit turned miss, or a hit on another surface) moves the colour by the
+# albedo itself, 1e-2 and more on any texel that is not black.
+SSR_TOLERANCE = 1e-3
+
+
+def _gaps(a, b):
+    """|a - b| / (1 + |b|) elementwise, 0 where both are NaN and inf
+    where one is; None where the shapes differ."""
+    a, b = a.float(), b.float().to(a.device)
+    if a.shape != b.shape:
+        return None
+    d = (a - b).abs() / (1.0 + b.abs())
+    # NaN on both sides agrees; on one side it is a difference
+    return torch.where(torch.isnan(a) & torch.isnan(b), 0.0,
+                       torch.nan_to_num(d, nan=float("inf")))
 
 
 def _rel(a, b) -> float:
-    a, b = a.float(), b.float().to(a.device)
-    if a.shape != b.shape:
+    d = _gaps(a, b)
+    if d is None:
         return float("inf")
-    d = (a - b).abs() / (1.0 + b.abs())
-    # NaN on both sides agrees; on one side it is a difference
-    d = torch.where(torch.isnan(a) & torch.isnan(b), 0.0,
-                    torch.nan_to_num(d, nan=float("inf")))
     return float(d.max()) if d.numel() else 0.0
+
+
+def _flipped(a, b) -> float:
+    """The share of pixels of (3, H, W) images whose colour differs by
+    more than SSR_TOLERANCE in a channel."""
+    d = _gaps(a, b)
+    if d is None:
+        return float("inf")
+    return float((d > SSR_TOLERANCE).any(0).float().mean())
 
 
 def _leaves(tree, prefix=""):
@@ -91,7 +126,8 @@ def compare(program: dict, reference: dict) -> dict:
     out = {"globals": program["globals"]}
     p, r = program["tri_id"], reference["tri_id"].to(program["tri_id"].device)
     if p.shape != r.shape:
-        return dict(out, **{k: float("inf") for k in NUMBERS[1:]})
+        return dict(out, **{k: float("inf") for k in NUMBERS[1:]
+                            if k != "ssr" or k in reference})
     agree = p == r
     out["tri_id"] = float((~agree).float().mean())
     out["depth"] = _rel(program["depth"][agree], reference["depth"][agree])
@@ -104,6 +140,9 @@ def compare(program: dict, reference: dict) -> dict:
         out[number] = max((_rel(program[n], reference[n])
                            if program.get(n) is not None else float("inf"))
                           for n in have)
+    if "ssr" in reference:
+        out["ssr"] = (_flipped(program["ssr"], reference["ssr"])
+                      if program.get("ssr") is not None else float("inf"))
     return out
 
 

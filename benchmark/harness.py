@@ -138,6 +138,7 @@ def targets_of(out, history, prev, capture) -> dict:
              metallic_roughness=out.gbuffer.metallic_roughness,
              velocity=out.gbuffer.velocity, emissive=out.gbuffer.emissive,
              bloom=out.bloom, ssao=out.ssao, clouds=out.clouds, hdr=out.hdr,
+             ssr=out.ssr,
              exposure=history.exposure,
              history_color=history.previous_color,
              history_velocity=history.previous_velocity, color=out.color,
@@ -285,7 +286,10 @@ def reference_check(cfg: dict, built, traffic: Traffic, samples, device,
     control's, against the reference), and with `jobs` the roofline
     jobs of the first, summed over its views.  The reference's globals
     carry the configuration's ``lights``, and its composition shades as
-    many point and spot lights as those name."""
+    many point and spot lights as those name.  Where the configuration's
+    ``render_config`` sets ``enable_ssr``, the reference marches the
+    program's depth and G-buffer, mixes in the program's ``ssr`` where
+    ``composite_ssr``, and ``ssr`` is compared."""
     import torch
     from .reference import clouds as ref_clouds
     from .reference import frame as ref_frame
@@ -316,15 +320,20 @@ def reference_check(cfg: dict, built, traffic: Traffic, samples, device,
         t = {n: v.to(device) for n, v in t.items()}
         mm, nm = (m.to(device) for m in s["mats"])
         vis = (t["depth"], t["tri_id"])
+        # the program's G-buffer and reflections, which the reference's
+        # SSR march and mix take (read only where enable_ssr)
+        gbuf = {n: t[n] for n in ("albedo", "normal", "metallic_roughness")}
         ref = ref_frame.render(rcfg, scene, g, t["prev_color"],
                                t["prev_velocity"], t["prev_exposure"], mm,
-                               nm, visibility=vis)
+                               nm, visibility=vis, gbuffer=gbuf,
+                               ssr=t.get("ssr"))
         if control:
             g_low = rg.frame_globals(*(_bf16_tree(c) for c in cams), i, DT,
                                      device, lights)
             ctl = ref_frame.render(rcfg, scene, g_low, t["prev_color"],
                                    t["prev_velocity"], t["prev_exposure"],
-                                   mm, nm, visibility=vis, control=True)
+                                   mm, nm, visibility=vis, control=True,
+                                   gbuffer=gbuf, ssr=t.get("ssr"))
             prog = dict(ctl, globals=check.globals_gap(g_low, g))
         else:
             prog = dict(t, globals=check.globals_gap(prog_g, g))

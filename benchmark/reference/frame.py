@@ -2,19 +2,29 @@
 
 The pass order and arguments are those of the port's
 ``graph/frame.render_frame`` for one view (raster, G-buffer with the
-material tap, bloom, SSAO, sky LUT + lookup, composition, auto exposure,
-TAA, AgX), over the frozen copies beside this file, with three
+material tap, bloom, SSAO, SSR where ``enable_ssr``, sky LUT + lookup,
+composition with the SSR mix where ``composite_ssr``, auto exposure,
+TAA, AgX), over the frozen copies beside this file, with four
 differences that make it a reference and not a second copy of the
 program: the raster is :mod:`.raster`'s box test without bins or caps;
 the sun's shadow map is always rendered (at ``shadow_resolution``²)
 and sampled, where the port elides it when its build proved the map
-empty; and the globals come from :mod:`.globals`.  The HiZ pyramids,
-which no pass reads, are not built.
+empty; the SSR march is :mod:`.ssr`'s dense march of every reflective
+pixel, with no cap; and the globals come from :mod:`.globals`.  The
+HiZ pyramids, which no pass reads, are not built.
+
+The SSR march takes the program's G-buffer (``gbuffer``: its albedo,
+normal and metallic-roughness) and depth (``visibility``), and the mix
+takes the program's ``ssr`` target, as the passes after the raster take
+the program's visibility and TAA its history: a ray that finds another
+texel counts once, in ``ssr``, and not again in ``hdr``, ``exposure``,
+``history`` and ``color``.  Without SSR neither is read.
 
 ``control=True`` computes the frame one precision step below the
 configuration's float32 (TF32 off): TF32 for matrix products, and every
 pass's output, the depth test included, in bfloat16.  It is the control
-that the comparison must refuse.
+that the comparison must refuse.  The SSR march's inputs and its image
+are rounded to bfloat16 as every other pass's output is.
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ from . import gbuffer as gbuf_ops
 from . import raster
 from . import sampling
 from . import ssao as ssao_ops
+from . import ssr as ssr_ops
 from . import taa as taa_ops
 from . import tonemap as tonemap_ops
 
@@ -53,7 +64,7 @@ def _tf32(on: bool):
 
 def render(cfg, scene, g, prev_color, prev_velocity, prev_exposure,
            model_mats, normal_mats, visibility=None,
-           control: bool = False) -> dict:
+           control: bool = False, gbuffer=None, ssr=None) -> dict:
     """One frame from the scene's data (`scene`: tri_entity, tri_pos,
     tri_nrm, tri_uv, static_rows, atlas_packed, cloud_noise, atlas_size,
     atlas_layer_stride, atlas_n_levels, texture_filter), its globals and
@@ -64,16 +75,24 @@ def render(cfg, scene, g, prev_color, prev_velocity, prev_exposure,
     in place of the reference raster's own (the program's, so that each
     pass is held against the reference on the same input, as the
     history is); ``tri_id`` and ``depth`` in the result stay the
-    reference raster's."""
+    reference raster's.
+
+    gbuffer: {albedo, normal, metallic_roughness} that the SSR march
+    reads in place of the reference's own (the program's); ssr: the
+    image that the ``composite_ssr`` mix takes in place of the
+    reference's own (the program's).  ``ssr`` in the result is the
+    reference's march, and ``counts["ssr"]`` its pixels, rays and
+    probes (:func:`.ssr.ssr`); neither exists without ``enable_ssr``."""
     q = _bf16 if control else (lambda x: x)
     with _tf32(control), torch.no_grad():
         return _render(cfg, scene, g, prev_color, prev_velocity,
                        prev_exposure, model_mats, normal_mats, visibility,
-                       q, control)
+                       q, control, gbuffer, ssr)
 
 
 def _render(cfg, scene, g, prev_color, prev_velocity, prev_exposure,
-            model_mats, normal_mats, visibility, q, control):
+            model_mats, normal_mats, visibility, q, control, program_gbuf,
+            program_ssr):
     H, W = cfg.height, cfg.width
     world, wnrm = raster.transform_triangles(scene, model_mats, normal_mats)
     setup = raster.triangle_setup_planar(
@@ -119,6 +138,15 @@ def _render(cfg, scene, g, prev_color, prev_velocity, prev_exposure,
     else:
         ssao_full = torch.ones_like(depth)
 
+    ssr_counts = None
+    if cfg.enable_ssr:
+        src = program_gbuf or dict(albedo=albedo, normal=normal,
+                                   metallic_roughness=mr)
+        ssr_img, ssr_counts = ssr_ops.ssr(
+            q(depth), q(src["albedo"]), q(src["normal"]),
+            q(src["metallic_roughness"]), g)
+        out["ssr"] = q(ssr_img)
+
     clouds_full = None
     noise = scene.cloud_noise
     if cfg.enable_clouds:
@@ -138,6 +166,10 @@ def _render(cfg, scene, g, prev_color, prev_velocity, prev_exposure,
         enable_shadow=cfg.enable_shadows,
         max_point_lights=cfg.max_point_lights,
         max_spot_lights=cfg.max_spot_lights))
+    if cfg.composite_ssr and cfg.enable_ssr:
+        # graph/frame._ssr_mix: composition.inl:213-216's commented-out mix
+        mix = out["ssr"] if program_ssr is None else program_ssr
+        hdr = q(hdr + (mix - hdr) * (mr[1] * (1.0 - mr[0]))[None])
     out["hdr"] = hdr
     exposure = (exposure_ops.auto_exposure(hdr, prev_exposure, g)
                 if cfg.enable_auto_exposure else prev_exposure)
@@ -150,4 +182,6 @@ def _render(cfg, scene, g, prev_color, prev_velocity, prev_exposure,
     out["color"] = q(tonemap_ops.tone_map(resolved, out["exposure"], g))
     out["counts"] = dict(covered=covered, setup=setup, taps=taps,
                          shadow_covered=shadow_covered, shadow_setup=ssetup)
+    if ssr_counts is not None:
+        out["counts"]["ssr"] = ssr_counts
     return out

@@ -47,6 +47,8 @@ class RenderConfig:
     enable_auto_exposure: bool = True
     max_point_lights: int = 0
     max_spot_lights: int = 0
+    enable_ssr: bool = False
+    composite_ssr: bool = False
 
 
 def _f32(x):

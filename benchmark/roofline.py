@@ -31,6 +31,10 @@ TEX_OPS_CHANNEL = 10   # unpack 4 corners, bilinear blend, / 255
 SKY_OPS_ATMOS = 3400   # atmosphere of one texel: 16 x (8 + 1) samples
 SKY_OPS_DENSITY = 250  # one cloud density: 4 octaves x 2 slices x 4 taps
 SKY_OPS_SAMPLE = 40    # one march sample's phase, powder, scatter terms
+SSR_BYTES_PIXEL = 44   # depth 4, albedo 12, normal 12, metallic 4 in;
+#                        the reflection 12 out
+SSR_OPS_RAY = 127      # a ray's start, reflection and hit colour
+SSR_OPS_PROBE = 80     # one iteration of the march
 
 # the binned resolve's bins (the main view: 64x32, in groups of 2 across;
 # the shadow view: 128x128): its input is the (bin, triangle) pair stream
@@ -136,6 +140,36 @@ def sky_job(texels: int, upper: int, hits: int, noise_texels: int,
             + hits * 10 * SKY_OPS_DENSITY)
 
 
+def ssr_job(pixels: int, rays: int, probes: int):
+    """(bytes, f32 ops) of the SSR march (T11), counted from
+    ``reference/ssr.py``.
+
+    Bytes, SSR_BYTES_PIXEL a pixel: the screen-sized reads, each once
+    (depth, albedo, normal, and the metallic channel of
+    metallic-roughness: the dielectric test of every pixel), and the
+    reflection written.  The march's depth gathers and the hit's albedo
+    gather read screens already counted: left out as cache hits (the
+    depth screen is 8 MiB at 1920x1088, the L2 50 MB).
+
+    Operations (floating point; the taps' integer index arithmetic is
+    left out), SSR_OPS_RAY a ray (a reflective pixel): its view-space
+    position (``view_from_depth``: the ndc 4, four rows of 6, the guard
+    1, three divisions 3 = 32), its view normal (3x3 product 15,
+    ``normalize3`` 11 = 26), the reflected ray (``dot3`` 5, scale 1,
+    3 products and 3 differences, ``normalize3`` 11 = 23), the first
+    step and point (6), and the hit's bilinear albedo (40: a bilinear
+    tap is coordinates 4, floors 2, fractions 4, the weights'
+    complements 3 and 9 a channel).  SSR_OPS_PROBE an iteration up to
+    and including the hit (a march that stops at its hit does no more):
+    the projection's x, y and w rows (18), the guard 1 and the uv (6),
+    the bilinear depth tap (one channel: 22), the surface's view z (the
+    ndc 4, the z and w rows 12, the guard and the division 2 = 18),
+    delta (3), the hit test (2), the sign (1), the step halved or grown
+    (3) and the point moved (6)."""
+    return (pixels * SSR_BYTES_PIXEL,
+            rays * SSR_OPS_RAY + probes * SSR_OPS_PROBE)
+
+
 def sky_counts(clouds, g, noise, lut_w: int = 256, lut_h: int = 128,
                steps: int = 24):
     """(LUT texels, texels above the horizon, march samples above it that
@@ -169,7 +203,9 @@ def frame_jobs(cfg, scene, g, ref, clouds) -> dict:
     reference's computation of it (`ref`: reference.frame.render's
     output; `clouds`: the reference's clouds module).  The shadow view's
     depth resolve is not paid where every texel of its map is the clear
-    1.0 (the port's build proves that and elides it)."""
+    1.0 (the port's build proves that and elides it).  The SSR march's
+    job, ``ssr_march``, exists only where ``cfg.enable_ssr``: from the
+    pixels, rays and probes of the reference's march."""
     H, W = cfg.height, cfg.width
     counts = ref["counts"]
     setup = counts["setup"]
@@ -199,6 +235,10 @@ def frame_jobs(cfg, scene, g, ref, clouds) -> dict:
             and cfg.cloud_noise_mode == "texture":
         jobs["sky_lut"] = bound_ms(*sky_job(*sky_counts(clouds, g, noise),
                                             noise.numel()))
+    if cfg.enable_ssr:
+        c = counts["ssr"]
+        jobs["ssr_march"] = bound_ms(*ssr_job(c["pixels"], c["rays"],
+                                              c["probes"]))
     if cfg.enable_taa:
         jobs["taa_reproject"] = bound_ms(*taa_job(H, W))
     return jobs
