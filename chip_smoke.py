@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py
 
-Builds the nine hand-written CUDA kernels (and K5's variants) from
+Builds the ten hand-written CUDA kernels (and K5's variants) from
 ``soc_real_time_renderer_tpu_torch/kernels/csrc`` (K1 bin resolve, K2
 SSAO taps, K3 TAA history fetch, K3f the whole TAA resolve around it,
 K4 shadow depth resolve, K5 material texture tap, K6 noise-texture sky
-LUT, K6p procedural sky LUT, K7 point and spot lights), then
+LUT, K6p procedural sky LUT, K7 point and spot lights, K8 the SSR
+march), then
 renders four scenes at 1920x1088 with every other RenderConfig default
 (4096^2 shadow map):
 
@@ -31,11 +32,16 @@ renders four scenes at 1920x1088 with every other RenderConfig default
 
 Then the passes that are off by default, two frames each, same size:
 
-* ``atrium_passes``: ``atrium_lifted`` whose floor takes a
-  metallic-roughness image made from a seed, with SSR (composited),
-  depth of field and the volumetric light over the rendered shadow map;
-  ``FramePlan.ssr_cap`` sized from the first frame's reflective-pixel
-  count.  All six kernels.
+* ``atrium_passes``: ``atrium_lifted`` whose floor takes the
+  ``full_ssr`` preset's tile map (``proc.metal_tile_image``), with SSR
+  (composited), depth of field and the volumetric light over the
+  rendered shadow map; ``FramePlan.ssr_cap`` the screen's pixel count,
+  as the ``full_ssr`` preset sizes it.  The six kernels of the noise
+  path and K8, which is held to its plain version on the frame's own
+  inputs (dense, capped past and under the reflective pixels, the
+  screen's cap: bit for bit) and timed beside its bound
+  (``benchmark/roofline.ssr_job`` over the reference march's rays and
+  probes).
 * ``terrain_perpixel``: the terrain with the noise field and
   ``cloud_impl="perpixel"``: the exact cloud march at every half-res
   pixel, no LUT.  K1, K5, K2, K3f and not K6.
@@ -49,8 +55,8 @@ camera positions each, on two scenes at the same size:
 * ``terrain``: the procedural sky LUT (K6p, one launch for the views),
   the shadow elided, the sun proof checked over the batch (a batch with
   one view under another sun is refused before anything launches);
-* ``atrium_passes`` (the atrium_lifted views; ``ssr_cap`` sized from
-  the views' reflective pixels) and ``terrain_perpixel`` (the terrain
+* ``atrium_passes`` (the atrium_lifted views; ``ssr_cap`` the
+  screen's) and ``terrain_perpixel`` (the terrain
   views): SSR, depth of field, the volumetric light and the per-pixel
   cloud march each one call for the four views.  On a batched frame's
   own inputs, each of those passes in one call against four
@@ -168,7 +174,8 @@ launch alone without the wrapper's small PyTorch kernels around it), and
 a per-stage breakdown.  For the two scenes of the passes: launch counts
 over their frames, the kernel-path frame against the plain-path frame,
 each pass's own checks (``passes_phase``, ``perpixel_phase``; in
-``atrium_passes`` the ``ssr_cap`` that ``_finish`` sizes sets bit 16)
+``atrium_passes`` the 5% cap that ``_finish`` sizes by default sets bit
+16)
 and the stage breakdown with their rows.
 Any failure exits nonzero before the last line; on success the line
 before the last is the per-kernel JSON and the last line the contract
@@ -296,6 +303,11 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "local_lights": (SRC + "lights.cu",
                      "none (soc_real_time_renderer_tpu/ops/composition.py "
                      "_local_lights, a lax.scan in XLA)"),
+    # replaces no TPU kernel: the JAX package marches its reflections in
+    # XLA; added for the reflective atrium, whose march the plain version
+    # runs in ~9,600 launches a frame
+    "ssr_march": (SRC + "ssr.cu",
+                  "none (soc_real_time_renderer_tpu/ops/ssr.py ssr, XLA)"),
 }
 # the scene whose inputs give each kernel's line in the JSON
 # the two TPU kernels that took K5 apart, as K5 variants on the card:
@@ -313,16 +325,18 @@ HOME = {"resolve": "terrain", "ssao_taps": "terrain",
         "texsample": "full_nohelmet",
         "sky_lut": "full_nohelmet", "resolve_depth": "atrium_lifted",
         "sky_lut_procedural": "terrain",
-        "local_lights": "full_lit_nohelmet"}
+        "local_lights": "full_lit_nohelmet", "ssr_march": "atrium_passes"}
 # the kernels no frame launches on its own: K3, whose fetch the frame's
 # fused TAA resolve (taa_resolve) does
 STANDALONE = ["taa_reproject"]
 # the kernels that launch only where the plan binds a light: K7
 LIT = ["local_lights"]
-# the kernels of a lightless scene with the cloud-noise texture: all but
-# K6p and K7
+# the kernels that launch only where enable_ssr: K8
+SSR = ["ssr_march"]
+# the kernels of a lightless scene with the cloud-noise texture and SSR
+# off: all but K6p, K7 and K8
 NOISE_PATH = sorted(k for k in KERNELS if k != "sky_lut_procedural"
-                    and k not in STANDALONE and k not in LIT)
+                    and k not in STANDALONE + LIT + SSR)
 
 
 def log(msg):
@@ -380,23 +394,6 @@ def cloud_noise():
     return sm.astype(np.float32)
 
 
-def metal_image(size=64):
-    """(size, size, 4) uint8 metallic-roughness image from METAL_SEED
-    (glTF channels: G roughness, B metallic): blocky roughness in
-    [0.1, 0.5], metallic ~0.9 with a quarter of the blocks dielectric."""
-    import numpy as np
-    rng = np.random.default_rng(METAL_SEED)
-    blocks = size // 8
-    rough = rng.integers(25, 128, (blocks, blocks))
-    metal = np.where(rng.random((blocks, blocks)) < 0.25, 0,
-                     rng.integers(215, 256, (blocks, blocks)))
-    img = np.zeros((size, size, 4), np.uint8)
-    img[..., 1] = np.kron(rough, np.ones((8, 8), np.int64))
-    img[..., 2] = np.kron(metal, np.ones((8, 8), np.int64))
-    img[..., 3] = 255
-    return img
-
-
 def build_scene(name, dev):
     """The BuiltScene of `name` at WIDTH x HEIGHT on `dev`."""
     import dataclasses
@@ -439,16 +436,19 @@ def build_scene(name, dev):
         built = scenes._finish(scene, models, cfg, [-7.0, 1.8, 0.0],
                                [0, 1.5, 0], animate=True, device=dev)
     else:
+        kw = {}
         if name == "atrium_passes":    # the floor (material 0) reflects
-            atrium.images = [metal_image()]
+            atrium.images = [proc.metal_tile_image(METAL_SEED)]
             atrium.materials[0] = MaterialData(metallic_roughness_image=0)
             cfg = cfg.replace(enable_ssr=True, composite_ssr=True,
                               enable_depth_of_field=True,
                               enable_volumetric_light=True)
+            # the full_ssr preset's cap: no reflective pixel is dropped
+            kw["ssr_cap"] = WIDTH * HEIGHT
         entity("sponza model", atrium, position=[0.0, 32.0, 0.0],
                scale=[0.01] * 3)
         built = scenes._finish(scene, models, cfg, [-7.0, 33.8, 0.0],
-                               [0, 33.5, 0], device=dev)
+                               [0, 33.5, 0], device=dev, **kw)
     built.batch = dataclasses.replace(
         built.batch, cloud_noise=torch.from_numpy(cloud_noise()).to(dev))
     return built
@@ -493,7 +493,7 @@ def kernel_cases(name, built, dev, min_lit=0.1):
     import torch
     from soc_real_time_renderer_tpu_torch.graph import frame as fm
     from soc_real_time_renderer_tpu_torch.ops import composition, raster2, \
-        sky, ssao, taa, texsample
+        sky, ssao, ssr, taa, texsample
     plan, batch = built.plan, built.batch
     cfg = plan.config
     path = path_of(plan, batch)
@@ -501,6 +501,7 @@ def kernel_cases(name, built, dev, min_lit=0.1):
     taps = {}
     real_sample_atlas = texsample.sample_atlas
     real_local_lights = composition._local_lights
+    real_ssr = ssr.ssr
 
     def spy(*a, **k):        # records the frame's (mid, uv, lod)
         taps.setdefault("args", (a, {n: v for n, v in k.items()
@@ -512,8 +513,13 @@ def kernel_cases(name, built, dev, min_lit=0.1):
                                        if n != "impl"}))
         return real_local_lights(*a, **k)
 
+    def spy_ssr(*a, **k):     # records the SSR pass's targets and globals
+        taps.setdefault("ssr", a)
+        return real_ssr(*a, **k)
+
     texsample.sample_atlas = spy
     composition._local_lights = spy_lights
+    ssr.ssr = spy_ssr
     try:
         hist = fm.RenderHistory.create(cfg, device=dev)
         g, mm, nm = built.frame_globals(0)
@@ -522,6 +528,7 @@ def kernel_cases(name, built, dev, min_lit=0.1):
     finally:
         texsample.sample_atlas = real_sample_atlas
         composition._local_lights = real_local_lights
+        ssr.ssr = real_ssr
     g1, mm1, nm1 = built.frame_globals(1, peek=True)
     torch.cuda.synchronize()
     world, _ = fm.transform_triangles(batch, mm1, nm1)
@@ -682,6 +689,12 @@ def kernel_cases(name, built, dev, min_lit=0.1):
                          P7 * (n_pt * LIGHT_OPS_POINT
                                + n_sp * LIGHT_OPS_SPOT)), None, None)
 
+    # K8: the SSR march on the warm frame's own targets and globals
+    if "ssr_march" in path:
+        check("ssr" in taps, "the warm frame marched its reflections")
+        *targets, g0 = taps["ssr"]
+        cases["ssr_march"] = ssr_case(targets, g0, plan.ssr_cap)
+
     # K3: TAA history fetch, alone
     *_, vel_s = taa.neighbourhood(out0.hdr, depth, out0.gbuffer.velocity)
     packed = torch.cat([hist1.previous_color, hist1.previous_velocity], 0)
@@ -708,6 +721,30 @@ def kernel_cases(name, built, dev, min_lit=0.1):
          H * W * (TAA_OPS_RESOLVE + TAA_OPS_PIXEL + C * TAA_OPS_CHANNEL)),
         None, None)
     return path, cases
+
+
+def ssr_case(targets, g, cap):
+    """K8's case in kernel_cases' form on a frame's SSR inputs, `targets`
+    (depth, albedo, normal, metallic-roughness) and globals `g`, at
+    `cap`: bit for bit its plain version in the image, the overflow and
+    the count; bytes and operations of benchmark/roofline.py's ssr_job
+    over the rays and probes of the benchmark reference's dense march."""
+    import torch
+    from benchmark import roofline
+    from benchmark.reference import ssr as ref_ssr
+    from soc_real_time_renderer_tpu_torch.ops import ssr
+    _, work = ref_ssr.ssr(*targets, g)
+
+    def cmp(k, p):
+        e = (k[0] - p[0]).abs().max().item()
+        same = all(torch.equal(a, b) for a, b in zip(k, p))
+        return e, (f"cap {cap}: {work['rays']} rays, {work['probes']} "
+                   f"probes, image max abs {e:.3g} (== 0), overflow "
+                   f"{k[1].tolist()} / {p[1].tolist()}, count "
+                   f"{k[2].tolist()} / {p[2].tolist()}, equal {same}"), same
+
+    return (lambda i: ssr.ssr(*targets, g, compact_cap=cap, impl=i), cmp,
+            roofline.ssr_job(**work), None, None)
 
 
 def resolve_ops(starts, recs, grid, pixels_per_chunk=1 << 24):
@@ -1129,15 +1166,10 @@ def run_frames(built, plan, path, n, dev):
     return out, last_in, counts
 
 
-def ssr_cap_for(n_active):
-    """FramePlan.ssr_cap for a frame of `n_active` reflective pixels
-    (the most of any view): a quarter more, rounded up to 4,096."""
-    return -(-int(n_active) * 5 // 4 // 4096) * 4096
-
-
 def passes_phase(dev, card, results):
-    """`atrium_passes`: SSR (compacted and composited), depth of field
-    and the volumetric light over the rendered 4096^2 shadow map."""
+    """`atrium_passes`: SSR (K8, composited), depth of field and the
+    volumetric light over the rendered 4096^2 shadow map; K8 against its
+    plain version on the frame's own targets, timed beside its bound."""
     import dataclasses
     import torch
     from soc_real_time_renderer_tpu_torch.graph import frame as fm
@@ -1147,47 +1179,39 @@ def passes_phase(dev, card, results):
     plan, batch = built.plan, built.batch
     cfg = plan.config
     path = path_of(plan, batch)
-    check(sorted(path) == NOISE_PATH, f"{name} runs all six: {path}")
+    check(sorted(path) == sorted(NOISE_PATH + SSR),
+          f"{name} runs the six kernels of the noise path and K8: {path}")
     P = WIDTH * HEIGHT
+    check(plan.ssr_cap == P, f"the screen's cap: {plan.ssr_cap} == {P}")
 
     def frame(g, hist, mm, nm, cap, impl=None, **off):
         pl = dataclasses.replace(plan, ssr_cap=cap,
                                  config=cfg.replace(**off))
         return fm.render_frame(pl, batch, g, hist, mm, nm, impl=impl)[0]
 
-    # frame 0 with every pixel allowed sizes the cap from the data
-    hist0 = fm.RenderHistory.create(cfg, device=dev)
-    g0, mm0, nm0 = built.frame_globals(0, peek=True)
-    n_active = int(frame(g0, hist0, mm0, nm0, P).ssr_active)
-    check(n_active > 0.01 * P, f"ssr_active {n_active} > 1% of {P} pixels")
-    cap = ssr_cap_for(n_active)
-    plan_c = dataclasses.replace(plan, ssr_cap=cap)
-    # the cap _finish sized (5% of the screen rounded up to 1,024, the
-    # JAX package's rule) is below this scene's reflective pixels, as it
-    # would be in the reference: its frame, unchanged, sets bit 16
-    scap = plan.ssr_cap
-    over = frame(g0, hist0, mm0, nm0, scap)
-    check(scap == -(-int(0.05 * P) // 1024) * 1024 < n_active
-          and int(over.overflow) & ssr.OVERFLOW_SSR_CAP,
-          f"_finish's ssr_cap {scap} sets bit 16 under {n_active} "
-          f"reflective pixels")
-    log(f"[{name}] {n_active} reflective pixels of {P} "
-        f"({n_active / P:.4f}); _finish's ssr_cap {scap} sets bit 16 "
-        f"(overflow {int(over.overflow)}); FramePlan.ssr_cap = {cap}")
-    del over
-
-    out, (g, hist, mm, nm), counts = run_frames(built, plan_c, path,
+    out, (g, hist, mm, nm), counts = run_frames(built, plan, path,
                                                 PASS_FRAMES, dev)
     for k in counts:
-        results[k][name] = {"launches": counts[k]}
+        results.setdefault(k, {})[name] = {"launches": counts[k]}
     metal = out.gbuffer.metallic_roughness[1] >= ssr.METALLIC_MIN
+    n_active = int(out.ssr_active)
     hits = int((out.ssr[:, metal] != 0).any(0).sum())
+    # the cap _finish sizes by default (5% of the screen rounded up to
+    # 1,024, the JAX package's rule) is below this scene's reflective
+    # pixels, as it would be in the reference: it sets bit 16
+    scap = -(-int(0.05 * P) // 1024) * 1024
+    over = frame(g, hist, mm, nm, scap)
+    check(scap < n_active and int(over.overflow) & ssr.OVERFLOW_SSR_CAP,
+          f"_finish's default ssr_cap {scap} sets bit 16 under {n_active} "
+          f"reflective pixels")
+    del over
     log(f"[{name}] launches over {PASS_FRAMES} frames: {counts}; frame "
-        f"{PASS_FRAMES}: ssr_active {int(out.ssr_active)}, overflow "
-        f"{int(out.overflow)}, reflective pixels whose ray found a hit: "
-        f"{hits}")
-    check(int(out.ssr_active) == int(metal.sum()) > 0.01 * P
-          and int(out.ssr_active) <= cap, "ssr_active counts the metal")
+        f"{PASS_FRAMES}: ssr_active {n_active} of {P} ({n_active / P:.4f};"
+        f" _finish's default cap {scap} sets bit 16, the screen's cap "
+        f"{plan.ssr_cap} none), overflow {int(out.overflow)}, reflective "
+        f"pixels whose ray found a hit: {hits}")
+    check(n_active == int(metal.sum()) > 0.01 * P,
+          "ssr_active counts the metal")
     check(int(out.overflow) == 0, f"overflow {int(out.overflow)} == 0")
     check(hits > 0, "some reflective pixel found a hit")
     check(all(torch.isfinite(t).all().item()
@@ -1196,11 +1220,11 @@ def passes_phase(dev, card, results):
     dense = frame(g, hist, mm, nm, 0)
     check(int(dense.ssr_active) == -1 and torch.equal(dense.ssr, out.ssr)
           and torch.equal(dense.color, out.color),
-          "the compacted frame equals the dense frame bit for bit")
+          "the capped frame equals the dense frame bit for bit")
     half = frame(g, hist, mm, nm, n_active // 2)
     differs = (half.ssr != out.ssr).any(0)
     check(int(half.overflow) & ssr.OVERFLOW_SSR_CAP
-          and int(half.ssr_active) == int(out.ssr_active),
+          and int(half.ssr_active) == n_active,
           "a cap at half of the reflective pixels sets bit 16")
     check(differs.any().item() and metal[differs].all().item()
           and (half.ssr[:, differs] == 0).all().item(),
@@ -1208,7 +1232,7 @@ def passes_phase(dev, card, results):
     changed = {}
     for off in ("enable_depth_of_field", "enable_volumetric_light",
                 "composite_ssr"):
-        other = frame(g, hist, mm, nm, cap, **{off: False})
+        other = frame(g, hist, mm, nm, P, **{off: False})
         changed[off] = (other.hdr - out.hdr).abs().mean().item()
         check(not torch.equal(other.hdr, out.hdr)
               and torch.isfinite(other.color).all().item(),
@@ -1219,18 +1243,48 @@ def passes_phase(dev, card, results):
     check(default.ssr is None
           and (torch.isfinite(out.color) | ~torch.isfinite(default.color))
           .all().item(), "finite wherever the default frame is")
-    plain = frame(g, hist, mm, nm, cap, impl="plain")
+    plain = frame(g, hist, mm, nm, P, impl="plain")
     diff = (plain.color - out.color).abs().mean().item()
-    log(f"[{name}] compacted == dense; half cap: bit 16, "
+    log(f"[{name}] capped == dense; half cap: bit 16, "
         f"{int(differs.sum())} pixels black; hdr mean abs moved by each "
         f"switch {changed}; kernel vs plain colour mean abs {diff:.3g} "
         f"(< 1e-3)")
     check(diff < 1e-3, "kernel-path frame vs plain-path frame")
-    st = stage_table(built, g, hist, mm, nm, plan=plan_c)
+    del dense, half, default, plain
+
+    # K8 on the frame's own targets against its plain version: the
+    # dense march, caps past and under the reflective pixels, the screen
+    gbuf = out.gbuffer
+    targets = (gbuf.depth, gbuf.albedo, gbuf.normal,
+               gbuf.metallic_roughness)
+    errs = {}
+    for cap in (0, n_active + 100, n_active // 2, P):
+        call, cmp, (nbytes, ops), _, _ = ssr_case(targets, g, cap)
+        got, want = call("cuda"), call("plain")
+        torch.cuda.synchronize()
+        errs[cap], msg, ok = cmp(got, want)
+        log(f"[{name}] parity ssr_march: {msg}")
+        check(ok, f"{name} ssr_march parity, cap {cap}")
+    flush = l2_flush(dev)
+    k_ms = cuda_ms(lambda: call("cuda"), 20)
+    k_dev = device_ms(lambda: call("cuda"), 20, flush)
+    check(k_dev is not None, "ssr_march timed on the card alone: its call "
+          "must not wait for the card")
+    p_ms = cuda_ms(lambda: call("plain"), TIMED)
+    del flush
+    b_ms, b_by = bound(nbytes, ops)
+    log(f"[{name}] ssr_march: kernel {k_ms:.4f} ms per call, on the card "
+        f"{k_dev:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms by "
+        f"{b_by} ({nbytes} bytes, {ops} ops), library none {card}")
+    results["ssr_march"][name].update(
+        max_abs_err=max(errs.values()), ms=k_ms, device_ms=k_dev,
+        plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        library_device_ms=None, launch_device_ms=None)
+    st = stage_table(built, g, hist, mm, nm)
     log(f"[{name}] stages (kernel path, ms, median of 3) {card}:")
     for s, v in st.items():
         log(f"[{name}]   {s}: {v:.2f}")
-    del built, out, dense, half, default, plain
+    del built, out
     torch.cuda.empty_cache()
     return st["whole frame"]
 
@@ -1289,7 +1343,7 @@ def recorded_inputs(fn, every=False):
     kwargs without impl)} of each wrapper's first call (every: a list of
     every call's)."""
     from soc_real_time_renderer_tpu_torch.ops import raster2, sky, ssao, \
-        taa, texsample
+        ssr, taa, texsample
     wrappers = {"resolve": (raster2, "resolve"),
                 "resolve_depth": (raster2, "resolve_depth"),
                 "texsample": (texsample, "sample_atlas"),
@@ -1297,7 +1351,8 @@ def recorded_inputs(fn, every=False):
                 "sky_lut": (sky, "render_sky_lut_noise"),
                 "sky_lut_procedural": (sky, "render_sky_lut_procedural"),
                 "taa_reproject": (taa, "reproject_history"),
-                "taa_resolve": (taa, "_resolve")}
+                "taa_resolve": (taa, "_resolve"),
+                "ssr_march": (ssr, "ssr")}
     seen, real = {}, {}
     for k, (mod, attr) in wrappers.items():
         real[k] = getattr(mod, attr)
@@ -1346,16 +1401,6 @@ def batched_phase(name, dev, card, results):
         return pmesh.batched_history([fm.RenderHistory.create(
             plan.config, device=dev) for _ in range(n)])
 
-    if plan.config.enable_ssr:
-        # every pixel allowed on frame 0 sizes the cap from the views' data
-        gs, mm, nm = pmesh.view_globals(built, positions, 0)
-        n_active = fm.render_frame(
-            dataclasses.replace(plan, ssr_cap=WIDTH * HEIGHT), batch,
-            pmesh.batched_globals(gs), histories(B), mm, nm)[0].ssr_active
-        plan = dataclasses.replace(plan,
-                                   ssr_cap=ssr_cap_for(n_active.max()))
-        log(f"[batched {name}] reflective pixels per view "
-            f"{n_active.tolist()}; FramePlan.ssr_cap = {plan.ssr_cap}")
     step = pmesh.make_batched_render_fn(plan)
 
     if name.startswith("terrain"):
@@ -1379,8 +1424,10 @@ def batched_phase(name, dev, card, results):
     elif not name.startswith("terrain"):
         check(not plan.shadow_statically_empty
               and plan.shadow_crop is not None
-              and sorted(path) == NOISE_PATH,
-              f"{name}: the shadow paid through its crop, all six kernels")
+              and sorted(path) == sorted(
+                  NOISE_PATH + (SSR if name == "atrium_passes" else [])),
+              f"{name}: the shadow paid through its crop, all six kernels"
+              f" (and K8 in atrium_passes)")
 
     # BATCH_FRAMES consecutive batched frames, the launch counts around them
     hb = histories(B)
@@ -1723,12 +1770,6 @@ def sharded_phase(dev, card, results):
     # SSR, DoF and per-band volumetric term on the split frame
     built = build_scene("atrium_passes", dev)
     plan = built.plan
-    g, mm, nm = built.frame_globals(0, peek=True)
-    n_active = fm.render_frame(
-        dataclasses.replace(plan, ssr_cap=WIDTH * HEIGHT), built.batch, g,
-        fm.RenderHistory.create(plan.config, device=dev), mm,
-        nm)[0].ssr_active
-    plan = dataclasses.replace(plan, ssr_cap=ssr_cap_for(n_active))
     splan = dataclasses.replace(plan, shard_mesh=mesh, shard_axis="sp")
     hs = hu = fm.RenderHistory.create(plan.config, device=dev)
     per_frame_p, worst_p = [], {}
@@ -1761,8 +1802,9 @@ def sharded_phase(dev, card, results):
         f"frame {per_frame_p}; against the unsplit frames, max abs: "
         + ", ".join(f"{k} {v:.3g}" for k, v in worst_p.items())
         + f" (<= 1e-6) {card}")
-    check(all(c == want for c in per_frame_p),
-          "atrium_passes split: launches once per band")
+    # K8 once a frame: SSR runs on the gathered screen
+    check(all(c == dict(want, ssr_march=1) for c in per_frame_p),
+          "atrium_passes split: launches once per band, K8 once")
     check(max(worst_p.values()) <= 1e-6,
           "split atrium_passes equals unsplit")
     del built, so, uo, hs, hu
@@ -2253,7 +2295,8 @@ def viewer_phase(dev, card, results):
     check(summed == counts, f"every launch came from a frame: {summed} "
           f"vs {counts}")
     check(all(d == {k: 0 if k == "sky_lut_procedural" or k in STANDALONE
-                    or k in LIT or (k == "resolve_depth" and elided) else 1
+                    or k in LIT + SSR or (k == "resolve_depth" and elided)
+                    else 1
                     for k in counts} for elided, d in per_frame),
           "each frame launched its path's kernels once")
     k4_before = sum(d["resolve_depth"] for _, d in per_frame[:k5])
@@ -2518,7 +2561,8 @@ def bench_phase(card):
     from soc_real_time_renderer_tpu_torch.kernels import build as kb
     from soc_real_time_renderer_tpu_torch.tools import bench, \
         bench_baselines, bench_toggle
-    every = set(NOISE_PATH)      # the synthetic tree's noise: K6, not K6p
+    # the synthetic tree's noise: K6, not K6p; config 7's SSR: K8
+    every = set(NOISE_PATH + SSR)
     line = bench.main([], {"BENCH_SCENE": "sponza", "BENCH_WIDTH": "1280",
                            "BENCH_HEIGHT": "736",
                            "BENCH_FRAMES": str(BENCH_FRAMES)})
@@ -2539,7 +2583,7 @@ def bench_phase(card):
           and not any(o for r in rows for o in r["overflow"])
           and not any(r["syncs"] for r in rows),
           "bench_baselines: seven rows, each kernel of a row's path once "
-          "a frame and no other, all six kernels over the table, no "
+          "a frame and no other, all seven kernels over the table, no "
           "overflow, no call in a timed loop waited for the card")
     toggles = bench_toggle.main(["--config", str(TOGGLE_CONFIG),
                                  "--frames", str(TABLE_FRAMES)])
@@ -2592,8 +2636,8 @@ def main():
         t0 = time.perf_counter()
         frames[name] = scene_phase(name, dev, card, results)
         seconds[name] = time.perf_counter() - t0
-    check(sorted(results) == sorted(KERNELS),
-          f"every kernel ran on some scene: {sorted(results)}")
+    check(sorted(results) == sorted(k for k in KERNELS if k not in SSR),
+          f"every kernel but K8 ran on some scene: {sorted(results)}")
     # the passes that are off by default
     pass_ms = {}
     for name, phase in (("atrium_passes", passes_phase),
@@ -2677,8 +2721,8 @@ def main():
                                     "launch_device_ms")},
             "by_scene": results[name]})
     kernels.extend(tex_kernels)
-    check(len(kernels) == 11, "the JSON lists all eight TPU kernels' "
-          "counterparts, K6p, K3f and K7")
+    check(len(kernels) == 12, "the JSON lists all eight TPU kernels' "
+          "counterparts, K6p, K3f, K7 and K8")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,8 @@ against the default (K4's region of 32x8 pixels against its default
         --other-flags=-DSOC_K4_TILES=1
 
 Per scene (``chip_smoke``'s builds at 1920x1088) and kernel (default
-K1, K4, K6 and K2; any of the six by name): the kernel's case from
+K1, K4, K6 and K2; any kernel of the scene's path by name, K8 on
+``atrium_passes``): the kernel's case from
 ``chip_smoke.kernel_cases`` on the frame's own inputs, each build
 compared with the plain version there (``chip_smoke``'s tolerances) and
 timed by ``utils/metrics.device_ms`` (median of 20 calls, L2 evicted before
@@ -71,12 +72,13 @@ def other_library(csrc, flags=()):
     for ln in report.splitlines():
         if "registers" in ln or "Compiling entry" in ln:
             cs.log(f"  other build, ptxas: {ln.strip()}")
-    # an older tree lacks K5's variants, K6p, the fused TAA resolve and
-    # the local lights (none is A/B'd here)
+    # an older tree lacks K5's variants, K6p, the fused TAA resolve, the
+    # local lights and the SSR march: its library loads without them
     return kb.load(lib, optional={"texsample_variant_launch",
                                   "sky_lut_procedural_launch",
                                   "taa_resolve_launch",
-                                  "local_lights_launch"})
+                                  "local_lights_launch",
+                                  "ssr_march_launch"})
 
 
 def only_bin(starts, b):

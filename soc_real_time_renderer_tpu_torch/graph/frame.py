@@ -4,7 +4,7 @@ history')``, counterpart of the JAX package's ``graph/frame.py``.
 Pass order matches the reference graph:
 
   raster (visibility, K1; sun shadow, K4) -> HiZ -> G-buffer (K5) ->
-  bloom -> SSAO (K2) + blur -> [SSR] -> sky LUT (K6 or K6p) + lookup, or
+  bloom -> SSAO (K2) + blur -> [SSR (K8)] -> sky LUT (K6 or K6p) + lookup, or
   the per-pixel cloud march -> composition [+ volumetric light] -> [SSR mix]
   -> [depth of field] -> exposure -> TAA (K3f) -> tone mapping
 
@@ -18,12 +18,12 @@ shadow view's depth resolve, unless the build proved the map empty), K5
 (the material tap), K2 (SSAO taps), K6 (the sky LUT over the
 cloud-noise texture) or K6p (the sky LUT over the procedural value
 noise, where there is no texture), K7 (composition's point and spot
-lights, where the plan binds any) and K3f (the TAA resolve, K3's
-history fetch fused with its 3x3 neighbourhood and blend).  The
-bracketed passes are off by default (``RenderConfig.enable_ssr``,
-``composite_ssr``, ``enable_depth_of_field``,
-``enable_volumetric_light``, ``cloud_impl="perpixel"``) and run as
-plain PyTorch.
+lights, where the plan binds any), K8 (the SSR march, where
+``enable_ssr``) and K3f (the TAA resolve, K3's history fetch fused with
+its 3x3 neighbourhood and blend).  The bracketed passes are off by
+default (``RenderConfig.enable_ssr``, ``composite_ssr``,
+``enable_depth_of_field``, ``enable_volumetric_light``,
+``cloud_impl="perpixel"``); but for K8 they run as plain PyTorch.
 
 Views: ``render_frame`` also renders B views of one scene at once
 (``parallel/mesh.py``), given globals and history whose every leaf has a
@@ -380,7 +380,7 @@ def _shade(plan, batch, g, history, vis, records, shadow_map, overflow,
         if cfg.enable_ssr:
             ssr_img, ssr_overflow, ssr_active = ssr_ops.ssr(
                 vis.depth, gbuf.albedo, gbuf.normal, gbuf.metallic_roughness,
-                g, compact_cap=plan.ssr_cap)
+                g, compact_cap=plan.ssr_cap, impl=impl)
             overflow = overflow | ssr_overflow
 
     clouds_full = None
@@ -540,7 +540,7 @@ def _shade_sharded(plan, batch, g, history, vis, records, shadow_map,
             ssr_img, ssr_overflow, ssr_active = ssr_ops.ssr(
                 depth_full[lead], whole(gbuf.albedo), whole(gbuf.normal),
                 whole(gbuf.metallic_roughness), gs[lead],
-                compact_cap=plan.ssr_cap)
+                compact_cap=plan.ssr_cap, impl=impl)
             overflow = overflow | ssr_overflow
 
     clouds_full = [None] * len(devices)

@@ -47,7 +47,8 @@ NVCC_FLAGS = [*ARCH, "-O3", "-std=c++17", "--fmad=false", "-Xptxas", "-v",
 # launch counts per kernel: each wrapper adds one where it launches
 launches = {"resolve": 0, "resolve_depth": 0, "texsample": 0,
             "ssao_taps": 0, "sky_lut": 0, "sky_lut_procedural": 0,
-            "taa_reproject": 0, "taa_resolve": 0, "local_lights": 0}
+            "taa_reproject": 0, "taa_resolve": 0, "local_lights": 0,
+            "ssr_march": 0}
 # launches of K5's variants (ops/texsample.VARIANTS, the texture-tap
 # benches), by variant: apart from `launches`, whose kernels are the
 # frame's
@@ -94,6 +95,12 @@ _SIGNATURES = {
     # the lights' view stride (0 or 1 set), the channel and view strides
     # of albedo, normal and position, stream
     "local_lights_launch": [_P] * 16 + [_I] * 11 + [_P],
+    # depth, albedo, normal, metallic-roughness, projection, inverse
+    # projection, view, rank (or null), count (or null), overflow (or
+    # null), out, H, W, views, cap, the matrices' view stride (0 or 16),
+    # depth's view stride, the channel and view strides of albedo, normal
+    # and metallic-roughness, stream
+    "ssr_march_launch": [_P] * 11 + [_I] * 12 + [_P],
 }
 
 

@@ -233,6 +233,23 @@ def build_atrium(texture_dir: str | None = None, target_tris: int = 260_000,
     return model_from_groups(groups, materials, images=images)
 
 
+def metal_tile_image(seed: int = 5, size: int = 64) -> np.ndarray:
+    """(size, size, 4) uint8 metallic-roughness image of 8 x 8-texel
+    tiles from `seed` (glTF channels: G roughness, B metallic): each
+    tile's roughness in [0.1, 0.5], its metallic ~0.9, with a quarter of
+    the tiles dielectric (metallic 0).  The ``full_ssr`` preset's floor."""
+    rng = np.random.default_rng(seed)
+    tiles = size // 8
+    rough = rng.integers(25, 128, (tiles, tiles))
+    metal = np.where(rng.random((tiles, tiles)) < 0.25, 0,
+                     rng.integers(215, 256, (tiles, tiles)))
+    img = np.zeros((size, size, 4), np.uint8)
+    img[..., 1] = np.kron(rough, np.ones((8, 8), np.int64))
+    img[..., 2] = np.kron(metal, np.ones((8, 8), np.int64))
+    img[..., 3] = 255
+    return img
+
+
 def unit_quad(z: float = -1.0, size: float = 0.5) -> ModelData:
     """Two-triangle quad facing the +z viewer (tests)."""
     s = size

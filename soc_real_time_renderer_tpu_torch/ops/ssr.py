@@ -7,8 +7,12 @@ pass the albedo through; misses are black (the shader's albedo fallback
 is dead code).  The march compares |view z|; the result is computed but
 composited only behind ``RenderConfig.composite_ssr``.
 
-The divergent loop is a masked state machine over ray bundles, 50
-dependent steps of plain PyTorch.  ``compact_cap > 0`` marches only the
+On the card the march is K8 (``kernels/csrc/ssr.cu``, one thread a
+pixel, each ray returning at its hit); on the CPU, or with
+``impl="plain"``, its plain version (:func:`_ssr_plain`), in which the
+divergent loop is a masked state machine over ray bundles, 50
+dependent steps of plain PyTorch.  Both count ``ssr_pixels``
+(``utils/trace``).  ``compact_cap > 0`` marches only the
 first ``compact_cap`` reflective pixels in row-major order (each ray
 depends on its own pixel alone, so the result equals the dense march
 bit for bit); pixels past the cap are black and flagged
@@ -24,7 +28,8 @@ import torch
 
 from . import sampling
 from .composition import view_from_depth
-from ..utils import views
+from ..kernels import build as kb
+from ..utils import trace, views
 from ..utils.vec import dot3, normalize3
 
 RAY_STEP = 0.5
@@ -94,7 +99,8 @@ def _march(pos, n_view, depth, gp, nv: int):
     return found, hit_uv
 
 
-def ssr(depth, albedo, normal, metallic_roughness, g, compact_cap: int = 0):
+def ssr(depth, albedo, normal, metallic_roughness, g, compact_cap: int = 0,
+        impl: str | None = None):
     """depth: (*V, H, W); albedo / normal: (*V, 3, H, W);
     metallic_roughness: (*V, 2, H, W) (R = roughness, G = metallic); g
     one frame's globals, or batched ones for a leading view axis (*V).
@@ -108,7 +114,23 @@ def ssr(depth, albedo, normal, metallic_roughness, g, compact_cap: int = 0):
     the dense march of every pixel, the same output, n_active -1 and no
     flag.  A batch of views is one march: every operation is elementwise
     or a gather from the ray's own view, so each view equals its
-    single-view call bit for bit."""
+    single-view call bit for bit.
+
+    K8 for CUDA tensors, :func:`_ssr_plain` for CPU tensors (or
+    impl="plain"); no fallback.  Counts ``ssr_pixels``, the pixels x
+    views marched or passed through, from the shapes (no read-back)."""
+    trace.counters["ssr_pixels"] += depth.numel()
+    if kb.choose(impl, depth, albedo, normal, metallic_roughness) == "plain":
+        return _ssr_plain(depth, albedo, normal, metallic_roughness, g,
+                          compact_cap)
+    return _ssr_cuda(depth, albedo, normal, metallic_roughness, g,
+                     compact_cap)
+
+
+def _ssr_plain(depth, albedo, normal, metallic_roughness, g,
+               compact_cap: int):
+    """K8's plain version: :func:`ssr` as masked ray bundles of plain
+    PyTorch, the dense march or the compaction by a stable sort."""
     V = depth.shape[:-2]
     nv = len(V)
     H, W = depth.shape[-2:]
@@ -165,5 +187,62 @@ def ssr(depth, albedo, normal, metallic_roughness, g, compact_cap: int = 0):
     # a dielectric filler keeps the albedo it already holds
     out.scatter_(-1, idx[None].expand(res.shape),
                  torch.where(live[None], res, gather(out)))
+    return (views.from_planar(out.reshape(3, *V, H, W), nv), overflow,
+            n_active)
+
+
+def _ssr_cuda(depth, albedo, normal, metallic_roughness, g, compact_cap: int):
+    """K8 on (*V, ...) targets, each of any channel and view strides
+    (each H x W plane dense), against the camera's matrices of the
+    globals; 0 < compact_cap < H * W ranks the reflective pixels by an
+    inclusive prefix sum of each view's mask first (``torch.cumsum``).
+    Returns :func:`ssr`'s (image, overflow, n_active)."""
+    lib = kb.library()
+    V = depth.shape[:-2]
+    nv = len(V)
+    H, W = depth.shape[-2:]
+    P = H * W
+    dev = depth.device
+    cam = g.camera
+    mats = [m.contiguous() for m in (cam.projection, cam.inv_projection,
+                                     cam.view)]
+    planes = [x if x.stride(-1) == 1 and x.stride(-2) == W
+              else x.contiguous()
+              for x in (depth, albedo, normal, metallic_roughness)]
+    shapes = [(*V, H, W), (*V, 3, H, W), (*V, 3, H, W), (*V, 2, H, W)]
+    if nv != g.frame_counter.dim() or nv > 1 \
+            or any(tuple(x.shape) != s or x.dtype != torch.float32
+                   or x.device != dev for x, s in zip(planes, shapes)) \
+            or any(tuple(m.shape) != (*V, 4, 4) or m.device != dev
+                   or m.dtype != torch.float32 for m in mats):
+        raise ValueError(f"ssr: {[tuple(x.shape) for x in planes]} targets "
+                         f"against {[tuple(m.shape) for m in mats]} "
+                         f"matrices")
+    strides = [planes[0].stride(0) if V else 0]
+    for x in planes[1:]:
+        strides += [x.stride(-3), x.stride(0) if V else 0]
+    if max(strides) >= 2 ** 31 or 3 * depth.numel() >= 2 ** 31:
+        raise ValueError(f"ssr: {tuple(depth.shape)} targets are past the "
+                         f"kernel's int strides")
+    rank = None
+    if compact_cap > 0:
+        if compact_cap < P:
+            rank = (planes[3][..., 1, :, :] >= METALLIC_MIN).reshape(
+                *V, P).cumsum(-1, dtype=torch.int32)
+        flags = torch.zeros((2, *V), dtype=torch.int32, device=dev)
+        n_active, overflow = flags[0], flags[1]
+        counts = (n_active.data_ptr(), overflow.data_ptr())
+    else:
+        overflow = torch.zeros(V, dtype=torch.int32, device=dev)
+        n_active = torch.full(V, -1, dtype=torch.int32, device=dev)
+        counts = (None, None)
+    out = torch.empty((3, *V, P), dtype=torch.float32, device=dev)
+    code = lib.ssr_march_launch(
+        *(x.data_ptr() for x in planes), *(m.data_ptr() for m in mats),
+        None if rank is None else rank.data_ptr(), *counts, out.data_ptr(),
+        H, W, V[0] if V else 1, min(max(compact_cap, 0), P),
+        16 if V else 0, *strides, kb.stream_ptr(depth))
+    kb.check(code, "ssr_march")
+    kb.launches["ssr_march"] += 1
     return (views.from_planar(out.reshape(3, *V, H, W), nv), overflow,
             n_active)

@@ -14,10 +14,11 @@ transforms.  It also reads the cloud-noise texture
 The presets (:func:`build`): ``helmet``, ``helmet_lifted``, ``sponza``,
 ``terrain`` and ``full`` (BASELINE configs 1-6), ``sponza_lifted``
 (``sponza`` inside the sun's volume, animated: the paid 4096^2 shadow
-view through its proved crop) and ``full_lit`` (``full`` with the
+view through its proved crop), ``full_lit`` (``full`` with the
 globals' 128 point and 128 spot light slots filled, laid out by
-:func:`full_lit_lights`).  All but ``terrain`` read the asset
-tree under ``ASSETS`` (``SOC_ASSETS``):
+:func:`full_lit_lights`) and ``full_ssr`` (``full`` whose atrium floor
+is polished metal and stone tiles, with a screen-sized SSR cap).  All
+but ``terrain`` read the asset tree under ``ASSETS`` (``SOC_ASSETS``):
 ``DamagedHelmet/glTF/DamagedHelmet.gltf`` and, for the atrium's
 materials, ``Sponza/glTF``; a missing helmet raises
 ``FileNotFoundError`` naming the file.  ``terrain`` takes
@@ -65,6 +66,8 @@ class BuiltScene:
     device: torch.device
     animate: bool = False
     sun: SunInfo | None = None    # None: the default sun
+    ssr_cap: int | None = None    # the build's SSR cap (None: _finish's
+    #                               5% rule), which a full rebuild keeps
 
     # FramePlan fields the viewer may set after the build, which a full
     # rebuild keeps: of the JAX package's list, the fields the port's
@@ -147,7 +150,8 @@ class BuiltScene:
                          camera_pos=self.camera_position,
                          camera_target=self.camera_target,
                          animate=self.animate, atlas_size=old.atlas_size,
-                         sun=self.sun, device=self.device)
+                         sun=self.sun, ssr_cap=self.ssr_cap,
+                         device=self.device)
             self.batch = nb.batch
             self._proof_pos = self._proof_ent = None
             self.plan = dataclasses.replace(
@@ -325,10 +329,13 @@ def _with_proof(plan, pos, ent, model_mats, sun: SunInfo | None):
 
 def _finish(scene: Scene, models, config: RenderConfig, camera_pos,
             camera_target, animate: bool = False, atlas_size: int = 1024,
-            sun: SunInfo | None = None, device=None) -> BuiltScene:
+            sun: SunInfo | None = None, ssr_cap: int | None = None,
+            device=None) -> BuiltScene:
     """Pack `models` (one per mesh entity of `scene`, creation order)
-    and prove the plan — the JAX package's scenes._finish.  `device`:
-    default the CUDA card (raises without one unless "cpu")."""
+    and prove the plan — the JAX package's scenes._finish.  ssr_cap:
+    FramePlan.ssr_cap where enable_ssr; None sizes it as the JAX package
+    does.  `device`: default the CUDA card (raises without one unless
+    "cpu")."""
     device = resolve_device(device)
     lights = scene.update(0.0)
     config = config.replace(max_point_lights=int(lights.point_count),
@@ -355,19 +362,20 @@ def _finish(scene: Scene, models, config: RenderConfig, camera_pos,
         plan = _with_proof(plan, batch.tri_pos.cpu().numpy(),
                            batch.tri_entity.cpu().numpy(), mm, sun)
         if config.enable_ssr:
-            # the SSR march runs on (cap,)-shaped arrays: 5% of the
-            # screen, rounded up to 1,024 (the JAX package's sizing); past
-            # it, OVERFLOW_SSR_CAP is set and the rays over the cap go
-            # black
-            scap = -(-int(0.05 * config.width * config.height)
-                     // 1024) * 1024
+            # the SSR march takes the first `ssr_cap` reflective pixels:
+            # by default 5% of the screen, rounded up to 1,024 (the JAX
+            # package's sizing); past it, OVERFLOW_SSR_CAP is set and the
+            # rays over the cap go black
+            scap = ssr_cap if ssr_cap is not None else -(
+                -int(0.05 * config.width * config.height) // 1024) * 1024
             plan = dataclasses.replace(plan, ssr_cap=scap)
     cam = Camera3D()
     cam.resize(config.width, config.height)
     bs = BuiltScene(scene=scene, batch=batch, plan=plan, camera=cam,
                     camera_position=np.asarray(camera_pos, np.float32),
                     camera_target=np.asarray(camera_target, np.float32),
-                    device=device, animate=animate, sun=sun)
+                    device=device, animate=animate, sun=sun,
+                    ssr_cap=ssr_cap)
     bs._models = list(models)        # the models packed (strong refs)
     return bs
 
@@ -603,15 +611,45 @@ def build_full_lit(config: RenderConfig, device=None, **kw) -> BuiltScene:
                    **kw)
 
 
+def polish_floor(atrium) -> None:
+    """Make the floor of ``proc.build_atrium``'s model (material 0)
+    polished tiles, in place: it keeps its albedo and normal maps and
+    takes ``proc.metal_tile_image`` as its metallic-roughness map (8 x
+    8-texel tiles, roughness 0.1-0.5, metallic ~0.9, a quarter of the
+    tiles dielectric stone), appended to the model's images and packed
+    into the atlas as any material map is."""
+    atrium.images = [*atrium.images, proc.metal_tile_image()]
+    atrium.materials[0] = dataclasses.replace(
+        atrium.materials[0],
+        metallic_roughness_image=len(atrium.images) - 1)
+
+
+def build_full_ssr(config: RenderConfig, device=None, **kw) -> BuiltScene:
+    """The reflective atrium: ``full``'s entities and animated camera with
+    the atrium's floor polished (:func:`polish_floor`).  The floor can
+    fill any share of the screen, so the SSR cap is the screen's pixel
+    count: no reflective pixel is dropped and OVERFLOW_SSR_CAP cannot be
+    set."""
+    device = resolve_device(device)
+    scene, models = _full_scene("full_ssr")
+    polish_floor(models[0])
+    kw.setdefault("ssr_cap", config.width * config.height)
+    return _finish(scene, models, config, camera_pos=[-7.0, 1.8, 0.0],
+                   camera_target=[0, 1.5, 0], animate=True, device=device,
+                   **kw)
+
+
 PRESETS = {"helmet": build_helmet, "helmet_lifted": build_helmet_lifted,
            "sponza": build_sponza, "sponza_lifted": build_sponza_lifted,
            "terrain": build_terrain, "full": build_full,
-           "full_lit": build_full_lit}
+           "full_lit": build_full_lit, "full_ssr": build_full_ssr}
 
 
 def build(name: str, config: RenderConfig, device=None, **kw) -> BuiltScene:
-    """The preset `name` (one of PRESETS); kw passes through to _finish
-    (atlas_size, sun)."""
+    """The preset `name` (one of PRESETS: ``helmet``, ``helmet_lifted``,
+    ``sponza``, ``sponza_lifted``, ``terrain``, ``full``, ``full_lit``,
+    ``full_ssr``); kw passes through to _finish (atlas_size, sun,
+    ssr_cap)."""
     if name not in PRESETS:
         raise ValueError(name)
     with trace.span("scenes.build"):

@@ -118,6 +118,8 @@ def kernel_path(plan, batch) -> list[str]:
         path.append("resolve_depth")
     if cfg.max_point_lights or cfg.max_spot_lights:
         path.append("local_lights")
+    if cfg.enable_ssr:
+        path.append("ssr_march")
     noise = batch.cloud_noise is not None
     if cfg.enable_clouds and not (cfg.cloud_impl == "perpixel" and noise):
         texture = cfg.cloud_noise_mode == "texture" and noise

@@ -45,6 +45,9 @@ as ``kernels/build.launches`` counts the hand kernels' launches:
   ``max_spot_lights`` x pixels x views, and the pixels x views they are
   shaded on.  From the plan, no read-back;
   nothing where both bounds are 0.
+- ``ssr_pixels``: the pixels x views of each screen-space reflection
+  march (span ``shade.ssr``, K8), reflective or not, from the targets'
+  shapes, no read-back; nothing where ``enable_ssr`` is off.
 
 :func:`snapshot` returns the totals, the counters and the kernel
 launches together; :func:`profiled` returns the same for the latest

@@ -1,9 +1,9 @@
 """The CUDA kernels (K1 resolve, K2 SSAO taps, K3 TAA reprojection, K3f
 the fused TAA resolve, K4 shadow depth resolve, K5 texture tap, K6 noise
-sky LUT, K6p procedural sky LUT, K7 local lights) against their plain
-PyTorch versions on the card, at small sizes (K7 at the lit atrium's
-1920x1088), and small frames of the terrain and of the two multi-entity
-scenes through both paths.
+sky LUT, K6p procedural sky LUT, K7 local lights, K8 the SSR march)
+against their plain PyTorch versions on the card, at small sizes (K7 at
+the lit atrium's 1920x1088), and small frames of the terrain and of the
+two multi-entity scenes through both paths.
 Marked ``cuda``: they skip where ``torch.cuda.is_available()`` is false
 (this file imports no jax, so it also runs where only PyTorch is
 installed):
@@ -39,11 +39,12 @@ from soc_real_time_renderer_tpu_torch.scene.scene import Scene
 
 pytestmark = pytest.mark.cuda
 
-# the kernels no frame of a scene with the cloud-noise texture and no
-# light launches: K6p (the procedural LUT), K3 alone (the frame's TAA is
-# the fused resolve, taa_resolve, whose fetch is K3's) and K7 (the local
-# lights)
-OFF_FRAME = ("sky_lut_procedural", "taa_reproject", "local_lights")
+# the kernels no frame of a scene with the cloud-noise texture, no light
+# and SSR off launches: K6p (the procedural LUT), K3 alone (the frame's
+# TAA is the fused resolve, taa_resolve, whose fetch is K3's), K7 (the
+# local lights) and K8 (the SSR march)
+OFF_FRAME = ("sky_lut_procedural", "taa_reproject", "local_lights",
+             "ssr_march")
 
 
 @pytest.fixture
@@ -461,7 +462,8 @@ def test_small_frame_kernel_path_matches_plain(dev):
     assert kb.launches == {"resolve": 3, "resolve_depth": 0, "texsample": 3,
                            "ssao_taps": 3, "sky_lut": 0,
                            "sky_lut_procedural": 3, "taa_reproject": 0,
-                           "taa_resolve": 3, "local_lights": 0}
+                           "taa_resolve": 3, "local_lights": 0,
+                           "ssr_march": 0}
     assert not kb.variant_launches
     assert torch.isfinite(ok.color).all()
     assert (ok.color - op.color).abs().max().item() < 1e-5
@@ -885,7 +887,7 @@ def test_small_scene_kernel_path_matches_plain(dev, name):
     torch.cuda.synchronize()
     want = {"resolve": 3, "texsample": 3, "ssao_taps": 3, "sky_lut": 3,
             "sky_lut_procedural": 0, "taa_reproject": 0,
-            "taa_resolve": 3, "local_lights": 0,
+            "taa_resolve": 3, "local_lights": 0, "ssr_march": 0,
             "resolve_depth": 0 if name == "full_nohelmet" else 3}
     assert kb.launches == want
     assert torch.isfinite(ok.color).all()
@@ -898,8 +900,8 @@ def test_passes_scene_on_the_card(dev):
     512^2 map) through the kernels: all six launch on every frame, the
     colour equals the plain path's within 1e-5, the compacted SSR target
     equals the dense one bit for bit, and a cap at half of the
-    reflective pixels sets bit 16.  K6p never launches (the scene has
-    the noise texture)."""
+    reflective pixels sets bit 16.  K8 launches once a frame; K6p never
+    (the scene has the noise texture)."""
     cfg = RenderConfig(width=256, height=128, shadow_resolution=512,
                        enable_ssr=True, composite_ssr=True,
                        enable_depth_of_field=True,
@@ -924,8 +926,8 @@ def test_passes_scene_on_the_card(dev):
             assert torch.equal(ok.ssr, dense.ssr)
             assert torch.equal(ok.color, dense.color)
     torch.cuda.synchronize()
-    assert kb.launches == {k: (0 if k in OFF_FRAME else 2)
-                           for k in kb.launches}
+    assert kb.launches == {k: (0 if k in OFF_FRAME and k != "ssr_march"
+                               else 2) for k in kb.launches}
     assert torch.isfinite(ok.color).all()
     assert (ok.color - op.color).abs().max().item() < 1e-5
     g, mm, nm = built.frame_globals(0, peek=True)
@@ -1261,24 +1263,77 @@ def test_batched_passes_equal_single_views(dev):
 def test_ssr_launches_do_not_grow_with_the_views(dev):
     """The SSR pass of 4 views issues at most 1.25 times the CUDA
     kernels of one view's (counted with torch.profiler): one call for
-    the batch, not one per view."""
+    the batch, not one per view.  Through K8 both issue the same few
+    kernels (the counts' zeroing and K8); the plain version over a
+    thousand."""
     import chip_smoke
     _, gs, gb, out = _batched_pass_frame(dev, "atrium_passes", 4)
     gbuf = out.gbuffer
     cap = 256 * 128
 
-    def one():
+    def one(impl):
         ssr.ssr(gbuf.depth[0], gbuf.albedo[0], gbuf.normal[0],
-                gbuf.metallic_roughness[0], gs[0], compact_cap=cap)
+                gbuf.metallic_roughness[0], gs[0], compact_cap=cap,
+                impl=impl)
 
-    def four():
+    def four(impl):
         ssr.ssr(gbuf.depth, gbuf.albedo, gbuf.normal,
-                gbuf.metallic_roughness, gb, compact_cap=cap)
+                gbuf.metallic_roughness, gb, compact_cap=cap, impl=impl)
 
-    one()
-    four()
-    k1, k4 = chip_smoke.cuda_kernels(one), chip_smoke.cuda_kernels(four)
-    assert 1000 < k1 and k4 <= 1.25 * k1, (k1, k4)
+    for impl in ("plain", None):
+        one(impl)
+        four(impl)
+        k1 = chip_smoke.cuda_kernels(lambda: one(impl))
+        k4 = chip_smoke.cuda_kernels(lambda: four(impl))
+        if impl == "plain":
+            assert 1000 < k1 and k4 <= 1.25 * k1, (k1, k4)
+        else:
+            assert k1 == k4 <= 3, (k1, k4)
+
+
+@pytest.mark.parametrize("cap", ["dense", "over", "half", "screen"])
+def test_ssr_kernel_matches_plain(dev, cap):
+    """K8 against ops/ssr.ssr's plain version on the G-buffer of the
+    reduced atrium_passes at 256x128, bit for bit in the image, the
+    overflow and the count: the dense march (cap 0), a cap of n + 100
+    and of n // 2 over the view's n reflective pixels (bit 16, the same
+    count), and the screen's cap (no prefix sum); on one view, and on a
+    two-view step, whose every view equals its single-view call.  One
+    launch a call."""
+    _, gs, gb, out = _batched_pass_frame(dev, "atrium_passes", 2)
+    gbuf = out.gbuffer
+    targets = (gbuf.depth, gbuf.albedo, gbuf.normal,
+               gbuf.metallic_roughness)
+    n = [int(mr[1].ge(ssr.METALLIC_MIN).sum())
+         for mr in gbuf.metallic_roughness]
+    assert min(n) > 0.01 * 256 * 128 and n[0] != n[1], n
+
+    def capped(k):
+        return {"dense": 0, "over": k + 100, "half": k // 2,
+                "screen": 256 * 128}[cap]
+
+    def both(args, g, c):
+        n0 = kb.launches["ssr_march"]
+        got = ssr.ssr(*args, g, compact_cap=c)
+        assert kb.launches["ssr_march"] == n0 + 1
+        want = ssr.ssr(*args, g, compact_cap=c, impl="plain")
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            assert torch.equal(a, b)
+        return got
+
+    singles = [both([t[i] for t in targets], gs[i], capped(n[i]))
+               for i in range(2)]
+    for i, (_, overflow, active) in enumerate(singles):
+        want = -1 if cap == "dense" else n[i]
+        assert int(active) == want
+        assert int(overflow) == (ssr.OVERFLOW_SSR_CAP if cap == "half"
+                                 else 0)
+    step = both(targets, gb, capped(max(n)))
+    _equal_views(step, [ssr.ssr(*[t[i] for t in targets], gs[i],
+                                compact_cap=capped(max(n)))
+                        for i in range(2)])
 
 
 # --- the row split of one frame (parallel/halo.py, parallel/mesh.py) -------
@@ -1386,7 +1441,8 @@ def test_sharded_frame_on_one_card(dev):
                                "texsample": 4, "ssao_taps": 4, "sky_lut": 1,
                                "sky_lut_procedural": 0,
                                "taa_reproject": 0,
-                               "taa_resolve": 4, "local_lights": 0}, \
+                               "taa_resolve": 4, "local_lights": 0,
+                               "ssr_march": 0}, \
             kb.launches
         want, hu = fm.render_frame(built.plan, built.batch, g, hu, mm, nm)
         assert [b.shape for b in out.color] == [(3, 32, 256)] * 4

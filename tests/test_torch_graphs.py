@@ -9,7 +9,8 @@ pass, a replay that does nothing) the seams capture their passes once,
 in frame order, hand back copies and count what they replay.
 
 On the card (marker ``cuda``, skipped without one; this file imports no
-jax): ``full``, ``terrain`` and ``sponza_lifted`` from a small synthetic
+jax): ``full``, ``terrain``, ``sponza_lifted``, ``full_lit`` and
+``full_ssr`` (K8 replayed) from a small synthetic
 tree, each on the benchmark's traffic for it, through the render
 function against ``render_frame`` at max abs 0, with the counters; a
 frame's returned tensors and the seams' returns (``tri_id``, the sky
@@ -264,7 +265,9 @@ def test_seams_under_stand_in_graphs(atrium, monkeypatch):
 
 PRESETS = {"full": ("orbit", {}), "terrain": ("fly", {}),
            "sponza_lifted": ("orbit", {"shadow_resolution": 1024}),
-           "full_lit": ("orbit", {})}
+           "full_lit": ("orbit", {}),
+           "full_ssr": ("orbit", {"enable_ssr": True,
+                                  "composite_ssr": True})}
 SEED = 2 ** 31 + 1717
 DT = 1.0 / 60.0
 

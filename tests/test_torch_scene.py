@@ -34,6 +34,7 @@ from soc_real_time_renderer_tpu_torch.models import proc as pproc
 from soc_real_time_renderer_tpu_torch.ops import composition as pcomp_ops
 from soc_real_time_renderer_tpu_torch.ops import raster2 as praster
 from soc_real_time_renderer_tpu_torch.ops import sky as psky
+from soc_real_time_renderer_tpu_torch.ops import ssr as pssr
 from soc_real_time_renderer_tpu_torch.ops import texsample as ptex
 from soc_real_time_renderer_tpu_torch.scene import components as pcomp
 from soc_real_time_renderer_tpu_torch.scene.scene import Scene as PScene
@@ -306,7 +307,7 @@ def test_port_and_chip_smoke_import_no_jax():
 
 def test_new_kernel_entries_refuse_cuda_on_cpu():
     """impl="cuda" on CPU tensors raises instead of running the plain
-    version, for each of K4, K5, K6 and K7."""
+    version, for each of K4, K5, K6, K7 and K8."""
     z = torch.zeros
     grid = praster.BinGrid(width=128, height=128, bin_size=128, group=1,
                            pair_cap=128)
@@ -325,3 +326,6 @@ def test_new_kernel_entries_refuse_cuda_on_cpu():
     with pytest.raises(ValueError):
         pcomp_ops._local_lights(g, z(3, 8), z(3, 8), z(3, 8), 1, 1,
                                 impl="cuda")
+    with pytest.raises(ValueError):
+        pssr.ssr(z(8, 8), z(3, 8, 8), z(3, 8, 8), z(2, 8, 8), g,
+                 compact_cap=64, impl="cuda")

@@ -71,18 +71,10 @@ PASS_SCENES = {
 
 def metal_image(seed=5, size=64):
     """(size, size, 4) uint8 metallic-roughness image (glTF channels:
-    G roughness, B metallic): blocky roughness in [0.1, 0.5], metallic
-    ~0.9 with a quarter of the blocks dielectric."""
-    rng = np.random.default_rng(seed)
-    blocks = size // 8
-    rough = rng.integers(25, 128, (blocks, blocks))
-    metal = np.where(rng.random((blocks, blocks)) < 0.25, 0,
-                     rng.integers(215, 256, (blocks, blocks)))
-    img = np.zeros((size, size, 4), np.uint8)
-    img[..., 1] = np.kron(rough, np.ones((8, 8), np.int64))
-    img[..., 2] = np.kron(metal, np.ones((8, 8), np.int64))
-    img[..., 3] = 255
-    return img
+    G roughness, B metallic): the port's tile map of the ``full_ssr``
+    floor (``proc.metal_tile_image``), roughness in [0.1, 0.5], metallic
+    ~0.9 with a quarter of the tiles dielectric."""
+    return pproc.metal_tile_image(seed, size)
 
 
 # the lifted atrium's column sliver under the default sun (clip space,
