@@ -2,32 +2,33 @@
 
     python3 chip_smoke.py
 
-Builds the ten hand-written CUDA kernels (and K5's variants) from
+Builds the eleven hand-written CUDA kernels (and K5's variants) from
 ``soc_real_time_renderer_tpu_torch/kernels/csrc`` (K1 bin resolve, K2
 SSAO taps, K3 TAA history fetch, K3f the whole TAA resolve around it,
 K4 shadow depth resolve, K5 material texture tap, K6 noise-texture sky
 LUT, K6p procedural sky LUT, K7 point and spot lights, K8 the SSR
-march), then
+march, K9 the whole G-buffer resolve, its tap K5's device code), then
 renders four scenes at 1920x1088 with every other RenderConfig default
 (4096^2 shadow map):
 
 * ``terrain``: ``scenes.build("terrain")``, BASELINE config 4.  Its
-  path runs K1, K2, K3f, K5 and K6p (the sun shadow is proved empty,
+  path runs K1, K2, K3f, K9 and K6p (the sun shadow is proved empty,
   there is no cloud noise, so the sky LUT is the procedural one).
 * ``full_nohelmet``: BASELINE config 5 without its helmet: the
   procedural atrium (five flat materials) at scale 0.01 plus the
   terrain at y = -8, animated camera, and a (64, 64) cloud-noise field
   made from a seed (the shape class of assets/Clouds/noise.png).  K1,
-  K2, K3f, K5, K6.
+  K2, K3f, K9, K6.
 * ``atrium_lifted``: BASELINE config 6 with the atrium in the helmet's
   place at y = 32, inside the sun's volume, so the 4096^2 shadow view
   is rastered and sampled through its proved crop; given the same
   noise field.  All six kernels of the noise path (every kernel but
-  K6p, K7 and K3 alone, whose fetch K3f does).
+  K6p, K7, K8, K3 alone, whose fetch K3f does, and K5 alone, whose tap
+  K9 does).
 * ``full_lit_nohelmet``: ``full_nohelmet`` with the ``full_lit``
   preset's 256 lights (``scenes.full_lit_lights`` through
   ``scenes.add_lights``), so ``_finish`` binds 128 point and 128 spot
-  lights and composition shades every pixel by each.  K1, K2, K3f, K5,
+  lights and composition shades every pixel by each.  K1, K2, K3f, K9,
   K6 and K7.
 
 Then the passes that are off by default, two frames each, same size:
@@ -44,7 +45,7 @@ Then the passes that are off by default, two frames each, same size:
   probes).
 * ``terrain_perpixel``: the terrain with the noise field and
   ``cloud_impl="perpixel"``: the exact cloud march at every half-res
-  pixel, no LUT.  K1, K5, K2, K3f and not K6.
+  pixel, no LUT.  K1, K9, K2, K3f and not K6.
 
 Then ``batched``: B = 4 views of one scene in one step
 (``parallel/mesh.make_batched_render_fn``: a leading view axis through
@@ -79,7 +80,7 @@ Then ``sharded``: one frame of ``atrium_lifted`` (all six kernels) cut
 into four row bands over a mesh that names the card four times
 (``parallel/mesh.make_mesh(4, dp=1, devices=["cuda:0"] * 4)``, the
 split plan's ``raster_stage`` and ``make_sharded_shade_fn``), two
-frames carrying history: K1 and K4 once per band of bin rows, K5, K2
+frames carrying history: K1 and K4 once per band of bin rows, K9, K2
 and K3f once per band of 272 rows, K6 once (one distinct device), the
 counts printed per frame; the assembled colour and history against the
 unsplit ``render_frame`` (max abs <= 1e-6, exposure <= 1e-7); every
@@ -115,8 +116,8 @@ per PNG filter type; Sponza's five materials as fifteen 1024^2 PNGs; a
   and ``helmet``.
 * ``texparts``: the texture-tap attribution path on ``full``'s build:
   the port's ``tools/capture_texfields.py`` (frame 1's tap fields, what
-  ``resolve_gbuffer`` hands K5), ``bench_texsample.py`` (K5 in each
-  filter mode, the plain gather, the G-buffer stage),
+  the plain ``resolve_gbuffer`` hands the tap), ``bench_texsample.py``
+  (K5 in each filter mode, the plain gather, the G-buffer stage: K9),
   ``bench_texkernel_parts.py`` and ``bench_texmm2.py`` (the K5 variants
   that stand for the JAX tools' two TPU kernels, 16 and 7 runs) in this
   process, each with the launch counts set to 0 before and read after;
@@ -143,12 +144,13 @@ per PNG filter type; Sponza's five materials as fifteen 1024^2 PNGs; a
   ``utils/metrics.GPUMetricPool`` table (``viewer_phase``).
 * ``bench``: the port's three measuring tools' mains in this process on
   the same tree: ``tools/bench.py`` on ``sponza`` at 1280x736, 32
-  frames (its JSON line: ``assets`` synthetic, K1, K5, K2, K6 and K3f 32
+  frames (its JSON line: ``assets`` synthetic, K1, K9, K2, K6 and K3f 32
   times each); ``tools/bench_baselines.py`` over the seven BASELINE
   configurations at 8 frames (each row's kernels once a frame, all six
   kernels over the table); ``tools/bench_toggle.py --config 5`` with
   every toggle it keeps, 8 frames a run (a median delta and its spread
-  for each, its kernel gone from the toggles that remove one).
+  for each, its kernel gone from the toggles that remove one; K9 on
+  ``tex_none``'s path, whose probe is a mode of it).
 
 The stage tables time ``raster_stage`` with the plan's grids and with
 ``BinGrid.large_cap`` 0 (binning without its third tier, the JAX
@@ -161,8 +163,8 @@ scenes: the build, the
 spread of each rastered view's pairs over its bins (mean and heaviest
 bin, the pairs wholly behind the camera), each kernel of its path
 against its plain PyTorch version on the frame's own inputs (K1, K3f,
-K4, K5, K6 and K7 bit for bit, and K3 alone on the fused resolve's fetch
-inputs), 8 frames through ``render_frame`` (launch counts
+K4, K9, K6 and K7 bit for bit, and K3 alone on the fused resolve's
+fetch inputs, K5 alone on the plain frame's tap inputs), 8 frames through ``render_frame`` (launch counts
 set to 0 just before, read just after: each kernel of the path launches
 once per frame, the others never), the kernel-path frame against the
 plain-path frame, frame times with CUDA events, kernel times per call
@@ -255,6 +257,12 @@ TAA_OPS_RESOLVE = 150  # the 3x3 pass (9 taps: 3 channels of min, max,
 #                        weighted add; the depth test), the clamp, the
 #                        blend and the disocclusion (length, lerp)
 TEX_OPS_CHANNEL = 10   # unpack 4 corners, bilinear blend, / 255
+GBUFFER_OPS_PIXEL = 370  # K9 a pixel but its tap: edges 20, uv and its
+#                        derivatives 44, position 66, normal 18, lod 11,
+#                        sRGB and masks 49, TBN (five normalize3) 121,
+#                        velocity 39
+GBUFFER_BYTES_PIXEL = 56  # tri_id read, 13 f32 target planes written
+GBUFFER_BYTES_TRIANGLE = 152  # the 38 live record rows of a visible one
 SKY_OPS_ATMOS = 3400   # atmosphere of one texel: 16 x (8 + 1) samples
 SKY_OPS_DENSITY = 250  # one cloud density: 4 octaves x 2 slices x 4 taps
 SKY_OPS_DENSITY_HASHED = 490   # one density over the value noise: 4
@@ -308,6 +316,12 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     # runs in ~9,600 launches a frame
     "ssr_march": (SRC + "ssr.cu",
                   "none (soc_real_time_renderer_tpu/ops/ssr.py ssr, XLA)"),
+    # replaces no TPU kernel: the JAX package resolves its G-buffer in XLA
+    # around the tap's Pallas kernel; added for the card's measurement
+    # (the plain resolve: ~3.6 device ms and 300-400 launches a view)
+    "gbuffer_resolve": (SRC + "gbuffer.cu",
+                        "none (soc_real_time_renderer_tpu/ops/gbuffer.py "
+                        "resolve_gbuffer, XLA around texsample.py:488)"),
 }
 # the scene whose inputs give each kernel's line in the JSON
 # the two TPU kernels that took K5 apart, as K5 variants on the card:
@@ -325,16 +339,18 @@ HOME = {"resolve": "terrain", "ssao_taps": "terrain",
         "texsample": "full_nohelmet",
         "sky_lut": "full_nohelmet", "resolve_depth": "atrium_lifted",
         "sky_lut_procedural": "terrain",
-        "local_lights": "full_lit_nohelmet", "ssr_march": "atrium_passes"}
+        "local_lights": "full_lit_nohelmet", "ssr_march": "atrium_passes",
+        "gbuffer_resolve": "full_nohelmet"}
 # the kernels no frame launches on its own: K3, whose fetch the frame's
-# fused TAA resolve (taa_resolve) does
-STANDALONE = ["taa_reproject"]
+# fused TAA resolve (taa_resolve) does, and K5, whose tap the frame's
+# G-buffer resolve (gbuffer_resolve) does with K5's device code
+STANDALONE = ["taa_reproject", "texsample"]
 # the kernels that launch only where the plan binds a light: K7
 LIT = ["local_lights"]
 # the kernels that launch only where enable_ssr: K8
 SSR = ["ssr_march"]
 # the kernels of a lightless scene with the cloud-noise texture and SSR
-# off: all but K6p, K7 and K8
+# off: all but K6p, K7, K8 and the two standalone ones
 NOISE_PATH = sorted(k for k in KERNELS if k != "sky_lut_procedural"
                     and k not in STANDALONE + LIT + SSR)
 
@@ -492,14 +508,15 @@ def kernel_cases(name, built, dev, min_lit=0.1):
     `min_lit` of its texels below the 1.0 clear, and some."""
     import torch
     from soc_real_time_renderer_tpu_torch.graph import frame as fm
-    from soc_real_time_renderer_tpu_torch.ops import composition, raster2, \
-        sky, ssao, ssr, taa, texsample
+    from soc_real_time_renderer_tpu_torch.ops import composition, gbuffer, \
+        raster2, sky, ssao, ssr, taa, texsample
     plan, batch = built.plan, built.batch
     cfg = plan.config
     path = path_of(plan, batch)
 
     taps = {}
     real_sample_atlas = texsample.sample_atlas
+    real_resolve_gbuffer = gbuffer.resolve_gbuffer
     real_local_lights = composition._local_lights
     real_ssr = ssr.ssr
 
@@ -507,6 +524,11 @@ def kernel_cases(name, built, dev, min_lit=0.1):
         taps.setdefault("args", (a, {n: v for n, v in k.items()
                                      if n != "impl"}))
         return real_sample_atlas(*a, **k)
+
+    def spy_gbuffer(*a, **k):  # records the visibility buffer, records
+        taps.setdefault("gbuffer", (a, {n: v for n, v in k.items()
+                                        if n != "impl"}))
+        return real_resolve_gbuffer(*a, **k)
 
     def spy_lights(*a, **k):  # records composition's G-buffer planes
         taps.setdefault("lights", (a, {n: v for n, v in k.items()
@@ -518,6 +540,7 @@ def kernel_cases(name, built, dev, min_lit=0.1):
         return real_ssr(*a, **k)
 
     texsample.sample_atlas = spy
+    gbuffer.resolve_gbuffer = spy_gbuffer
     composition._local_lights = spy_lights
     ssr.ssr = spy_ssr
     try:
@@ -527,6 +550,7 @@ def kernel_cases(name, built, dev, min_lit=0.1):
                                       impl="plain")
     finally:
         texsample.sample_atlas = real_sample_atlas
+        gbuffer.resolve_gbuffer = real_resolve_gbuffer
         composition._local_lights = real_local_lights
         ssr.ssr = real_ssr
     g1, mm1, nm1 = built.frame_globals(1, peek=True)
@@ -585,8 +609,10 @@ def kernel_cases(name, built, dev, min_lit=0.1):
             cmp_depth, (sst.numel() * 4 + 15 * n4 * 4 + sp * 4,
                         resolve_ops(sst, srec, sgrid)), None, None)
 
-    # K5: the material tap at the frame's (mid, uv, lod)
-    if "texsample" in path:
+    # K5: the material tap at the plain frame's (mid, uv, lod); no frame
+    # launches it (K9 taps with its device code)
+    rows = levels = 0
+    if plan.texture_filter != "none":
         check("args" in taps, "the warm frame took the material tap")
         (atlas, mid, uv, lod), kw = taps["args"]
         P = mid.numel()
@@ -603,6 +629,31 @@ def kernel_cases(name, built, dev, min_lit=0.1):
                                              **kw),
             cmp_tex, (P * (4 + 8 + 4 + 44) + rows * 48,
                       P * 11 * TEX_OPS_CHANNEL * levels), None, None)
+
+    # K9: the whole G-buffer resolve on the frame's visibility buffer and
+    # records; bytes: tri_id read and the 13 target planes written a
+    # pixel, each visible triangle's record rows and the tap's atlas rows
+    check("gbuffer" in taps, "the warm frame resolved its G-buffer")
+    gb_args, gb_kw = taps["gbuffer"]
+    tri9 = gb_args[0].tri_id
+    P9 = tri9.numel()
+    n_tris = int(torch.unique(tri9[tri9 >= 0]).numel())
+
+    def cmp_gbuffer(k, p):
+        e = max((a - b).abs().max().item() for a, b in zip(k, p))
+        same = all(torch.equal(a, b) for a, b in zip(k, p))
+        return e, (f"{P9} pixels, {n_tris} visible triangles, "
+                   f"{gb_kw['filter_mode']}: five targets max abs {e:.3g} "
+                   f"(== 0), equal {same}"), same
+
+    cases["gbuffer_resolve"] = (
+        lambda i: gbuffer_targets(gbuffer.resolve_gbuffer(
+            *gb_args, impl=i, **gb_kw)),
+        cmp_gbuffer,
+        (P9 * GBUFFER_BYTES_PIXEL + n_tris * GBUFFER_BYTES_TRIANGLE
+         + rows * 48,
+         P9 * (GBUFFER_OPS_PIXEL + 11 * TEX_OPS_CHANNEL * levels)),
+        None, None)
 
     # K2: SSAO taps
     depth = out0.gbuffer.depth
@@ -891,7 +942,7 @@ def stage_table(built, g, hist, mm, nm, reps=3, plan=None):
             atlas_size=plan.atlas_size, layer_stride=plan.atlas_layer_stride,
             n_levels=plan.atlas_n_levels, filter_mode=plan.texture_filter)
 
-    st["resolve_gbuffer (K5)"] = cuda_ms(gb, reps)
+    st["resolve_gbuffer (K9)"] = cuda_ms(gb, reps)
     gbuf = gb()
     st["HiZ (min + max)"] = cuda_ms(lambda: [
         hiz.build_hiz(vis.depth, op) for op in ("min", "max")], reps)
@@ -1009,9 +1060,9 @@ def scene_phase(name, dev, card, results):
         f"{plan.shadow_crop}, build {time.perf_counter() - t0:.1f} s; path "
         f"{path}")
     if name == "terrain":
-        check(path == ["resolve", "texsample", "ssao_taps", "taa_resolve",
-                       "sky_lut_procedural"],
-              "terrain runs K1, K5, K2, K3f, K6p")
+        check(path == ["resolve", "gbuffer_resolve", "ssao_taps",
+                       "taa_resolve", "sky_lut_procedural"],
+              "terrain runs K1, K9, K2, K3f, K6p")
     elif name in ("full_nohelmet", "full_lit_nohelmet"):
         check(plan.atlas_num_materials >= 2 and batch.cloud_noise is not None
               and plan.shadow_statically_empty,
@@ -1300,8 +1351,8 @@ def perpixel_phase(dev, card, results):
     built = build_scene(name, dev)
     plan, batch = built.plan, built.batch
     path = path_of(plan, batch)
-    check(path == ["resolve", "texsample", "ssao_taps", "taa_resolve"],
-          f"{name} runs K1, K5, K2, K3f and neither K6 nor K6p: {path}")
+    check(path == ["resolve", "gbuffer_resolve", "ssao_taps", "taa_resolve"],
+          f"{name} runs K1, K9, K2, K3f and neither K6 nor K6p: {path}")
     out, (g, hist, mm, nm), counts = run_frames(built, plan, path,
                                                 PASS_FRAMES, dev)
     for k in counts:
@@ -1338,28 +1389,37 @@ def perpixel_phase(dev, card, results):
     return st["whole frame"]
 
 
+def gbuffer_targets(gb):
+    """The five targets K9 writes, as a tuple (depth passes through)."""
+    return (gb.albedo, gb.emissive, gb.normal, gb.metallic_roughness,
+            gb.velocity)
+
+
 def recorded_inputs(fn, every=False):
-    """fn() with every kernel wrapper spied: {kernel: (wrapper, args,
-    kwargs without impl)} of each wrapper's first call (every: a list of
-    every call's)."""
-    from soc_real_time_renderer_tpu_torch.ops import raster2, sky, ssao, \
-        ssr, taa, texsample
+    """fn() with every frame kernel's wrapper spied: {kernel: (wrapper,
+    args, kwargs without impl)} of each wrapper's first call (every: a
+    list of every call's).  K9's wrapper is recorded as one that returns
+    gbuffer_targets of its G-buffer."""
+    from soc_real_time_renderer_tpu_torch.ops import gbuffer, raster2, sky, \
+        ssao, ssr, taa
     wrappers = {"resolve": (raster2, "resolve"),
                 "resolve_depth": (raster2, "resolve_depth"),
-                "texsample": (texsample, "sample_atlas"),
+                "gbuffer_resolve": (gbuffer, "resolve_gbuffer"),
                 "ssao_taps": (ssao, "ssao_taps"),
                 "sky_lut": (sky, "render_sky_lut_noise"),
                 "sky_lut_procedural": (sky, "render_sky_lut_procedural"),
                 "taa_reproject": (taa, "reproject_history"),
                 "taa_resolve": (taa, "_resolve"),
                 "ssr_march": (ssr, "ssr")}
-    seen, real = {}, {}
+    seen, real = {}, {k: getattr(mod, attr)
+                      for k, (mod, attr) in wrappers.items()}
+    recorded = dict(real, gbuffer_resolve=lambda *a, **kw: gbuffer_targets(
+        real["gbuffer_resolve"](*a, **kw)))
     for k, (mod, attr) in wrappers.items():
-        real[k] = getattr(mod, attr)
 
         def spy(*a, _k=k, **kw):
-            call = (real[_k], a, {n: v for n, v in kw.items()
-                                  if n != "impl"})
+            call = (recorded[_k], a, {n: v for n, v in kw.items()
+                                      if n != "impl"})
             if every:
                 seen.setdefault(_k, []).append(call)
             else:
@@ -1630,7 +1690,7 @@ def sharded_phase(dev, card, results):
     over a mesh that names the card SHARD_BANDS times
     (``parallel/mesh.make_mesh`` + ``raster_stage`` of the split plan +
     ``make_sharded_shade_fn``), SHARD_FRAMES frames carrying history:
-    launch counts per frame (K1, K4, K5, K2, K3f once per band, K6 once:
+    launch counts per frame (K1, K4, K9, K2, K3f once per band, K6 once:
     one distinct device); the assembled colour, history and exposure
     against the unsplit frames; every band-mode launch against its plain
     version on the band's inputs (recorded during a plain-path split
@@ -1844,7 +1904,7 @@ def sharded_phase(dev, card, results):
             worst_m = max(worst_m, (a.float() - b.float()).abs().max()
                           .item())
     log(f"[sharded] terrain, {B} views over a (dp 2, sp 2) mesh of the "
-        f"card, {BATCH_FRAMES} frames: launches per step {counts} (K1, K5, "
+        f"card, {BATCH_FRAMES} frames: launches per step {counts} (K1, K9, "
         f"K2, K3f once per band of each group, K6p once per group); each "
         f"view against the unmeshed batched step, max abs {worst_m:.3g} "
         f"(<= 1e-6) {card}")
@@ -2287,7 +2347,7 @@ def viewer_phase(dev, card, results):
     for k in counts:
         results[k][name] = {"launches": counts[k]}
 
-    # launches: every frame runs K1, K5, K2, K6, K3f (the noise texture:
+    # launches: every frame runs K1, K9, K2, K6, K3f (the noise texture:
     # never K6p); K4 where the plan does not elide the shadow, i.e. from
     # step 5 on
     n = len(per_frame)
@@ -2368,7 +2428,7 @@ def viewer_phase(dev, card, results):
                                                     nm)),
             ("depth prepass + shadow (raster_stage: K1, K4)",
              lambda: fm.raster_stage(plan, batch, g, mm, nm)),
-            ("g-buffer (K5)", lambda: gbuffer.resolve_gbuffer(
+            ("g-buffer (K9)", lambda: gbuffer.resolve_gbuffer(
                 vis, recs, batch.atlas_packed, g.camera_prev.projection_view,
                 atlas_size=plan.atlas_size,
                 layer_stride=plan.atlas_layer_stride,
@@ -2414,11 +2474,11 @@ def texparts_phase(built, card, tmp):
     """The texture-tap attribution path on `full` (the preset phase's
     build at WIDTH x HEIGHT from the synthetic tree), through the port's
     tools in this process: capture_texfields (frame 1's tap fields, what
-    resolve_gbuffer hands K5), bench_texsample, bench_texkernel_parts and
-    bench_texmm2 on them, each with the launch counts set to 0 just
-    before and read just after (the two variant benches launch only
-    their variants, each of their runs at least once; nothing counts as
-    K5).  Then, outside those counts, every full variant against its
+    the plain resolve_gbuffer hands the tap), bench_texsample,
+    bench_texkernel_parts and bench_texmm2 on them, each with the launch
+    counts set to 0 just before and read just after (the two variant
+    benches launch only their variants, each of their runs at least
+    once; nothing counts as K5).  Then, outside those counts, every full variant against its
     plain version on the capture in all three filter modes, bit for bit
     (planar against sample_packed_atlas, interleaved against its
     transpose with lane 11 zero, bf16 against that cast); each variant's
@@ -2442,8 +2502,9 @@ def texparts_phase(built, card, tmp):
 
     kb.reset_launches()
     fields = capture_texfields.main(size + ["--out", path], built=built)
-    check(kb.launches["texsample"] == 1 and not kb.variant_launches,
-          f"the capture took one K5 tap: {kb.launches}")
+    check(kb.launches["texsample"] == kb.launches["gbuffer_resolve"] == 0
+          and not kb.variant_launches,
+          f"the capture took the plain resolve's tap: {kb.launches}")
     (atlas, mid, uv, lod), kw = fields["args"]
     P = mid.numel()
     live = float(fields["live"].mean())
@@ -2453,10 +2514,13 @@ def texparts_phase(built, card, tmp):
 
     kb.reset_launches()
     tex_rows = bench_texsample.main(size + fields_arg, built=built)
-    check(kb.launches["texsample"] > 0 and not kb.variant_launches
+    check(kb.launches["texsample"] > 0
+          and kb.launches["gbuffer_resolve"] > 0 and not kb.variant_launches
           and all(r["device_ms"] for r in tex_rows
-                  if r["label"].startswith("K5")),
-          f"bench_texsample: K5 in each mode, no variant: {kb.launches}")
+                  if r["label"].startswith("K5")
+                  or r["label"] == "resolve_gbuffer"),
+          f"bench_texsample: K5 in each mode, K9, no variant: "
+          f"{kb.launches}")
     runs = {}
     for name, (_, _, tool) in VARIANT_KERNELS.items():
         kb.reset_launches()
@@ -2569,10 +2633,10 @@ def bench_phase(card):
     ran = {k for k, n in kb.launches.items() if n}
     check(line["assets"] == "synthetic" and "sponza 1280x736" in
           line["metric"] and card.strip("[]") == line["device"]
-          and ran == {"resolve", "texsample", "ssao_taps", "sky_lut",
+          and ran == {"resolve", "gbuffer_resolve", "ssao_taps", "sky_lut",
                       "taa_resolve"}
           and all(kb.launches[k] == BENCH_FRAMES for k in ran),
-          f"bench: sponza, synthetic assets, the card's name, K1, K5, K2, "
+          f"bench: sponza, synthetic assets, the card's name, K1, K9, K2, "
           f"K6, K3f {BENCH_FRAMES} times each: {line}, {kb.launches}")
     rows = bench_baselines.main(["--frames", str(TABLE_FRAMES)])
     check([r["config"] for r in rows] == list(range(1, 8))
@@ -2587,14 +2651,14 @@ def bench_phase(card):
           "overflow, no call in a timed loop waited for the card")
     toggles = bench_toggle.main(["--config", str(TOGGLE_CONFIG),
                                  "--frames", str(TABLE_FRAMES)])
-    gone = {"ssao": "ssao_taps", "taa": "taa_resolve",
-            "clouds": "sky_lut", "tex_none": "texsample"}
+    gone = {"ssao": "ssao_taps", "taa": "taa_resolve", "clouds": "sky_lut"}
     check(sorted(toggles) == sorted(bench_toggle.KEPT)
           and all(len(r["delta_ms"]) == bench_toggle.ROUNDS
                   for r in toggles.values())
-          and all(k not in toggles[t]["path"] for t, k in gone.items()),
+          and all(k not in toggles[t]["path"] for t, k in gone.items())
+          and "gbuffer_resolve" in toggles["tex_none"]["path"],
           f"bench_toggle: every kept toggle, {bench_toggle.ROUNDS} rounds "
-          f"each, its kernel gone where it removes one")
+          f"each, its kernel gone where it removes one, K9 under tex_none")
     return line, rows, toggles
 
 
@@ -2721,8 +2785,8 @@ def main():
                                     "launch_device_ms")},
             "by_scene": results[name]})
     kernels.extend(tex_kernels)
-    check(len(kernels) == 12, "the JSON lists all eight TPU kernels' "
-          "counterparts, K6p, K3f, K7 and K8")
+    check(len(kernels) == 13, "the JSON lists all eight TPU kernels' "
+          "counterparts, K6p, K3f, K7, K8 and K9")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

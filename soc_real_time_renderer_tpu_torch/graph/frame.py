@@ -3,7 +3,7 @@ history')``, counterpart of the JAX package's ``graph/frame.py``.
 
 Pass order matches the reference graph:
 
-  raster (visibility, K1; sun shadow, K4) -> HiZ -> G-buffer (K5) ->
+  raster (visibility, K1; sun shadow, K4) -> HiZ -> G-buffer (K9) ->
   bloom -> SSAO (K2) + blur -> [SSR (K8)] -> sky LUT (K6 or K6p) + lookup, or
   the per-pixel cloud march -> composition [+ volumetric light] -> [SSR mix]
   -> [depth of field] -> exposure -> TAA (K3f) -> tone mapping
@@ -14,8 +14,8 @@ velocity, f32 exposure).  PyTorch runs eagerly: no jit, no
 replays each pass as a CUDA graph on a card (``graph/replay.py``), and
 ``render_frame`` called directly is its eager reference.  The
 hand-written kernels on the path: K1 (main-view resolve), K4 (the sun
-shadow view's depth resolve, unless the build proved the map empty), K5
-(the material tap), K2 (SSAO taps), K6 (the sky LUT over the
+shadow view's depth resolve, unless the build proved the map empty), K9
+(the G-buffer resolve, its material tap K5's device code), K2 (SSAO taps), K6 (the sky LUT over the
 cloud-noise texture) or K6p (the sky LUT over the procedural value
 noise, where there is no texture), K7 (composition's point and spot
 lights, where the plan binds any), K8 (the SSR march, where

@@ -48,7 +48,7 @@ NVCC_FLAGS = [*ARCH, "-O3", "-std=c++17", "--fmad=false", "-Xptxas", "-v",
 launches = {"resolve": 0, "resolve_depth": 0, "texsample": 0,
             "ssao_taps": 0, "sky_lut": 0, "sky_lut_procedural": 0,
             "taa_reproject": 0, "taa_resolve": 0, "local_lights": 0,
-            "ssr_march": 0}
+            "ssr_march": 0, "gbuffer_resolve": 0}
 # launches of K5's variants (ops/texsample.VARIANTS, the texture-tap
 # benches), by variant: apart from `launches`, whose kernels are the
 # frame's
@@ -101,6 +101,11 @@ _SIGNATURES = {
     # depth's view stride, the channel and view strides of albedo, normal
     # and metallic-roughness, stream
     "ssr_march_launch": [_P] * 11 + [_I] * 12 + [_P],
+    # tri_id, records, atlas, prev_view_proj, albedo, emissive, normal,
+    # metallic-roughness, velocity, H, W, views, records' columns (T + 1),
+    # row0, full_h, prev_view_proj's view stride (0 or 16), atlas rows,
+    # atlas size, layer stride, levels, filter mode (3: none), stream
+    "gbuffer_resolve_launch": [_P] * 9 + [_I] * 12 + [_P],
 }
 
 

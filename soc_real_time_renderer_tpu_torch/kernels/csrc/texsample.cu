@@ -14,23 +14,16 @@
 // pad; texture.expand_atlas_bilinear); per pixel `mid` int32, `uv` (2, P)
 // f32, `lod` (P,) f32.  Output (11, P) f32 in [0, 1].
 //
-// Design: one thread per pixel.  lod is clamped to [0, n_levels - 1] and
-// rounded half to even (bilinear, nearest) or split into floor/floor+1
-// (trilinear); each tap is one 48-byte row read as three 16-byte int4
-// loads through the read-only cache; the 11 channels x 4 corners unpack
-// and blend in f32 in sample_packed_atlas' order.  The texel coordinate
-// wraps with a non-negative remainder (x0 = -1 at the left edge is
-// s - 1).  Index arithmetic: the plain version uses int64; here the row
-// index fits int32 (mid * layer_stride + level offset + texel < N, and N
-// = 6 x 1,398,101 at six 1024^2 materials; the wrapper refuses N >=
-// 2^31 / 3 so that the int4 index stays in int32 too).  Bound: memory,
-// one (or two) 48-byte row reads and 44 bytes written per pixel; the rows
-// of neighbouring pixels are neighbours in the atlas, so L2 serves most
-// reads.  Built with --fmad=false; "/ 255.0" is the multiply by the f32
-// reciprocal that PyTorch's CUDA division by a Python scalar performs.
-// A row past the atlas (a bad mid or layer_stride) is a device-side
-// assert, as in the plain version's gather: no clamp reads a wrong
-// material in silence.
+// Design: one thread per pixel; the tap itself (the lod clamp and
+// round, the level offset, the wrap, the row's three 16-byte loads, the
+// 11 x 4 unpack and blend in sample_packed_atlas' order) is
+// texsample.cuh's tap_value, which K9 (gbuffer.cu) calls too.  Index
+// arithmetic: the plain version uses int64; here the row index fits
+// int32 (mid * layer_stride + level offset + texel < N, and N = 6 x
+// 1,398,101 at six 1024^2 materials).  Bound: memory, one (or two)
+// 48-byte row reads and 44 bytes written per pixel; the rows of
+// neighbouring pixels are neighbours in the atlas, so L2 serves most
+// reads.  Built with --fmad=false.
 //
 // Variants (texsample_variant_launch; ops/texsample.VARIANTS names them).
 // The JAX package's tools/bench_texkernel_parts.py (`make_variant`) and
@@ -57,25 +50,11 @@
 // sentinel, a NaN payload (kNeverBits) that the sum of finite inputs, or
 // the canonical NaN the card's adds make, cannot take; the sentinel is a
 // kernel argument, so the compiler cannot fold the test away.
-#include <cassert>
 #include <cuda_bf16.h>
 
-#include "common.cuh"
+#include "texsample.cuh"
 
 namespace {
-
-constexpr int kChannels = 11;
-
-// stages a variant switches off (kSkip bits)
-constexpr int kNoLoads = 1;    // (b): the words made from the row index
-constexpr int kNoAddr = 2;     // (a): row = (pixel index / 32) mod rows
-                               //      (a warp's pixels share a row, near a
-                               //      frame's locality), fx, fy the wrapped
-                               //      u, v; mid, lod unread
-constexpr int kNoVBlend = 4;   // (c): fy = 0; c01, c11 not unpacked
-constexpr int kNoHBlend = 8;   // (c): fx = 0; c10, c11 not unpacked
-constexpr int kNoUnpack = 16;  // (c): the packed words, bit-cast to f32
-constexpr int kNoTap = 32;     // (a)-(c): no tap; the inputs read
 
 // stores (kStore)
 constexpr int kPlanar = 0;           // (11, P) f32
@@ -85,101 +64,6 @@ constexpr int kSum = 3;              // (P,) f32, the channels' sum
 constexpr int kGuard = 4;            // (P,) f32, written where never
 
 constexpr int kNeverBits = 0x7fc0dead;
-
-struct TapArgs {
-    const int4* atlas;
-    const int* mid;
-    const float* uv;
-    const float* lod;
-    void* out;
-    int P, rows, size, layer_stride, n_levels, mode, sentinel;
-};
-
-__device__ __forceinline__ int wrap(int v, int s) {
-    const int r = v % s;
-    return r < 0 ? r + s : r;
-}
-
-// One level's tap of lane `part`'s channels: out[c] = the blended
-// channel / 255 (kLanes 1: all 11; kLanes 3: four of int4 `part`).
-template <int kSkip, int kLanes>
-__device__ __forceinline__ void level_fetch(const TapArgs& a, int base_m,
-                                            int lv, float uw, float vw,
-                                            bool bilinear, int pix, int part,
-                                            float* out) {
-    constexpr int kN = kLanes == 1 ? kChannels : 4;
-    const float inv255 = 1.0f / 255.0f;
-    int row;
-    float fx, fy;
-    if (kSkip & kNoAddr) {
-        row = (pix >> 5) % a.rows;
-        fx = uw;
-        fy = vw;
-    } else {
-        const int size = a.size;
-        const int s = size >> lv;
-        const int off = (4 * size * size - 4 * s * s) / 3;
-        const float sf = (float)s;
-        const float x = uw * sf - 0.5f;
-        const float y = vw * sf - 0.5f;
-        int xi, yi;
-        if (bilinear) {
-            xi = (int)floorf(x);
-            yi = (int)floorf(y);
-        } else {
-            xi = (int)rintf(x);
-            yi = (int)rintf(y);
-        }
-        row = base_m + off + wrap(yi, s) * s + wrap(xi, s);
-        assert(row >= 0 && row < a.rows);
-        fx = x - floorf(x);
-        fy = y - floorf(y);
-    }
-    int c[kLanes == 1 ? 12 : 4];
-    if (kSkip & kNoLoads) {
-#pragma unroll
-        for (int w = 0; w < (kLanes == 1 ? 12 : 4); ++w)
-            c[w] = row * 12 + 4 * part + w;
-    } else if (kLanes == 1) {
-        const int4 q0 = __ldg(a.atlas + 3 * (size_t)row);
-        const int4 q1 = __ldg(a.atlas + 3 * (size_t)row + 1);
-        const int4 q2 = __ldg(a.atlas + 3 * (size_t)row + 2);
-        c[0] = q0.x; c[1] = q0.y; c[2] = q0.z; c[3] = q0.w;
-        c[4] = q1.x; c[5] = q1.y; c[6] = q1.z; c[7] = q1.w;
-        c[8] = q2.x; c[9] = q2.y; c[10] = q2.z; c[11] = q2.w;
-    } else {
-        const int4 q = __ldg(a.atlas + 3 * (size_t)row + part);
-        c[0] = q.x; c[1] = q.y; c[2] = q.z; c[3] = q.w;
-    }
-    if (kSkip & kNoUnpack) {
-#pragma unroll
-        for (int ch = 0; ch < kN; ++ch) out[ch] = __int_as_float(c[ch]);
-        return;
-    }
-    if (!bilinear) {
-#pragma unroll
-        for (int ch = 0; ch < kN; ++ch)
-            out[ch] = (float)(c[ch] & 255) * inv255;
-        return;
-    }
-#pragma unroll
-    for (int ch = 0; ch < kN; ++ch) {
-        const float c00 = (float)(c[ch] & 255);
-        if (kSkip & kNoVBlend) {
-            const float c10 = (float)((c[ch] >> 8) & 255);
-            out[ch] = (c00 * (1.0f - fx) + c10 * fx) * inv255;
-        } else if (kSkip & kNoHBlend) {
-            const float c01 = (float)((c[ch] >> 16) & 255);
-            out[ch] = (c00 * (1.0f - fy) + c01 * fy) * inv255;
-        } else {
-            const float c10 = (float)((c[ch] >> 8) & 255);
-            const float c01 = (float)((c[ch] >> 16) & 255);
-            const float c11 = (float)((c[ch] >> 24) & 255);
-            out[ch] = ((c00 * (1.0f - fx) + c10 * fx) * (1.0f - fy)
-                       + (c01 * (1.0f - fx) + c11 * fx) * fy) * inv255;
-        }
-    }
-}
 
 __device__ __forceinline__ unsigned bf16_pair(float lo, float hi) {
     return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(lo))
@@ -200,29 +84,10 @@ __device__ __forceinline__ void tap_pixel(const TapArgs& a, int i, int part) {
         if (__float_as_int(s) == a.sentinel) out[i] = s;
         return;
     }
-    const float uw = u - floorf(u);
-    const float vw = v - floorf(v);
-    int base_m = 0;
-    float l = 0.0f;
-    if (!(kSkip & kNoAddr)) {
-        base_m = a.mid[i] * a.layer_stride;
-        l = fminf(fmaxf(a.lod[i], 0.0f), (float)(a.n_levels - 1));
-    }
+    const bool addr = !(kSkip & kNoAddr);
     float t0[kN];
-    if (a.mode != 2) {
-        level_fetch<kSkip, kLanes>(a, base_m, (int)rintf(l), uw, vw,
-                                   a.mode == 1, i, part, t0);
-    } else {
-        float t1[kN];
-        const int l0 = (int)floorf(l);
-        const int l1 = min(l0 + 1, a.n_levels - 1);
-        const float f = l - (float)l0;
-        level_fetch<kSkip, kLanes>(a, base_m, l0, uw, vw, true, i, part, t0);
-        level_fetch<kSkip, kLanes>(a, base_m, l1, uw, vw, true, i, part, t1);
-#pragma unroll
-        for (int ch = 0; ch < kN; ++ch)
-            t0[ch] = t0[ch] * (1.0f - f) + t1[ch] * f;
-    }
+    tap_value<kSkip, kLanes>(a, addr ? a.mid[i] : 0, u, v,
+                             addr ? a.lod[i] : 0.0f, i, part, t0);
     if (kStore == kPlanar) {
 #pragma unroll
         for (int ch = 0; ch < kN; ++ch) {

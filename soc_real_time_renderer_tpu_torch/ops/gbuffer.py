@@ -6,11 +6,16 @@ pixel one shading-record fetch by triangle id, perspective-correct
 barycentric interpolation with analytic derivatives, uv/lod, one packed
 atlas tap, TBN normal mapping, velocity against the previous camera,
 the terrain path (normal map as world normal, zero velocity) and the
-sky clear on no-hit pixels.  Records are the f32 layout only.  The tap
-goes through kernel K5 (``ops/texsample.py``), which computes
-``sample_packed_atlas`` exactly, on a card: on one card it beats the
-gather on a single-material atlas as well (PERF.md), so the TPU
-package's material-count crossover has no counterpart here.
+sky clear on no-hit pixels.  Records are the f32 layout only.
+
+On a card the whole resolve is one hand kernel, K9
+(``kernels/csrc/gbuffer.cu``), which computes the plain version below
+bit for bit and taps the atlas through K5's device code
+(``texsample.cuh``); the plain version (CPU tensors, ``impl="plain"``)
+taps through ``texsample.sample_atlas``, which computes
+``sample_packed_atlas`` exactly.  K5 beats the gather on a
+single-material atlas as well (PERF.md), so the TPU package's
+material-count crossover has no counterpart here.
 """
 from __future__ import annotations
 
@@ -18,12 +23,16 @@ from dataclasses import dataclass
 
 import torch
 
+from ..kernels import build as kb
 from ..utils import views
 from ..utils.vec import cross3, normalize3
 from . import sampling
 from .raster2 import PlanarSetup, VisibilityBuffer
 
 SKY_CLEAR = (0.2, 0.4, 1.0)  # g_buffer_generation.inl:80
+# K9's filter modes: K5's, and the probe "none"
+FILTER_MODES = {"nearest": 0, "bilinear": 1, "trilinear": 2, "none": 3}
+SHADING_ROWS = 40  # rows of build_shading_records' records
 
 
 @dataclass(frozen=True)
@@ -124,17 +133,32 @@ def resolve_gbuffer(vis: VisibilityBuffer, shading_records, atlas,
                     n_levels: int, filter_mode: str = "bilinear",
                     impl: str | None = None, row0: int = 0,
                     full_h: int | None = None) -> GBuffer:
-    """Shade the visibility buffer into the 5-target G-buffer.  The
-    material tap is texsample.sample_atlas (K5), dispatched by `impl`.
-    With a leading view axis (vis (B, H, W), records (40, B, T+1),
-    prev_view_proj (B, 4, 4)) every target gains it, and the taps of all
-    views go through one K5 call (the views fold into its pixel axis).
+    """Shade the visibility buffer into the 5-target G-buffer.  CUDA
+    tensors launch K9 (one launch for every view; the material tap is
+    K5's device code), CPU tensors or impl="plain" take the plain
+    version, whose tap is texsample.sample_atlas.  With a leading view
+    axis (vis (B, H, W), records (40, B, T+1), prev_view_proj (B, 4, 4))
+    every target gains it, and the plain version's taps of all views go
+    through one sample_atlas call (the views fold into its pixel axis).
 
     A row band (the JAX ``resolve_gbuffer(shard=)`` band, gbuffer.py:
     340-392): vis holds rows [row0, row0 + H) of a `full_h`-row screen.
     Every pixel is shaded at its screen centre (the edge functions, the
     velocity against camera_prev), and its material tap is per pixel, so
-    the band needs no halo and each pixel equals the whole screen's."""
+    the band needs no halo and each pixel equals the whole screen's.
+
+    filter_mode "none" is an attribution probe (tools/bench_toggle.py,
+    the JAX gbuffer.py:176-178): a constant texel, no atlas tap; not a
+    rendering mode."""
+    if filter_mode not in FILTER_MODES:
+        raise ValueError(f"unknown filter_mode {filter_mode!r}")
+    if kb.choose(impl, vis.tri_id, shading_records, atlas,
+                 prev_view_proj) == "cuda":
+        return _resolve_cuda(vis, shading_records, atlas, prev_view_proj,
+                             atlas_size=atlas_size,
+                             layer_stride=layer_stride, n_levels=n_levels,
+                             filter_mode=filter_mode, row0=row0,
+                             full_h=full_h)
     H, W = vis.depth.shape[-2:]
     Hf = full_h or H
     V = vis.depth.shape[:-2]
@@ -202,9 +226,6 @@ def resolve_gbuffer(vis: VisibilityBuffer, shading_records, atlas,
     lod = 0.5 * torch.log2(torch.clamp(lod_sq, min=1e-12))
 
     if filter_mode == "none":
-        # attribution probe (tools/bench_toggle.py, the JAX gbuffer.py:
-        # 176-178): a constant texel, no atlas gather, K5 not launched;
-        # not a rendering mode
         tex = torch.full((11, *mid.shape), 0.5, device=dev)
     else:
         from .texsample import sample_atlas
@@ -259,3 +280,47 @@ def resolve_gbuffer(vis: VisibilityBuffer, shading_records, atlas,
     return GBuffer(albedo=plane(albedo), emissive=plane(emissive),
                    normal=plane(normal), metallic_roughness=plane(mr),
                    velocity=plane(velocity), depth=vis.depth)
+
+
+def _resolve_cuda(vis, records, atlas, prev_view_proj, *, atlas_size,
+                  layer_stride, n_levels, filter_mode, row0, full_h):
+    """K9 on the card: the inputs checked and made contiguous, the five
+    targets allocated planar and dense, (C, *V, H, W), and handed out as
+    the plain version hands its out (views.from_planar); one launch for
+    every view."""
+    tri = vis.tri_id
+    *V, H, W = tri.shape
+    if len(V) > 1:
+        raise ValueError(f"tri_id {tuple(tri.shape)}: one view axis at most")
+    n_views = V[0] if V else 1
+    if (tri.dtype, records.dtype, atlas.dtype, prev_view_proj.dtype) != (
+            torch.int32, torch.float32, torch.int32, torch.float32):
+        raise TypeError("resolve_gbuffer takes an int32 tri_id and atlas, "
+                        "float32 records and prev_view_proj")
+    if records.shape[:-1] != (SHADING_ROWS, *V) or atlas.dim() != 2 \
+            or atlas.shape[1] != 12 \
+            or prev_view_proj.shape not in ((4, 4), (*V, 4, 4)):
+        raise ValueError(f"records {tuple(records.shape)}, atlas "
+                         f"{tuple(atlas.shape)}, prev_view_proj "
+                         f"{tuple(prev_view_proj.shape)} for tri_id "
+                         f"{tuple(tri.shape)}: want ({SHADING_ROWS}, *V, "
+                         f"T+1), (N, 12), (*V, 4, 4) or (4, 4)")
+    if atlas.shape[0] >= 2 ** 31 // 3:
+        raise ValueError("atlas rows overflow the kernel's int32 index")
+    tri, records, atlas, vp = (x.contiguous() for x in (
+        tri, records, atlas, prev_view_proj))
+    outs = [torch.empty((c, *V, H, W), dtype=torch.float32,
+                        device=tri.device) for c in (3, 3, 3, 2, 2)]
+    code = kb.library().gbuffer_resolve_launch(
+        tri.data_ptr(), records.data_ptr(), atlas.data_ptr(), vp.data_ptr(),
+        *(o.data_ptr() for o in outs), H, W, n_views, records.shape[-1],
+        row0, full_h or H, 16 if vp.dim() == 3 else 0, atlas.shape[0],
+        atlas_size, layer_stride, n_levels, FILTER_MODES[filter_mode],
+        kb.stream_ptr(tri))
+    kb.launches["gbuffer_resolve"] += 1
+    kb.check(code, "gbuffer_resolve")
+    albedo, emissive, normal, mr, velocity = (
+        views.from_planar(o, len(V)) for o in outs)
+    return GBuffer(albedo=albedo, emissive=emissive, normal=normal,
+                   metallic_roughness=mr, velocity=velocity,
+                   depth=vis.depth)

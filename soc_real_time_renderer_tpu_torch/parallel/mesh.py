@@ -271,8 +271,8 @@ def make_sharded_shade_fn(plan: frame_mod.FramePlan, mesh: Mesh,
     How each pass runs:
 
     * per band, with its halo where it reads neighbours, on the band's
-      device with the band's screen rows: the G-buffer math and its
-      material tap (K5, no halo: per pixel); the SSAO preamble and its
+      device with the band's screen rows: the G-buffer resolve and
+      its material tap (K9, no halo: per pixel); the SSAO preamble and its
       taps (K2), the 4x4 blur (2 + 1 half-res halo rows) and the
       upsample (1 + 1); the sky LUT lookup of the clouds (its half-res
       rows and one either side, for the upsample); composition (per

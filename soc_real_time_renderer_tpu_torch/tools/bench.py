@@ -107,9 +107,9 @@ def asset_tree():
 def kernel_path(plan, batch) -> list[str]:
     """The kernels one frame of `plan` launches on the card."""
     cfg = plan.config
-    path = ["resolve"]
-    if plan.texture_filter != "none":
-        path.append("texsample")
+    # K9 resolves the G-buffer in every filter mode ("none" too); its tap
+    # is K5's device code, so K5 itself launches on no frame
+    path = ["resolve", "gbuffer_resolve"]
     if cfg.enable_ssao:
         path.append("ssao_taps")
     if cfg.enable_taa:

@@ -17,8 +17,9 @@ row per part, each the JAX tool's row where there is one:
 * ``plain gather`` (the JAX "XLA gather tap (old path)"):
   ``gbuffer.sample_packed_atlas``, bilinear, per call;
 * ``resolve_gbuffer`` (no JAX row): the whole G-buffer stage of frame
-  --frame (record gather, interpolation, the tap, TBN, velocity), per
-  call.
+  --frame (record fetch, interpolation, the tap, TBN, velocity): on the
+  card K9, its tap K5's device code, on the card alone and per call;
+  with ``--device cpu`` the plain version per call.
 
 The JAX rows "phase1 planning" and "full sample_atlas_tiled" print as
 having no counterpart: the tile planner and the bf16 page are TPU
@@ -125,13 +126,14 @@ def main(argv=None, built=None) -> list[dict]:
         "gbuffer.sample_packed_atlas (the JAX XLA gather tap)")
     g, mm, nm = built.frame_globals(args.frame, peek=True)
     vis, records, _, _ = fm.raster_stage(plan, batch, g, mm, nm)
-    _, ms = timed(lambda: gbuffer.resolve_gbuffer(
+    dev_ms, ms = timed(lambda: gbuffer.resolve_gbuffer(
         vis, records, atlas, g.camera_prev.projection_view,
         atlas_size=plan.atlas_size, layer_stride=plan.atlas_layer_stride,
         n_levels=plan.atlas_n_levels, filter_mode=plan.texture_filter),
-        args.reps, device)
-    row("resolve_gbuffer", None, ms, rows,
-        f"the G-buffer stage, {plan.texture_filter}")
+        args.reps, device, alone=on_card)
+    row("resolve_gbuffer", dev_ms, ms, rows,
+        f"the G-buffer stage, {plan.texture_filter}"
+        + (" (K9)" if on_card else ""))
     return rows
 
 

@@ -11,7 +11,7 @@ scene-true light counts; the JAX tool's rule).  Kept toggles: the passes
 ``shadows``, ``ssao``, ``bloom``, ``clouds``, ``taa``,
 ``auto_exposure`` and ``hiz`` (each switched off), and the texture
 filters ``tex_nearest``, ``tex_trilinear`` and ``tex_none`` (the
-attribution probe: a constant texel, no atlas gather, K5 not launched).
+attribution probe: a constant texel, no atlas tap; K9 still launches).
 The JAX tool's ``ssao_xla`` (TPU-only), ``stub_*`` and ``unlit``
 (``FramePlan.stub``) and ``no_visbar`` / ``visbar_nohiz`` (barriers)
 have no job in the port and print ``(unknown toggle)``, as any other

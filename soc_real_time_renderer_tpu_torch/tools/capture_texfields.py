@@ -11,8 +11,10 @@ float32, ``live`` bool, each (H, W)) and its summary line (live share,
 materials, lod p50).  The JAX tool recomputes the tap inputs beside the
 frame; here they are what ``gbuffer.resolve_gbuffer`` hands
 ``texsample.sample_atlas`` in frame ``--frame`` (``raster_stage`` then
-``resolve_gbuffer`` with a spy on the tap), so the capture is K5's real
-input by construction.  ``live`` is the visibility buffer's tri id >= 0;
+the plain ``resolve_gbuffer``, whose tap is that call, with a spy on
+it; on the card the frame's resolve is K9, which computes the same tap
+inputs bit for bit), so the capture is the tap's real input by
+construction.  ``live`` is the visibility buffer's tri id >= 0;
 ``lod`` is unclamped, as K5 receives it.  ``tools/bench_texsample.py``,
 ``bench_texkernel_parts.py`` and ``bench_texmm2.py`` read the file.
 
@@ -42,7 +44,8 @@ def capture(built, frame: int = 1, impl: str | None = None) -> dict:
     """The tap fields of frame `frame` of `built`: {"mid", "u", "v",
     "lod", "live"}, each (H, W) numpy, plus "args", the (atlas, mid,
     uv, lod) tensors and the keyword arguments resolve_gbuffer passed
-    sample_atlas."""
+    sample_atlas.  `impl` is raster_stage's; the resolve is the plain
+    version, the one that calls sample_atlas (K9 taps inside itself)."""
     from ..graph import frame as fm
     from ..ops import gbuffer, texsample
     plan, batch = built.plan, built.batch
@@ -63,7 +66,7 @@ def capture(built, frame: int = 1, impl: str | None = None) -> dict:
             vis, records, batch.atlas_packed, g.camera_prev.projection_view,
             atlas_size=plan.atlas_size, layer_stride=plan.atlas_layer_stride,
             n_levels=plan.atlas_n_levels, filter_mode=plan.texture_filter,
-            impl=impl)
+            impl="plain")
     finally:
         texsample.sample_atlas = real
     if len(taps) != 1:

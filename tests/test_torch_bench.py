@@ -245,7 +245,7 @@ def test_kernel_path_names_the_frames_sky_kernel(noise, switches, sky):
                            shadow_statically_empty=True)
     batch = SimpleNamespace(cloud_noise=torch.zeros(64, 64) if noise
                             else None)
-    want = ["resolve", "texsample", "ssao_taps", "taa_resolve"]
+    want = ["resolve", "gbuffer_resolve", "ssao_taps", "taa_resolve"]
     assert bench.kernel_path(plan, batch) == want + ([sky] if sky else [])
 
 

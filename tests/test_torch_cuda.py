@@ -1,6 +1,7 @@
 """The CUDA kernels (K1 resolve, K2 SSAO taps, K3 TAA reprojection, K3f
 the fused TAA resolve, K4 shadow depth resolve, K5 texture tap, K6 noise
-sky LUT, K6p procedural sky LUT, K7 local lights, K8 the SSR march)
+sky LUT, K6p procedural sky LUT, K7 local lights, K8 the SSR march, K9
+the G-buffer resolve)
 against their plain PyTorch versions on the card, at small sizes (K7 at
 the lit atrium's 1920x1088), and small frames of the terrain and of the
 two multi-entity scenes through both paths.
@@ -41,10 +42,11 @@ pytestmark = pytest.mark.cuda
 
 # the kernels no frame of a scene with the cloud-noise texture, no light
 # and SSR off launches: K6p (the procedural LUT), K3 alone (the frame's
-# TAA is the fused resolve, taa_resolve, whose fetch is K3's), K7 (the
-# local lights) and K8 (the SSR march)
-OFF_FRAME = ("sky_lut_procedural", "taa_reproject", "local_lights",
-             "ssr_march")
+# TAA is the fused resolve, taa_resolve, whose fetch is K3's), K5 alone
+# (the frame's G-buffer resolve, K9, taps through K5's device code), K7
+# (the local lights) and K8 (the SSR march)
+OFF_FRAME = ("sky_lut_procedural", "taa_reproject", "texsample",
+             "local_lights", "ssr_march")
 
 
 @pytest.fixture
@@ -459,11 +461,11 @@ def test_small_frame_kernel_path_matches_plain(dev):
         op, hp = fm.render_frame(built.plan, built.batch, g, hp, mm, nm,
                                  impl="plain")
     torch.cuda.synchronize()
-    assert kb.launches == {"resolve": 3, "resolve_depth": 0, "texsample": 3,
+    assert kb.launches == {"resolve": 3, "resolve_depth": 0, "texsample": 0,
                            "ssao_taps": 3, "sky_lut": 0,
                            "sky_lut_procedural": 3, "taa_reproject": 0,
                            "taa_resolve": 3, "local_lights": 0,
-                           "ssr_march": 0}
+                           "ssr_march": 0, "gbuffer_resolve": 3}
     assert not kb.variant_launches
     assert torch.isfinite(ok.color).all()
     assert (ok.color - op.color).abs().max().item() < 1e-5
@@ -720,6 +722,165 @@ def test_texture_benches_on_the_card(dev, tmp_path):
                 assert r["max_abs_err"] == 0.0, r
 
 
+# --- K9, the G-buffer resolve (ops/gbuffer.py, kernels/csrc/gbuffer.cu) --
+
+GBUFFER_TARGETS = ("albedo", "emissive", "normal", "metallic_roughness",
+                   "velocity", "depth")
+
+
+def _small_terrain(dev, width=256, height=128):
+    """The reduced terrain (64^2 heightmap, one material, sky pixels) at
+    width x height, built on the card."""
+    hm = terrain.procedural_heightmap(64)
+    model = terrain.build_terrain_model(hm, terrain.default_albedo(hm),
+                                        tess_level=1)
+    scene = Scene("terrain")
+    e = scene.create_entity("terrain")
+    e.add_component(TransformComponent())
+    e.add_component(MeshComponent()).model = model
+    return scenes._finish(scene, [model], RenderConfig(width=width,
+                                                       height=height),
+                          [20.0, 12.0, 20.0], [50, 0, 50], device=dev,
+                          atlas_size=64)
+
+
+def _gbuffer_inputs(built, g=None, mm=None, nm=None):
+    """(vis, records, atlas, prev_view_proj, size keywords) of frame 1 of
+    `built` (or of the globals given)."""
+    if g is None:
+        g, mm, nm = built.frame_globals(1)
+    vis, recs, _, _ = fm.raster_stage(built.plan, built.batch, g, mm, nm)
+    plan = built.plan
+    return (vis, recs, built.batch.atlas_packed,
+            g.camera_prev.projection_view,
+            dict(atlas_size=plan.atlas_size,
+                 layer_stride=plan.atlas_layer_stride,
+                 n_levels=plan.atlas_n_levels))
+
+
+def _gbuffer_both(vis, recs, atlas, vp, kw, mode="bilinear", **band):
+    """K9 and the plain resolve_gbuffer on the same inputs: one K9 launch,
+    no K5 launch, every target bit for bit (NaN at the same places) in
+    the plain version's shape, each of K9's five stored planar (C, *V,
+    H, W) and dense, as the frame's path stored them through K5.
+    Returns K9's G-buffer."""
+    from soc_real_time_renderer_tpu_torch.ops import gbuffer
+    n0 = dict(kb.launches)
+    k = gbuffer.resolve_gbuffer(vis, recs, atlas, vp, filter_mode=mode,
+                                **kw, **band)
+    assert kb.launches["gbuffer_resolve"] == n0["gbuffer_resolve"] + 1
+    assert kb.launches["texsample"] == n0["texsample"]
+    p = gbuffer.resolve_gbuffer(vis, recs, atlas, vp, filter_mode=mode,
+                                impl="plain", **kw, **band)
+    torch.cuda.synchronize()
+    assert {n: v for n, v in kb.launches.items() if n != "gbuffer_resolve"} \
+        == {n: v for n, v in n0.items() if n != "gbuffer_resolve"}
+    nv = vis.tri_id.dim() - 2
+    for name in GBUFFER_TARGETS:
+        a, b = getattr(k, name), getattr(p, name)
+        assert a.shape == b.shape, name
+        assert name == "depth" or a.movedim(nv, 0).is_contiguous(), name
+        _same(a, b)
+    return k
+
+
+@pytest.mark.parametrize("scene", ["terrain", "full_nohelmet"])
+@pytest.mark.parametrize("mode", ["nearest", "bilinear", "trilinear", "none"])
+def test_gbuffer_kernel_matches_plain(dev, scene, mode):
+    """K9 on frame 1 of the reduced terrain (one material, the terrain
+    branch, sky pixels) and of the small full_nohelmet (six materials
+    and the terrain, TBN, velocity) at 256x128, in each filter mode and
+    the probe "none": one launch, bit for bit the plain version."""
+    built = (_small_terrain(dev) if scene == "terrain" else
+             kit.build_port("full_nohelmet",
+                            RenderConfig(width=256, height=128), dev))
+    vis, recs, atlas, vp, kw = _gbuffer_inputs(built)
+    live = (vis.tri_id >= 0).float().mean().item()
+    assert (0.05 < live < 0.95) if scene == "terrain" else live > 0.5
+    k = _gbuffer_both(vis, recs, atlas, vp, kw, mode)
+    assert torch.isfinite(k.albedo).all() and torch.isfinite(k.normal).all()
+
+
+def test_gbuffer_kernel_takes_four_views_in_one_launch(dev):
+    """Four views of the small atrium_lifted from distinct cameras in one
+    K9 launch (views on blockIdx.z, each its own adjugate rows and
+    prev_view_proj): bit for bit the plain version, and each view equals
+    K9 on that view alone."""
+    built = kit.build_port("atrium_lifted",
+                           RenderConfig(width=256, height=128,
+                                        shadow_resolution=512), dev)
+    gb, _, mm, nm = _views(built, 4)
+    vis, recs, atlas, vp, kw = _gbuffer_inputs(built, gb, mm, nm)
+    assert vis.tri_id.shape == (4, 128, 256) and vp.shape == (4, 4, 4)
+    k = _gbuffer_both(vis, recs, atlas, vp, kw, "trilinear")
+    assert not torch.equal(k.normal[0], k.normal[1])
+    for i in range(4):
+        one = _gbuffer_both(
+            raster2.VisibilityBuffer(depth=vis.depth[i],
+                                     tri_id=vis.tri_id[i],
+                                     overflow=vis.overflow[i]),
+            recs[:, i], atlas, vp[i], kw, "trilinear")
+        for name in GBUFFER_TARGETS:
+            assert torch.equal(getattr(k, name)[i], getattr(one, name)), name
+
+
+def test_gbuffer_kernel_bands_equal_the_whole_screen(dev):
+    """Two row bands of full_nohelmet's frame (row0, full_h), each one K9
+    launch against its plain version, together equal to the whole
+    screen's K9 call bit for bit."""
+    built = kit.build_port("full_nohelmet",
+                           RenderConfig(width=256, height=128), dev)
+    vis, recs, atlas, vp, kw = _gbuffer_inputs(built)
+    whole = _gbuffer_both(vis, recs, atlas, vp, kw)
+    for a, b in ((0, 68), (68, 128)):
+        band = raster2.VisibilityBuffer(depth=vis.depth[a:b],
+                                        tri_id=vis.tri_id[a:b],
+                                        overflow=vis.overflow)
+        got = _gbuffer_both(band, recs, atlas, vp, kw, row0=a, full_h=128)
+        for name in GBUFFER_TARGETS:
+            assert torch.equal(getattr(got, name),
+                               getattr(whole, name)[..., a:b, :]), name
+
+
+@pytest.mark.parametrize("mode", ["bilinear", "trilinear"])
+def test_gbuffer_kernel_hand_built_records(dev, mode):
+    """K9 on hand-built records (torch_scene_kit.hand_gbuffer_inputs: D ==
+    0, pc_w == 0, a zero tangent, the terrain branch, an all-miss block)
+    over a random 3-material atlas: bit for bit the plain version; the
+    miss block is the sky clear."""
+    atlas = _toy_atlas()
+    table = torch.from_numpy(expand_atlas_bilinear(atlas)).to(dev)
+    vis, rec, vp = kit.hand_gbuffer_inputs(dev)
+    kw = dict(atlas_size=atlas.size, layer_stride=atlas.layer_stride,
+              n_levels=atlas.n_levels)
+    k = _gbuffer_both(vis, rec, table, vp, kw, mode)
+    sky = torch.tensor([0.2, 0.4, 1.0], device=dev)[:, None, None]
+    assert torch.equal(k.albedo[:, 8:16, 32:64],
+                       sky.expand(3, 8, 32))
+    assert not k.velocity[:, 8:16, 32:64].any()
+    assert torch.isfinite(k.normal).all() and torch.isfinite(k.velocity).all()
+
+
+def test_gbuffer_call_does_not_wait_for_the_card(dev):
+    """resolve_gbuffer enqueued behind a sleeping kernel returns before
+    the sleep ends: K9's wrapper makes no blocking copy or read."""
+    import time
+    from soc_real_time_renderer_tpu_torch.ops import gbuffer
+    built = _small_terrain(dev)
+    vis, recs, atlas, vp, kw = _gbuffer_inputs(built)
+    gbuffer.resolve_gbuffer(vis, recs, atlas, vp, **kw)     # build
+    torch.cuda.synchronize()
+    done = torch.cuda.Event()
+    torch.cuda._sleep(1 << 28)               # ~0.14 s at 1.98 GHz
+    t0 = time.perf_counter()
+    gbuffer.resolve_gbuffer(vis, recs, atlas, vp, **kw)
+    host = time.perf_counter() - t0
+    done.record()
+    assert not done.query(), "the sleep ended before the check"
+    torch.cuda.synchronize()
+    assert host < 0.1
+
+
 SKY_CASES = {
     # name: (lut_w, lut_h, sun direction or None, elapsed time, noise)
     "frame": (256, 128, None, 3.0, "field"),
@@ -885,9 +1046,10 @@ def test_small_scene_kernel_path_matches_plain(dev, name):
         op, hp = fm.render_frame(built.plan, built.batch, g, hp, mm, nm,
                                  impl="plain")
     torch.cuda.synchronize()
-    want = {"resolve": 3, "texsample": 3, "ssao_taps": 3, "sky_lut": 3,
+    want = {"resolve": 3, "texsample": 0, "ssao_taps": 3, "sky_lut": 3,
             "sky_lut_procedural": 0, "taa_reproject": 0,
             "taa_resolve": 3, "local_lights": 0, "ssr_march": 0,
+            "gbuffer_resolve": 3,
             "resolve_depth": 0 if name == "full_nohelmet" else 3}
     assert kb.launches == want
     assert torch.isfinite(ok.color).all()
@@ -1120,11 +1282,10 @@ def _views(built, B, positions=VIEW_POSITIONS):
 
 @pytest.mark.parametrize("B", [3, 1])
 def test_batched_kernels_match_plain(dev, B):
-    """Each of K1, K4, K5, K2, K6 and K3f on the inputs of a batched frame
+    """Each of K1, K4, K9, K2, K6 and K3f on the inputs of a batched frame
     of the small atrium_lifted (B views from distinct cameras, so of
     different content) against its plain version with the same view
-    axis: bit-identical (tri_id equal); K5's views folded into its pixel
-    axis.  The inputs are recorded as chip_smoke.py's batched phase
+    axis: bit-identical (tri_id equal; K9's five targets).  The inputs are recorded as chip_smoke.py's batched phase
     records them."""
     import chip_smoke
     from soc_real_time_renderer_tpu_torch.parallel import mesh as pmesh
@@ -1142,7 +1303,7 @@ def test_batched_kernels_match_plain(dev, B):
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
-        lead = B if k != "texsample" else 11
+        lead = B
         for x, y in zip(got, want):
             assert x.shape[0] == lead, (k, x.shape)
             assert torch.equal(x, y), k
@@ -1418,7 +1579,7 @@ def test_band_taa_kernel_matches_plain(dev, views):
 
 def test_sharded_frame_on_one_card(dev):
     """Two frames of the small atrium_lifted (all six kernels) split in
-    four row bands over a ["cuda:0"] * 4 mesh: K1, K4, K5, K2 and K3f
+    four row bands over a ["cuda:0"] * 4 mesh: K1, K4, K9, K2 and K3f
     launch once per band, K6 once (one distinct device); colour, history
     and exposure within 1e-6 of the unsplit frame.  Then the meshed
     batched step over a (dp = 2, sp = 2) mesh of the card: each view
@@ -1438,11 +1599,11 @@ def test_sharded_frame_on_one_card(dev):
         out, hs = fm.render_frame(splan, built.batch, g, hs, mm, nm)
         torch.cuda.synchronize()
         assert kb.launches == {"resolve": 4, "resolve_depth": 4,
-                               "texsample": 4, "ssao_taps": 4, "sky_lut": 1,
+                               "texsample": 0, "ssao_taps": 4, "sky_lut": 1,
                                "sky_lut_procedural": 0,
                                "taa_reproject": 0,
                                "taa_resolve": 4, "local_lights": 0,
-                               "ssr_march": 0}, \
+                               "ssr_march": 0, "gbuffer_resolve": 4}, \
             kb.launches
         want, hu = fm.render_frame(built.plan, built.batch, g, hu, mm, nm)
         assert [b.shape for b in out.color] == [(3, 32, 256)] * 4
@@ -1466,9 +1627,9 @@ def test_sharded_frame_on_one_card(dev):
 def test_bench_loop_launches_once_and_never_waits(dev, texture_filter):
     """tools/bench.py's timed loop on the card (the small terrain at
     256x128, 3 staged frames): each kernel of the plan's path once a
-    frame and no other (texture filter "none", bench_toggle's tex_none,
-    takes K5 off it), and no call inside the loop waits for the card
-    (the exposure histogram's bincount once did, twice a frame)."""
+    frame and no other (K9 in both filter modes: "none", bench_toggle's
+    tex_none, is a mode of it), and no call inside the loop waits for the
+    card (the exposure histogram's bincount once did, twice a frame)."""
     from soc_real_time_renderer_tpu_torch.tools import bench
     hm = terrain.procedural_heightmap(64)
     model = terrain.build_terrain_model(hm, terrain.default_albedo(hm),
@@ -1484,9 +1645,8 @@ def test_bench_loop_launches_once_and_never_waits(dev, texture_filter):
     staged = bench.stage(built, plan, 3)
     bench.run(built, plan, staged)
     t = bench.run(built, plan, staged)
-    want = ["resolve", "ssao_taps", "taa_resolve", "sky_lut_procedural"]
-    if texture_filter != "none":
-        want.insert(1, "texsample")
+    want = ["resolve", "gbuffer_resolve", "ssao_taps", "taa_resolve",
+            "sky_lut_procedural"]
     assert t.path == want
     assert t.launches == {k: (3 if k in want else 0) for k in t.launches}
     assert t.syncs == {}

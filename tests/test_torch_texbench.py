@@ -323,13 +323,17 @@ def test_texsample_cu_variant_table():
     on the card's machine) instantiates, for each id, exactly the
     template ops/texsample.VARIANTS states (store, pixels, lanes, stages
     off), named in its comment; texsample_launch instantiates the
-    production choices alone; the stage bits and store ids agree with
-    STORE_IDS / SKIP_BITS; the export is typed with 13 arguments."""
-    with open(os.path.join(os.path.dirname(kb.__file__), "csrc",
-                           "texsample.cu")) as f:
+    production choices alone; the stage bits (texsample.cuh, the tap
+    code K5 shares with K9) and store ids agree with STORE_IDS /
+    SKIP_BITS; the export is typed with 13 arguments."""
+    csrc = os.path.join(os.path.dirname(kb.__file__), "csrc")
+    with open(os.path.join(csrc, "texsample.cu")) as f:
         src = f.read()
+    with open(os.path.join(csrc, "texsample.cuh")) as f:   # the stage bits
+        header = f.read()
+    assert '#include "texsample.cuh"' in src
     consts = dict(re.findall(r"constexpr int (k\w+) = (0x[0-9a-f]+|\d+);",
-                             src))
+                             src + header))
     stores = {"planar": "kPlanar", "interleaved": "kInterleaved",
               "interleaved_bf16": "kInterleavedBf16", "sum": "kSum",
               "guard": "kGuard"}

@@ -23,6 +23,8 @@ port.
   the per-pixel cloud march.
 * ``cloud_noise``: the synthetic (64, 64) tiled noise field of
   tests/test_sky_pallas.py (the shape class of assets/Clouds/noise.png).
+* ``hand_gbuffer_inputs``: a visibility buffer, shading records and a
+  previous camera built by hand for the G-buffer resolve's edge cases.
 
 The JAX package is imported only inside the functions that build its
 side, so the port-only tests (tests/test_torch_cuda.py) can use this
@@ -297,3 +299,43 @@ def build_pair(name, jcfg_obj, pcfg_obj, *, atrium_scale=0.01,
     kw = dict(atrium_scale=atrium_scale, atlas_size=atlas_size, noise=noise)
     return (build_jax(name, jcfg_obj, **kw),
             build_port(name, pcfg_obj, "cpu", **kw))
+
+
+def hand_gbuffer_inputs(device):
+    """(vis, records, prev_view_proj) on a 64x32 screen of four hand-built
+    triangles and the sentinel: triangle 0 has all-zero edge rows (D ==
+    0), triangle 1 lies at z = 0 under a prev_view_proj whose w row is
+    (0, 0, 1, 0) (pc_w == 0), triangle 2 has v = 0 at every vertex (a
+    zero tangent: normalize3's clamp), triangle 3 is terrain; materials
+    0-2 (a 3-material atlas); the 32x8 block at x >= 32, 8 <= y < 16
+    misses entirely, and misses are sprinkled elsewhere."""
+    from soc_real_time_renderer_tpu_torch.ops import raster2
+    rng = np.random.default_rng(25)
+    T = 4
+    rec = np.zeros((40, T + 1), np.float32)
+    rec[0:9:3, :T] = rng.uniform(-0.01, 0.01, (3, T))    # d/dx
+    rec[1:9:3, :T] = rng.uniform(-0.01, 0.01, (3, T))    # d/dy
+    rec[2:9:3, :T] = rng.uniform(0.5, 1.5, (3, T))
+    rec[0:9, 0] = 0.0                                    # D == 0
+    rec[9:18, :T] = rng.uniform(-5, 5, (9, T))
+    rec[[11, 14, 17], 1] = 0.0                           # z = 0: pc_w == 0
+    rec[18:27, :T] = rng.uniform(-1, 1, (9, T))
+    rec[27:33, :T] = rng.uniform(-2, 3, (6, T))
+    rec[[28, 30, 32], 2] = 0.0                           # v = 0: no tangent
+    rec[33, :T] = [0, 1, 2, 1]                           # material
+    rec[34, :T] = [1, 1, 1, 0]                           # has_normal
+    rec[35, :T] = [1, 0, 1, 1]                           # has_mr
+    rec[36, :T] = [0, 1, 1, 0]                           # has_emissive
+    rec[37, :T] = [0, 0, 0, 1]                           # is_terrain
+    tri = rng.integers(0, T, (32, 64)).astype(np.int32)
+    tri[rng.random((32, 64)) < 0.1] = -1
+    tri[8:16, 32:64] = -1
+    vp = rng.uniform(-1, 1, (4, 4)).astype(np.float32)
+    vp[3] = [0.0, 0.0, 1.0, 0.0]
+    depth = np.where(tri >= 0, 0.5, 1.0).astype(np.float32)
+    vis = raster2.VisibilityBuffer(
+        depth=torch.from_numpy(depth).to(device),
+        tri_id=torch.from_numpy(tri).to(device),
+        overflow=torch.zeros((), dtype=torch.int32, device=device))
+    return (vis, torch.from_numpy(rec).to(device),
+            torch.from_numpy(vp).to(device))
