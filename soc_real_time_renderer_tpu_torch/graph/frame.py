@@ -638,7 +638,7 @@ def render_frame(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
     versions (comparisons only); "cuda" demands the kernels.  Globals
     and history with a leading view axis render that batch of views
     (see the module docstring; parallel/mesh.make_batched_render_fn)."""
-    with trace.span("frame.render"):
+    with trace.span("frame.render", _clock_device(plan, g)):
         with trace.span("frame.proofs"):
             check_sun_proof(plan, g)
             check_shadow_crop(plan, model_mats)
@@ -646,6 +646,17 @@ def render_frame(plan: FramePlan, batch: SceneBatch, g: ShaderGlobals,
             plan, batch, g, model_mats, normal_mats, impl=impl)
         return shade_stage(plan, batch, g, history, vis, records,
                            shadow_map, overflow, impl=impl)
+
+
+def _clock_device(plan: FramePlan, g: ShaderGlobals):
+    """The device whose clock brackets the frame (utils/trace.span): g's,
+    but None for a frame split in row bands (several devices) or for the
+    call that captures the frame's CUDA graphs."""
+    graphs = replay.active()
+    if _shard(plan) is not None or (graphs is not None
+                                     and not graphs.complete):
+        return None
+    return g.frame_counter.device
 
 
 def make_render_fn(plan: FramePlan, impl: str | None = None):

@@ -97,7 +97,7 @@ class segment:
         self.name = name
 
     def __enter__(self):
-        self._span = trace.span(self.name)
+        self._span = trace.span(self.name, trace.NESTED)
         self._span.__enter__()
         graphs = active()
         self._token = None
@@ -272,7 +272,7 @@ class FrameGraphs:
             self._feed(st, leaves)
             for item in st.items:
                 if isinstance(item, _Segment):
-                    with trace.span(item.name):
+                    with trace.span(item.name, trace.NESTED):
                         self._replay(item)
                 else:
                     self._call(item)
@@ -405,14 +405,18 @@ def _diff(a, b) -> dict:
 
 def _copy(dst, src):
     """dst[i].copy_(src[i]) for every i: one foreach launch per pair of
-    dtypes."""
+    dtypes; inside a frame (a seam's copies), a bracket of the device
+    clock."""
+    if not dst:
+        return
     groups: dict = {}
     for d, s in zip(dst, src):
         ds, ss = groups.setdefault((d.dtype, s.dtype), ([], []))
         ds.append(d)
         ss.append(s)
-    for ds, ss in groups.values():
-        torch._foreach_copy_(ds, ss)
+    with trace.bracket("replay.copy"):
+        for ds, ss in groups.values():
+            torch._foreach_copy_(ds, ss)
 
 
 _FIELDS: dict = {}

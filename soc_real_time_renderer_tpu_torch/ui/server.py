@@ -16,7 +16,12 @@ page, endpoints and settings map:
   ``BuiltScene.rebuild`` (a changed mesh set re-packs the batch);
 * ``POST /resize``   window resize (swapchain resize + framebuffer
   recreation + camera.resize), applied between frames;
-* ``GET /metrics``   frame ms, latency ms, fps, frame, cap telemetry.
+* ``GET /metrics``   frame ms, latency ms, fps, frame, cap telemetry,
+  and the reference's per-task GPU timings (its HUD): the device ms of
+  each pass of the newest frame the device clock read
+  (``utils/trace.last_frame``), by category
+  (``utils/metrics.GPUMetricPool``), and that frame's idle device ms;
+  empty on the CPU.
 
 The render thread (:func:`render_loop`) is a daemon, as in the JAX
 package: an exception there stops the frames without failing anything,
@@ -45,7 +50,9 @@ from ..camera import InputState
 from ..graph import frame as frame_mod
 from ..ops import sampling
 from ..scene.components import MeshComponent
+from ..utils import trace
 from ..utils.image_io import to_srgb_u8
+from ..utils.metrics import GPUMetricPool
 from . import widgets
 from .scene_panel import SceneHiearchyPanel
 
@@ -173,6 +180,34 @@ class ViewerState:
         self.lock = threading.Lock()
 
 
+# the reference's task a pass of the port is part of, for the HUD's
+# categories (GPUMetricPool.CATEGORIES); a pass not named here is matched
+# by its own name
+HUD_TASKS = {"raster.transform": "depth prepass",
+             "raster.main": "depth prepass",
+             "raster.records": "depth prepass",
+             "shade.hiz": "depth prepass", "shade.gbuffer": "g-buffer",
+             "shade.sky_lut": "clouds", "shade.compose": "composition",
+             "shade.exposure": "luminance"}
+
+
+def pass_times() -> dict:
+    """The newest frame's device ms per pass (``pass_ms``), summed by the
+    reference's categories (``category_ms``), and its idle device ms
+    (``device_idle_ms``), from the device clock (utils/trace.last_frame);
+    empty and None where it read no frame (the CPU)."""
+    f = trace.last_frame()
+    if f is None:
+        return {"pass_ms": {}, "category_ms": {}, "device_idle_ms": None}
+    pool = GPUMetricPool()
+    for name, ms in f["passes"].items():
+        pool.get(HUD_TASKS.get(name, name)).time_elapsed += ms
+    return {"pass_ms": {n: round(ms, 3) for n, ms in f["passes"].items()},
+            "category_ms": {c: round(ms, 3)
+                            for c, ms in pool.category_totals().items()},
+            "device_idle_ms": round(f["idle_ms"], 3)}
+
+
 def render_loop(state: ViewerState, frames_in_flight: int = 2):
     """The Application::run analog, with the JAX loop's frames-in-flight
     pipelining (renderer.cpp:137,646 swapchain analog): frame N+1 is
@@ -257,7 +292,8 @@ def render_loop(state: ViewerState, frames_in_flight: int = 2):
                          # tap is exact, it has no dirty-tile fallback)
                          "overflow": int(getattr(outs, "overflow", 0)),
                          "tex_dirty": int(getattr(outs, "tex_dirty",
-                                                  -1))}
+                                                  -1)),
+                         **pass_times()}
 
 
 def _rebake_terrain(built, params):

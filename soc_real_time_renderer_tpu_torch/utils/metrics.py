@@ -1,13 +1,17 @@
-"""Per-pass timing harness: the GPUMetric/ImPlot HUD analog.
+"""Per-pass timers out of the frame, and the HUD's categories.
 
 Counterpart of the JAX package's ``utils/metrics.py``.  The reference
-brackets every task with timestamp queries
+brackets every task of the live frame with timestamp queries
 (``utils/gpu_metric.{hpp,cpp}``: start/end per task, elapsed ms
 readback) and plots them grouped by category (``renderer.cpp:517-588,
-769-806``).  Here :meth:`GPUMetric.measure` times a pass's function with
-two CUDA events around `iters` calls after one warm call; only a caller
-that asks for ``device="cpu"`` gets the host clock instead.  A missing
-card raises (``config.resolve_device``).
+769-806``).  The port's live per-pass timings are ``utils/trace``'s
+device clock (CUDA events at the edges of each pass of every frame,
+read back without waiting; the viewer's ``/metrics`` groups them with
+:attr:`GPUMetricPool.CATEGORIES`).  :meth:`GPUMetric.measure` instead
+times a pass's function out of the frame: two CUDA events around
+`iters` calls after one warm call; only a caller that asks for
+``device="cpu"`` gets the host clock instead.  A missing card raises
+(``config.resolve_device``).
 
 :func:`cuda_ms`, :func:`device_ms` and :func:`l2_flush` time one call on
 the card, per call (the host's launch path included) and on the card

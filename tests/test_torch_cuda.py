@@ -37,6 +37,7 @@ from soc_real_time_renderer_tpu_torch.ops import clouds, raster2, sky, \
 from soc_real_time_renderer_tpu_torch.scene.components import \
     MeshComponent, TransformComponent
 from soc_real_time_renderer_tpu_torch.scene.scene import Scene
+from soc_real_time_renderer_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
 
@@ -1833,6 +1834,7 @@ def test_frames_never_wait_for_the_card(dev, name):
     built = kit.build_port(name, UPLOAD_CFG, dev)
     render = fm.make_render_fn(built.plan)
     h = fm.RenderHistory.create(built.plan.config, device=dev)
+    trace.reset()
     try:
         for k in range(13):
             if k == 3:
@@ -1840,10 +1842,15 @@ def test_frames_never_wait_for_the_card(dev, name):
                 torch.cuda.set_sync_debug_mode("error")
             g, mm, nm = built.frame_globals(k)
             out, h = render(built.batch, g, h, mm, nm)
+            trace.last_frame()          # the device clock reads, unwaiting
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert torch.isfinite(out.color).all()
+    # the clock ran all along: the last frame, replayed, read whole
+    f = trace.last_frame()
+    assert {"raster.main", "shade.taa", "replay.copy"} <= set(f["passes"])
+    assert 0 < sum(f["passes"].values()) <= f["ms"] + 1e-3
 
 
 def test_batched_step_never_waits_for_the_card(dev):
@@ -1857,6 +1864,7 @@ def test_batched_step_never_waits_for_the_card(dev):
     hb = pmesh.batched_history([fm.RenderHistory.create(
         built.plan.config, device=dev) for _ in range(4)])
     cams = None
+    trace.reset()
     try:
         for k in range(8):
             if k == 3:
@@ -1869,10 +1877,155 @@ def test_batched_step_never_waits_for_the_card(dev):
             cams = [g.camera for g in gs]
             colors, hb = step(built.batch, pmesh.batched_globals(gs), hb,
                               mm, nm)
+            trace.last_frame()          # the device clock reads, unwaiting
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert colors.shape[0] == 4 and torch.isfinite(colors).all()
+    # the clock ran on the eager step: one frame a step, its passes
+    f = trace.last_frame()
+    assert {"raster.main", "shade.taa"} <= set(f["passes"])
+    assert "replay.copy" not in f["passes"]
+    assert 0 < sum(f["passes"].values()) <= f["ms"] + 1e-3
+
+
+def test_the_capture_call_records_no_event(dev, monkeypatch):
+    """make_render_fn's first calls: the eager warm-ups and each replay
+    bracket their passes on the device clock; the call that captures the
+    graphs records no event."""
+    import inspect
+    built = kit.build_port("full_nohelmet", UPLOAD_CFG, dev)
+    render = fm.make_render_fn(built.plan)
+    graphs = inspect.getclosurevars(render).nonlocals["graphs"]
+    h = fm.RenderHistory.create(built.plan.config, device=dev)
+    made = []
+    real = trace._event
+    monkeypatch.setattr(trace, "_event",
+                        lambda stream: (made.append(stream), real(stream))[1])
+    calls = {}
+    for k in range(5):
+        g, mm, nm = built.frame_globals(k)
+        made.clear()
+        kind = "replay" if graphs.stages else "warm"
+        out, h = render(built.batch, g, h, mm, nm)
+        if kind == "warm" and graphs.stages:
+            kind = "capture"
+        torch.cuda.synchronize()
+        calls[kind] = (len(made), trace.last_frame())
+    (warm, fw), (capture, _), (replayed, fr) = \
+        calls["warm"], calls["capture"], calls["replay"]
+    assert capture == 0
+    assert warm >= 2 + 2 * len(fw["passes"]) and "shade.taa" in fw["passes"]
+    assert replayed >= 2 + 2 * len(fr["passes"])
+    assert "replay.copy" in fr["passes"]
+    assert [n for n in fr["passes"] if n.startswith(("raster.", "shade."))] \
+        == [n for n in fw["passes"] if n.startswith(("raster.", "shade."))]
+
+
+@pytest.fixture(scope="module")
+def full_screen():
+    """full_nohelmet (the kit's small atrium and terrain) at 1920x1088 on
+    the card, through make_render_fn, past its warm-up and capture:
+    (built, render, [history, next frame index])."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda:0")
+    built = kit.build_port("full_nohelmet",
+                           RenderConfig(width=1920, height=1088), dev)
+    render = fm.make_render_fn(built.plan)
+    h = fm.RenderHistory.create(built.plan.config, device=dev)
+    for k in range(3):
+        g, mm, nm = built.frame_globals(k)
+        out, h = render(built.batch, g, h, mm, nm)
+    torch.cuda.synchronize()
+    return built, render, [h, 3]
+
+
+def _frames(state, n):
+    built, render, carry = state
+    for _ in range(n):
+        g, mm, nm = built.frame_globals(carry[1])
+        _, carry[0] = render(built.batch, g, carry[0], mm, nm)
+        carry[1] += 1
+
+
+def _behind_a_sleep(state, eager=False):
+    """One frame, its globals uploaded, then enqueued behind a ~135 ms
+    sleeping kernel, so that the card runs it back to back: replayed, or
+    eager (render_frame called directly); the device ms between two
+    events around the render call (the harness's end-of-frame marks),
+    and the clock's reading of the frame."""
+    built, render, carry = state
+    g, mm, nm = built.frame_globals(carry[1])
+    torch.cuda._sleep(1 << 28)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    if eager:
+        _, carry[0] = fm.render_frame(built.plan, built.batch, g, carry[0],
+                                      mm, nm)
+    else:
+        _, carry[0] = render(built.batch, g, carry[0], mm, nm)
+    carry[1] += 1
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b), trace.last_frame()
+
+
+@pytest.mark.parametrize("eager", [True, False], ids=["eager", "replayed"])
+def test_the_device_clock_times_the_whole_frame(full_screen, eager):
+    """Frames at 1920x1088 behind a sleep: the passes and copies fill the
+    clock's frame (under 2% of it idle).  An eager frame's clock equals
+    the events' interval around the call within 2%; a replayed frame's
+    interval also holds the copy of its inputs into the graphs' static
+    tensors, which lies before frame.render: under 5% more."""
+    trace.reset()
+    for _ in range(4):
+        ms, f = _behind_a_sleep(full_screen, eager)
+        assert abs(f["idle_ms"]) < 0.02 * f["ms"], (ms, f)
+        assert sum(f["passes"].values()) + f["idle_ms"] == pytest.approx(
+            f["ms"])
+        if eager:
+            assert f["ms"] == pytest.approx(ms, rel=0.02), (ms, f)
+        else:
+            assert 0.95 * ms < f["ms"] < ms * 1.001, (ms, f)
+
+
+def test_the_device_clock_agrees_with_the_profiler(full_screen):
+    """Three replayed frames at 1920x1088 read by the clock, each behind
+    a sleep, then three more under torch.profiler behind one: for each
+    pass of 0.3 device ms or more, the clock's device ms equal the
+    profiler's (its kernels linked to the pass's span,
+    benchmark/passes.program_records) within 10% plus 2 us a launch:
+    an interval holds the gaps between kernels that a sum of kernel
+    times leaves out; the clock records nothing under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from benchmark import passes
+    trace.reset()
+    clock: dict = {}
+    for _ in range(3):
+        _, f = _behind_a_sleep(full_screen)
+        for n, ms in f["passes"].items():
+            clock[n] = clock.get(n, 0.0) + ms
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1 << 28)
+        _frames(full_screen, 3)
+        torch.cuda.synchronize()
+    assert trace.last_frame() is f
+    events = prof.events()
+    window = (min(e.time_range.start for e in events),
+              max(e.time_range.end for e in events))
+    prog = passes.program_records(events, window)["program"]
+    big = [n for n, ms in clock.items() if n.startswith(("raster.", "shade."))
+           and ms / 3 >= 0.3]
+    assert len(big) >= 4, clock
+    for n in big:
+        p = prog[n]
+        assert p["calls"] == 3
+        kernels_ms = p["device_s"] * 1e3
+        assert abs(clock[n] - kernels_ms) \
+            <= 0.10 * kernels_ms + 0.002 * p["launches"], (n, clock[n], p)
 
 
 def test_uploads_behind_a_busy_card_keep_their_values(dev, monkeypatch):

@@ -258,3 +258,234 @@ def test_frame_globals_uploads_every_leaf_inside_globals_upload(
     assert g.camera.view.device.type == "meta" and mm.device.type == "meta"
     assert trace.snapshot()["counters"]["h2d_copies"] == 2 * 1
     assert set(at) == {"globals.upload"}
+
+
+def test_unprofiled_holds_the_latest_stretch_without_a_profiler():
+    with trace.span("setup"):
+        trace.counters["h2d_copies"] += 5
+    u = trace.unprofiled()                 # open until a span sees a start
+    assert u["totals"]["setup"]["calls"] == 1
+    assert u["counters"] == {"h2d_copies": 5}
+    for frames in (3, 2):
+        with profile(activities=[ProfilerActivity.CPU]):
+            with trace.span("traced"):
+                trace.counters["h2d_copies"] += 1
+        u = trace.unprofiled()             # the stretch before: closed
+        assert "traced" not in u["totals"]
+        for _ in range(frames):
+            with trace.span("untraced"):
+                trace.counters["h2d_copies"] += 7
+                kb.launches["taa_reproject"] += 1
+        u = trace.unprofiled()
+        assert set(u["totals"]) == {"untraced"}
+        assert u["totals"]["untraced"]["calls"] == frames
+        assert u["counters"] == {"h2d_copies": 7 * frames}
+        assert u["launches"] == {"taa_reproject": frames}
+        assert trace.profiled()["totals"]["traced"]["calls"] == 1
+    kb.reset_launches()
+    trace.reset()
+    assert trace.unprofiled() is None and trace.profiled() is None
+
+
+class _Card:
+    """A stand-in for one card's stream and timing events: an event takes
+    the card time `t` when it is recorded, and has completed once `done`
+    reaches it.  `made` counts the events created."""
+
+    def __init__(self):
+        self.t, self.done, self.made = 0.0, float("inf"), 0
+        self.device_index = 0
+        card = self
+
+        class Event:
+            def __init__(self, enable_timing=False):
+                assert enable_timing
+                card.made += 1
+
+            def record(self, stream):
+                assert stream is card
+                self.at = card.t
+
+            def query(self):
+                return self.at <= card.done
+
+            def elapsed_time(self, end):
+                # the clock reads completed events only
+                assert self.query() and end.query()
+                return end.at - self.at
+        self.Event = Event
+
+
+@pytest.fixture
+def card(monkeypatch):
+    c = _Card()
+    monkeypatch.setattr(torch.cuda, "Event", c.Event)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: c)
+    return c
+
+
+CUDA = torch.device("cuda")
+
+
+def _clocked_frame(card, host_gap=2.0, pass_ms=3.0):
+    """One frame on the stand-in card, in card ms: the caller's `host_gap`
+    with an upload (no bracket), then frame.render: 0.2 idle, a read from
+    the card (no work), a pass of `pass_ms` with a nested span inside,
+    0.5 idle, a seam's copy of 0.25, a pass of 4.0, 0.1 idle."""
+    card.t += host_gap
+    with trace.span("scene.frame_globals"):
+        with trace.span("globals.upload"):
+            card.t += 0.1
+    with trace.span("frame.render", CUDA):
+        card.t += 0.2
+        with trace.bracket("read_back"):
+            pass
+        with trace.span("raster.main", trace.NESTED):
+            with trace.span("shadow.setup", trace.NESTED):
+                card.t += pass_ms
+        card.t += 0.5
+        with trace.bracket("replay.copy"):
+            card.t += 0.25
+        with trace.span("shade.taa", trace.NESTED):
+            card.t += 4.0
+        card.t += 0.1
+
+
+def test_the_device_clock_reads_each_frames_passes(card):
+    for _ in range(60):
+        _clocked_frame(card)
+    made = card.made
+    for k in range(60):
+        _clocked_frame(card, pass_ms=3.0 + k)
+    assert card.made == made <= 24         # events come from a pool
+    f = trace.last_frame()
+    assert f["passes"] == pytest.approx({"read_back": 0.0, "replay.copy": 0.25,
+                                         "raster.main": 62.0,
+                                         "shade.taa": 4.0})
+    assert f["ms"] == pytest.approx(67.05)
+    assert f["idle_ms"] == pytest.approx(0.8)
+    # host totals as ever; a bracket keeps none
+    u = trace.unprofiled()["totals"]
+    assert u["shadow.setup"]["calls"] == u["frame.render"]["calls"] == 120
+    assert "replay.copy" not in u and "read_back" not in u
+    assert trace.profiled() is None
+
+
+def test_the_device_clock_never_reads_an_unfinished_event(card):
+    for k in range(3):
+        _clocked_frame(card, pass_ms=1.0 + k)
+    card.done = card.t - 4.2               # inside the last frame
+    assert trace.last_frame()["passes"]["raster.main"] == pytest.approx(2.0)
+    card.done = float("inf")
+    assert trace.last_frame()["passes"]["raster.main"] == pytest.approx(3.0)
+    # a frame read once a later one has completed, without a call between
+    for k in range(2):
+        _clocked_frame(card, pass_ms=7.0 + k)
+    assert trace.last_frame()["passes"]["raster.main"] == pytest.approx(8.0)
+
+
+def test_the_device_clock_rests_while_a_profiler_records(card):
+    """The profiler times the device itself: under it no span records an
+    event, and the newest frame read stays the one before it."""
+    _clocked_frame(card, pass_ms=5.0)
+    made = card.made
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(3):
+            _clocked_frame(card, pass_ms=9.0)
+    assert card.made == made
+    assert trace.last_frame()["passes"]["raster.main"] == pytest.approx(5.0)
+    assert trace.profiled()["totals"]["raster.main"]["calls"] == 3
+    _clocked_frame(card, pass_ms=6.0)
+    assert trace.last_frame()["passes"]["raster.main"] == pytest.approx(6.0)
+
+
+def test_the_device_clock_records_nothing_off_a_card(card):
+    """No bracket on the CPU or a meta device, for a nested span or a
+    bracket with no frame open around it, or on another thread while a
+    frame is open."""
+    import threading
+    for dev in (torch.device("cpu"), torch.device("meta"), None):
+        with trace.span("frame.render", dev):
+            with trace.span("shade.taa", trace.NESTED):
+                pass
+    with trace.span("shade.taa", trace.NESTED), trace.bracket("replay.copy"):
+        pass
+    assert card.made == 0 and trace.last_frame() is None
+    seen = []
+
+    def other():
+        with trace.span("frame.render", CUDA):
+            with trace.span("raster.main", trace.NESTED):
+                seen.append(trace._frame)
+    with trace.span("frame.render", CUDA):
+        t = threading.Thread(target=other)
+        t.start()
+        t.join(10)
+        assert not t.is_alive() and len(seen) == 1
+    assert card.made == 2
+    assert trace.last_frame()["passes"] == {}
+
+
+def test_the_device_clock_reads_from_another_thread(card):
+    """The viewer's render thread runs the frames while HTTP threads run
+    spans and read the clock, more threads than cores, switching often:
+    each frame read is whole (a lost update or an event shared by two
+    brackets would change its numbers), and no thread raises."""
+    import os
+    import sys
+    import threading
+    import time
+    stop, errors, read = threading.Event(), [], []
+
+    def reader(opens):
+        try:
+            while not stop.is_set():
+                with trace.span("frame.render", CUDA if opens else None):
+                    with trace.span("shade.taa", trace.NESTED):
+                        with trace.bracket("read_back"):
+                            pass
+                f = trace.last_frame()
+                if f is not None:
+                    read.append(f)
+                time.sleep(1e-3 if opens else 0)
+        except Exception as e:          # noqa: BLE001 - reported below
+            errors.append(e)
+    threads = [threading.Thread(target=reader, args=(k == 0,))
+               for k in range((os.cpu_count() or 1) + 1)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for t in threads:
+            t.start()
+        for k in range(200):
+            _clocked_frame(card, pass_ms=1.0 + k % 7)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(10)
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors and read
+    mine = 0
+    for f in read + [trace.last_frame()]:
+        passes = f["passes"]
+        if set(passes) == {"shade.taa"}:    # a reader's own frame
+            continue
+        mine += 1
+        assert f["idle_ms"] == pytest.approx(0.8)
+        assert f["ms"] == pytest.approx(sum(passes.values()) + 0.8)
+        assert min(abs(passes["raster.main"] - 1.0 - k)
+                   for k in range(7)) < 1e-6
+    assert mine
+
+
+def test_a_cpu_frame_records_no_event(terrain, card):
+    built, _ = terrain
+    history = fm.RenderHistory.create(built.plan.config, device="cpu")
+    g, mm, nm = built.frame_globals(1)
+    render = fm.make_render_fn(built.plan)
+    for _ in range(2):
+        out, history = render(built.batch, g, history, mm, nm)
+    assert torch.isfinite(out.color).all()
+    assert trace.unprofiled()["totals"]["frame.render"]["calls"] == 2
+    assert card.made == 0 and trace.last_frame() is None

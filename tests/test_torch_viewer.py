@@ -372,8 +372,12 @@ def test_real_render_fn_on_the_cpu(assets):
         assert Image.open(io.BytesIO(jpg)).size == (64, 64)
         m = json.loads(_get(base, "/metrics"))
         assert set(m) == {"frame_ms", "latency_ms", "fps", "frame",
-                          "overflow", "tex_dirty"}
+                          "overflow", "tex_dirty", "pass_ms",
+                          "category_ms", "device_idle_ms"}
         assert m["overflow"] == 0 and m["tex_dirty"] == -1
+        # the device clock reads no frame on the CPU: no pass times
+        assert m["pass_ms"] == m["category_ms"] == {}
+        assert m["device_idle_ms"] is None
         assert m["frame_ms"] > 0 and m["latency_ms"] > 0
 
         batch0 = state.built.batch
@@ -430,6 +434,30 @@ def test_metrics_pool_matches():
     assert pp.table() == jp.table()
     assert pp.CATEGORIES == jp.CATEGORIES
     assert pp.get("ssr") is pp.get("ssr")
+
+
+def test_metrics_pass_times_group_the_device_clocks_frame(monkeypatch):
+    """/metrics' HUD keys: the newest frame's pass ms as the device clock
+    read them, summed into the reference's categories, and its idle ms;
+    empty where the clock read no frame."""
+    from soc_real_time_renderer_tpu_torch.utils import trace
+    monkeypatch.setattr(trace, "last_frame", lambda: None)
+    assert pserver.pass_times() == {"pass_ms": {}, "category_ms": {},
+                                    "device_idle_ms": None}
+    passes = {"raster.main": 1.5, "raster.records": 0.25,
+              "raster.shadow": 1.25, "shade.gbuffer": 0.125,
+              "shade.bloom": 2.5, "shade.sky_lut": 0.125,
+              "shade.clouds": 1.0, "shade.compose": 0.875,
+              "shade.exposure": 1.0, "shade.taa": 0.125,
+              "replay.copy": 0.25}
+    monkeypatch.setattr(trace, "last_frame", lambda: {
+        "ms": 12.0, "idle_ms": 0.5, "passes": passes})
+    got = pserver.pass_times()
+    assert got["pass_ms"] == passes and got["device_idle_ms"] == 0.5
+    assert got["category_ms"] == {
+        "Geometry": 1.875, "Shadows": 1.25, "Bloom": 2.5, "Sky": 1.125,
+        "Lighting": 0.875, "Exposure": 1.0, "AntiAliasing": 0.125,
+        "Other": 0.25}
 
 
 def test_gpu_metric_measure_on_the_cpu():
